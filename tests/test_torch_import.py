@@ -1,0 +1,150 @@
+"""Import hygiene of the PyTorch port: it never imports JAX, flax or the JAX
+package, and its entry points never fall back to the CPU on their own."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tpu_aerial_transport_torch
+from tpu_aerial_transport_torch.control import cadmm, lowlevel
+from tpu_aerial_transport_torch.envs import forest, spatial
+from tpu_aerial_transport_torch.harness import rollout, setup
+from tpu_aerial_transport_torch.ops import admm_kernel, socp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "tpu_aerial_transport_torch")
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            tpu_aerial_transport_torch.__path__, "tpu_aerial_transport_torch."
+        )
+    )
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    """Every submodule imported in a fresh interpreter: no jax, no flax,
+    nothing of the JAX package."""
+    mods = ["tpu_aerial_transport_torch"] + _modules()
+    assert "tpu_aerial_transport_torch.ops.admm_kernel" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'tpu_aerial_transport'))\n"
+        "print(repr(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+# Import statements of jax/flax or of the JAX package (the package name not
+# followed by ``_torch``), and dynamic imports naming either. Prose that
+# names a module's JAX counterpart (``tpu_aerial_transport/ops/lie.py``) is
+# not an import.
+_REF = r"(jax|jaxlib|flax|tpu_aerial_transport(?!_torch))\b"
+_FORBIDDEN = re.compile(
+    rf"^\s*(import\s+[^#\n]*\b{_REF}|from\s+{_REF})"
+    rf"|(import_module|__import__)\(\s*['\"]{_REF}",
+    re.M,
+)
+
+
+def _sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, f) for f in names
+                  if f.endswith((".py", ".cu"))]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_names_no_jax_or_reference_package(path):
+    """Source scan: no ``import jax``/``from jax``/flax and no name of the
+    JAX package (``tpu_aerial_transport`` not followed by ``_torch``)."""
+    with open(path) as f:
+        text = f.read()
+    hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(text)]
+    assert not hits, hits
+
+
+def test_entry_point_default_device_is_the_card():
+    """Without ``device=`` an entry point targets the card: on a host with
+    no CUDA device it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        params, _, state = setup.rqp_setup(4)
+        assert params.r.is_cuda and state.R.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup.rqp_setup(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forest.make_forest(seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rollout.build(n=4, n_scenarios=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpu_aerial_transport_torch.resolve_device()
+
+
+def _cfg(**kw):
+    params, col, _ = setup.rqp_setup(8, device="cpu")
+    return cadmm.make_config(params, col.collision_radius,
+                             col.max_deceleration, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(effort="adaptive"), dict(inner_tol=1e-3), dict(tau_incr=1.5),
+    dict(socp_precision="bf16"), dict(env_query="bucketed"),
+    dict(reduced_qp=False), dict(inner_iters_warm=5),
+], ids=lambda kw: next(iter(kw)))
+def test_left_out_options_raise(kw):
+    """What the slice leaves out raises NotImplementedError naming its
+    ROADMAP item; it never silently does something else."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _cfg(**kw)
+
+
+def test_left_out_call_paths_raise():
+    params, col, state = setup.rqp_setup(4, device="cpu")
+    params3 = setup.rqp_setup(3, device="cpu")[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cadmm.make_config(params3, col.collision_radius,
+                          col.max_deceleration, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lowlevel.make_lowlevel_controller("sm", params)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        spatial.runtime_env_query(
+            "auto", forest.make_forest(seed=0, max_trees=201, device="cpu"))
+    x = torch.zeros((2, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        socp.solve_socp(torch.eye(4).expand(2, 4, 4), x, torch.eye(4).expand(
+            2, 4, 4), -torch.ones(2, 4), torch.ones(2, 4), n_box=4,
+            check_every=5, tol=1e-3)
+    cfg = _cfg()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cadmm.control(params, cfg, None, None, state, None, health=object())
+    with pytest.raises(ValueError, match="socp_fused"):
+        _cfg(socp_fused="kernel")
+
+
+def test_kernel_wrapper_refuses_other_devices():
+    """The wrapper runs the plain version only for CPU tensors; any other
+    device is the kernel's or an error, never a quiet fallback."""
+    x = torch.zeros((1, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        admm_kernel.fused_solve_lanes(
+            x, x, x, x, x, x, x, x, x, x, x, nv=4, n_box=4, soc_dims=(),
+            iters=1, alpha=1.6,
+        )

@@ -1,0 +1,54 @@
+"""Shared controller data types.
+
+Counterpart of ``tpu_aerial_transport/control/types.py``. Fields may carry
+leading batch axes (scenarios, agents).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class SolverStats:
+    """Per-control-step statistics (per scenario when batched): consensus
+    iterations, final consensus residual, any-collision flag, min env
+    distance, the NaN-padded per-iteration residual sequence, and the
+    worst-iteration fraction of agent solves that met ``solver_tol``."""
+
+    iters: torch.Tensor  # (...) int32.
+    solve_res: torch.Tensor  # (...).
+    collision: torch.Tensor  # (...) bool.
+    min_env_dist: torch.Tensor  # (...).
+    err_seq: torch.Tensor  # (..., max_iter + 1).
+    ok_frac: torch.Tensor  # (...).
+
+
+@dataclass(frozen=True)
+class EnvCBF:
+    """Environment CBF rows ``lhs @ dvl >= rhs`` plus observability outputs;
+    inactive rows are ``lhs = 0`` with ``rhs < 0``."""
+
+    lhs: torch.Tensor  # (..., k, 3).
+    rhs: torch.Tensor  # (..., k).
+    collision: torch.Tensor  # (...) bool.
+    min_dist: torch.Tensor  # (...).
+
+    def replace(self, **kw) -> "EnvCBF":
+        return dataclasses.replace(self, **kw)
+
+
+def inactive_env_cbf(n_rows: int, vision_radius: float, dist_eps: float,
+                     alpha: float, device="cpu",
+                     dtype=torch.float32) -> EnvCBF:
+    """The no-environment default."""
+    return EnvCBF(
+        lhs=torch.zeros((n_rows, 3), dtype=dtype, device=device),
+        rhs=torch.full((n_rows,), -alpha * (vision_radius - dist_eps),
+                       dtype=dtype, device=device),
+        collision=torch.zeros((), dtype=torch.bool, device=device),
+        min_dist=torch.tensor(vision_radius, dtype=dtype, device=device),
+    )

@@ -1,0 +1,126 @@
+"""The headline batched rollout: Monte-Carlo C-ADMM in the forest.
+
+Counterpart of the JAX package's headline workload (``bench.py`` ``build``,
+``make_mpc_step``, ``_scenario_batch`` and ``_substeps``): each MPC step of
+every scenario runs the per-agent vision-cone environment queries, the
+consensus-ADMM controller over Schur-reduced agent QPs, and ten 1 kHz
+low-level SO(3) control + physics substeps. All ``S`` scenarios advance
+together; state leaves carry the leading scenario axis.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_aerial_transport_torch import resolve_device
+from tpu_aerial_transport_torch.control import cadmm, centralized, lowlevel
+from tpu_aerial_transport_torch.envs import forest as forest_mod
+from tpu_aerial_transport_torch.harness import setup
+from tpu_aerial_transport_torch.models import rqp
+from tpu_aerial_transport_torch.obs import phases
+
+N_AGENTS = 8
+N_SCENARIOS = 256
+
+
+def substeps(params, ll, state, f_des, n_sub: int = 10, dt: float = 1e-3):
+    """``n_sub`` steps of 1 kHz low-level control + physics."""
+    with phases.scope(phases.DYNAMICS):
+        for _ in range(n_sub):
+            f, M = ll.control(state, f_des)
+            state = rqp.integrate(params, state, (f, M), dt)
+    return state
+
+
+def make_mpc_step(controller: str, n: int, max_iter: int = 20,
+                  inner_iters: int | None = None,
+                  pad_operators: bool | None = None, device="cuda"):
+    """``(mpc_step(css, states) -> (css, states, stats), cs0, state0)`` for
+    the headline set-up: ``rqp_setup(n)``, forest seed 0, PD low level,
+    ``acc_des = ((0.3, 0, 0), 0)``. ``cs0``/``state0`` are one scenario's
+    (no scenario axis); ``mpc_step`` takes and returns batched ones."""
+    if controller != "cadmm":
+        raise NotImplementedError(
+            f"controller={controller!r}: only 'cadmm' is ported (the "
+            "centralized controller is ROADMAP Queue 1 item 6, DD item 9)"
+        )
+    dev = resolve_device(device)
+    params, col, state0 = setup.rqp_setup(n, device=dev)
+    forest = forest_mod.make_forest(seed=0, device=dev)
+    f_eq = centralized.equilibrium_forces(params)
+    ll = lowlevel.make_lowlevel_controller("pd", params)
+    dvl_des = torch.zeros(3, dtype=torch.float32, device=dev)
+    dvl_des[0] = 0.3
+    acc_des = (dvl_des, torch.zeros(3, dtype=torch.float32, device=dev))
+    cfg = cadmm.make_config(
+        params, col.collision_radius, col.max_deceleration,
+        max_iter=max_iter,
+        inner_iters=inner_iters if inner_iters is not None else 20,
+        pad_operators=pad_operators, device=dev,
+    )
+    cs0 = cadmm.init_cadmm_state(params, cfg, f_eq)
+    plan = cadmm.make_plan(params, cfg)
+
+    def mpc_step(css, states):
+        f_app, css, stats = cadmm.control(
+            params, cfg, f_eq, css, states, acc_des, forest, plan=plan
+        )
+        return css, substeps(params, ll, states, f_app), stats
+
+    return mpc_step, cs0, state0
+
+
+def stack_scenarios(tree, n_scenarios: int):
+    """Repeat one scenario's state (a tensor, dataclass or NamedTuple of
+    tensors) along a new leading scenario axis."""
+    if isinstance(tree, torch.Tensor):
+        return tree.expand((n_scenarios,) + tree.shape).clone()
+    if isinstance(tree, tuple):
+        return type(tree)(*(stack_scenarios(t, n_scenarios) for t in tree))
+    fields = {k: stack_scenarios(v, n_scenarios)
+              for k, v in vars(tree).items()}
+    return type(tree)(**fields)
+
+
+def scenario_batch(state0: rqp.RQPState, n_scenarios: int) -> rqp.RQPState:
+    """The headline's seeded scenario batch: payload positions
+    ``N(0, 2^2) + (5, 0, 2)`` from ``numpy.random.default_rng(0)``, every
+    payload moving at (0.5, 0, 0) m/s, everything else from ``state0``."""
+    xs = (np.random.default_rng(0).normal(size=(n_scenarios, 3)) * 2.0
+          + np.array([5.0, 0.0, 2.0]))
+    states = stack_scenarios(state0, n_scenarios)
+    dev = state0.xl.device
+    vl = torch.zeros((n_scenarios, 3), dtype=torch.float32, device=dev)
+    vl[:, 0] = 0.5
+    return states.replace(
+        xl=torch.as_tensor(xs, dtype=torch.float32, device=dev), vl=vl,
+    )
+
+
+def rollout(mpc_step, css, states, n_steps: int):
+    """``n_steps`` MPC steps of every scenario: ``-> (css, states,
+    iters (n_steps, S))`` with the per-step consensus iteration counts."""
+    iters = []
+    for _ in range(n_steps):
+        css, states, stats = mpc_step(css, states)
+        iters.append(stats.iters)
+    return css, states, torch.stack(iters)
+
+
+def build(n: int = N_AGENTS, n_scenarios: int = N_SCENARIOS,
+          max_iter: int = 20, inner_iters: int = 20,
+          pad_operators: bool | None = None, device="cuda"):
+    """The headline workload: ``(run(css, states, n_steps), css, states)``
+    with C-ADMM at ``n`` agents over ``n_scenarios`` seeded scenarios."""
+    mpc_step, cs0, state0 = make_mpc_step(
+        "cadmm", n, max_iter=max_iter, inner_iters=inner_iters,
+        pad_operators=pad_operators, device=device,
+    )
+    states = scenario_batch(state0, n_scenarios)
+    css = stack_scenarios(cs0, n_scenarios)
+
+    def run(css, states, n_steps):
+        return rollout(mpc_step, css, states, n_steps)
+
+    return run, css, states

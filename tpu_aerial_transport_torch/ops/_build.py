@@ -1,0 +1,123 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+Each source is compiled by ``nvcc`` into its own shared library with a plain C
+interface, loaded through ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
+
+The library name carries a hash of the source and the flags, so an edited
+source is rebuilt and a stale library is never loaded. The build directory is
+``build/kernels`` beside the package (listed in ``.gitignore``), or
+``TAT_TORCH_BUILD_DIR``. :func:`build` compiles several sources at once, one
+``nvcc`` process each, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+KERNELS = ("fused_solve",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> str:
+    return os.environ.get("TAT_TORCH_BUILD_DIR") or os.path.join(
+        os.path.dirname(_PKG), "build", "kernels"
+    )
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "CUDA kernels are built from csrc/ at first use"
+    )
+
+
+def _source(name: str) -> str:
+    path = os.path.join(CSRC, name + ".cu")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    return path
+
+
+def library_path(name: str) -> str:
+    with open(_source(name), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(names=KERNELS) -> dict[str, tuple[float, str]]:
+    """Compile every missing library of ``names`` in parallel (one ``nvcc``
+    each, all started together); raise with the compiler's output if any
+    fails. Returns ``{name: (seconds, nvcc output)}`` for the ones built."""
+    os.makedirs(build_dir(), exist_ok=True)
+    todo = [n for n in names if not os.path.isfile(library_path(n))]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = library_path(n)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, _source(n)]
+        procs[n] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out)
+    done, failed = {}, []
+    for n, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        secs = time.perf_counter() - t0
+        if p.returncode != 0:
+            failed.append(f"{n}: nvcc exited {p.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        done[n] = (secs, log)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return done
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if missing."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not os.path.isfile(path):
+                build((name,))
+            lib = ctypes.CDLL(path)
+            _LIBS[name] = lib
+        return lib
+
+
+def error_string(err: int) -> str:
+    lib = load("fused_solve")
+    fn = lib.fused_solve_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(err).decode()

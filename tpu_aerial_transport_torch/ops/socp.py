@@ -1,0 +1,309 @@
+"""Batched conic QP/SOCP solver on tensors (fixed-iteration ADMM).
+
+Counterpart of ``tpu_aerial_transport/ops/socp.py``. Problem form:
+
+    minimize    (1/2) x^T P x + q^T x
+    subject to  A x + shift in C,   C = Box(lb, ub) x SOC(d_1) x ... x SOC(d_k)
+
+with the first ``n_box`` rows box rows (equalities as ``lb == ub``) and the
+rest second-order-cone blocks of static dims ``soc_dims``. Every argument
+carries explicit leading batch axes (e.g. ``(S scenarios, n agents)``); the
+solver folds them into one lane axis and runs the whole solve -- the
+``w2 = [Minv q; A Minv q]`` build, ``iters`` ADMM iterations with the
+prebuilt fused operator ``K2``, and the exit residuals -- through
+``ops.admm_kernel.fused_solve_lanes``: the hand-written CUDA kernel for
+tensors on the card, its plain PyTorch version for tensors on the CPU.
+
+Ported: the fixed-iteration path. The tolerance-chunked early exit
+(``check_every``/``tol``), the adaptive-effort gate (``active``) and bf16
+operator storage raise ``NotImplementedError`` (ROADMAP Queue 2 items 1(b),
+1(c)).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+
+from tpu_aerial_transport_torch.harness.bucketing import bucket_dim
+from tpu_aerial_transport_torch.obs import phases
+from tpu_aerial_transport_torch.ops import admm_kernel
+
+EQ_RHO_SCALE = 1e3  # rho boost for equality rows.
+INF = 1e20  # "infinity" bound.
+
+# Operator edges are padded to multiples of this when pad_operators is on
+# (the JAX package's f32 sublane tile; on the card it keeps rows aligned).
+SUBLANE_TILE = 8
+
+
+class KKTOp(NamedTuple):
+    """Precomputed ADMM x-update operator (see :func:`kkt_operator`)."""
+
+    Minv: torch.Tensor  # (..., nv, nv) inverse of P + sigma I + A^T rho A.
+    MinvAT: torch.Tensor  # (..., nv, m).
+    K2: torch.Tensor  # (..., nv+m, nv+m) fused iteration operator.
+
+
+class SOCPSolution(NamedTuple):
+    x: torch.Tensor  # (..., nv) primal solution.
+    y: torch.Tensor  # (..., m) dual solution.
+    z: torch.Tensor  # (..., m) projected constraint values.
+    prim_res: torch.Tensor  # (...) inf-norm of A x - z.
+    dual_res: torch.Tensor  # (...) inf-norm of P x + q + A^T y.
+
+
+def padded_dims(nv: int, n_box: int, soc_dims: Sequence[int] = ()):
+    """``(nv_p, n_box_p)``: ``nv`` and ``m = n_box + sum(soc_dims)`` rounded
+    up to :data:`SUBLANE_TILE`; the row padding goes into the box region."""
+    m = n_box + sum(soc_dims)
+    n_box_p = n_box + bucket_dim(m, SUBLANE_TILE) - m
+    return bucket_dim(nv, SUBLANE_TILE), n_box_p
+
+
+@phases.scoped(phases.PAD)
+def pad_qp(P, q, A, lb, ub, shift=None, *, n_box: int,
+           soc_dims: Sequence[int] = ()):
+    """Pad a (batched) QP to its tile bucket, exactly: pad variables get a
+    unit diagonal in ``P`` and zero ``q``/columns (they rest at 0); pad rows
+    are zero ``A`` rows with free bounds and zero shift, placed after the
+    real box rows and before the SOC blocks."""
+    nv = P.shape[-1]
+    m = A.shape[-2]
+    nv_p, n_box_p = padded_dims(nv, n_box, soc_dims)
+    pad_v = nv_p - nv
+    pad_b = n_box_p - n_box
+    batch = P.shape[:-2]
+    kw = dict(dtype=P.dtype, device=P.device)
+    P_p = torch.nn.functional.pad(P, (0, pad_v, 0, pad_v))
+    if pad_v:
+        P_p[..., nv:, nv:] += torch.eye(pad_v, **kw)
+    q_p = torch.nn.functional.pad(q, (0, pad_v))
+    A_rows = torch.cat(
+        [A[..., :n_box, :], torch.zeros(batch + (pad_b, nv), **kw),
+         A[..., n_box:, :]], dim=-2,
+    )
+    A_p = torch.nn.functional.pad(A_rows, (0, pad_v))
+    lb_p = torch.cat([lb, torch.full(batch + (pad_b,), -INF, **kw)], dim=-1)
+    ub_p = torch.cat([ub, torch.full(batch + (pad_b,), INF, **kw)], dim=-1)
+    if shift is None:
+        shift_p = torch.zeros(batch + (m + pad_b,), **kw)
+    else:
+        shift_p = torch.cat(
+            [shift[..., :n_box], torch.zeros(batch + (pad_b,), **kw),
+             shift[..., n_box:]], dim=-1,
+        )
+    return P_p, q_p, A_p, lb_p, ub_p, shift_p
+
+
+def project_soc(z: torch.Tensor) -> torch.Tensor:
+    """Projection of ``z = (t, v) (..., d)`` onto ``||v|| <= t``: keep inside,
+    zero in the polar cone, radial shrink otherwise (``nrm > 0`` guarded)."""
+    t = z[..., 0]
+    v = z[..., 1:]
+    nrm = torch.sqrt(torch.sum(v * v, dim=-1))
+    inside = nrm <= t
+    polar = nrm <= -t
+    s = 0.5 * (t + nrm)
+    zero = torch.zeros_like(t)
+    pos = nrm > 0
+    scale = torch.where(pos, s / torch.where(pos, nrm, torch.ones_like(nrm)),
+                        zero)
+    t_out = torch.where(inside, t, torch.where(polar, zero, s))
+    v_out = torch.where(
+        inside[..., None], v,
+        torch.where(polar[..., None], torch.zeros_like(v),
+                    scale[..., None] * v),
+    )
+    return torch.cat([t_out[..., None], v_out], dim=-1)
+
+
+def _project_cone(z, lb, ub, n_box: int, soc_dims: Sequence[int], shift=None):
+    """Projection onto the translated cone ``{z : z + shift in Box x SOC..}``,
+    equal-dim SOC blocks projected together. ``shift=None`` adds nothing."""
+    if shift is not None:
+        z = z + shift
+    parts = []
+    if n_box:
+        zb = z[..., :n_box]
+        parts.append(torch.minimum(torch.maximum(zb, lb), ub))
+    off = n_box
+    dims = list(soc_dims)
+    i = 0
+    while i < len(dims):
+        d = dims[i]
+        j = i
+        while j < len(dims) and dims[j] == d:
+            j += 1
+        k = j - i
+        blk = z[..., off: off + k * d].reshape(*z.shape[:-1], k, d)
+        parts.append(project_soc(blk).reshape(*z.shape[:-1], k * d))
+        off += k * d
+        i = j
+    out = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+    if shift is not None:
+        out = out - shift
+    return out
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (M @ v[..., None])[..., 0]
+
+
+def _admm_step(carry, K2, w2, rho_vec, lb, ub, shift, *, nv, n_box,
+               soc_dims, alpha):
+    """One batched ADMM iteration:
+    ``v = K2 [x; rho z - y] - w2``, over-relaxation by ``alpha``, the
+    translated cone projection and the dual update."""
+    x, y, z = carry
+    v = _mv(K2, torch.cat([x, rho_vec * z - y], dim=-1)) - w2
+    x_new, Ax = v[..., :nv], v[..., nv:]
+    Ax_rel = alpha * Ax + (1 - alpha) * z
+    z_new = _project_cone(Ax_rel + y / rho_vec, lb, ub, n_box, soc_dims, shift)
+    y_new = y + rho_vec * (Ax_rel - z_new)
+    return (x_new, y_new, z_new)
+
+
+def make_rho_vec(m: int, n_box: int, lb, ub, rho: float):
+    """Per-row penalty: equality box rows (``ub - lb < 1e-9``) get
+    ``rho * EQ_RHO_SCALE``. ``lb``/``ub`` ``(..., n_box)``."""
+    batch = lb.shape[:-1]
+    rho_vec = torch.full(batch + (m,), rho, dtype=lb.dtype, device=lb.device)
+    if n_box:
+        is_eq = (ub - lb) < 1e-9
+        rho_vec[..., :n_box] = torch.where(
+            is_eq, torch.full_like(lb, rho * EQ_RHO_SCALE),
+            torch.full_like(lb, rho),
+        )
+    return rho_vec
+
+
+def kkt_operator(P, A, rho_vec, sigma: float = 1e-6) -> KKTOp:
+    """Invert ``P + sigma I + A^T diag(rho) A`` (symmetrised) and prebuild the
+    fused iteration operator ``K2 = [[sigma Minv, Minv A^T], [A sigma Minv,
+    A Minv A^T]]``. Batched over leading axes."""
+    nv = P.shape[-1]
+    AT = A.transpose(-1, -2)
+    eye = torch.eye(nv, dtype=P.dtype, device=P.device)
+    M = P + sigma * eye + (AT * rho_vec[..., None, :]) @ A
+    Minv = torch.linalg.inv(M)
+    Minv = 0.5 * (Minv + Minv.transpose(-1, -2))
+    MinvAT = Minv @ AT
+    K = torch.cat([sigma * Minv, MinvAT], dim=-1)
+    K2 = torch.cat([K, A @ K], dim=-2)
+    return KKTOp(Minv=Minv, MinvAT=MinvAT, K2=K2)
+
+
+def equilibrate_rows(A, lb, ub, shift, n_box: int, soc_dims):
+    """Exact row/block equilibration: each box row scaled by
+    ``1 / max(||row||, 1)``, each SOC block by one scalar from its largest
+    row norm. Returns ``(A', lb', ub', shift', scales (..., m))``."""
+    norms = torch.sqrt(torch.sum(A * A, dim=-1))
+    s = 1.0 / torch.clamp(norms[..., :n_box], min=1.0)
+    scales = [s]
+    off = n_box
+    for dsoc in soc_dims:
+        blk = torch.amax(norms[..., off:off + dsoc], dim=-1, keepdim=True)
+        sb = 1.0 / torch.clamp(blk, min=1.0)
+        scales.append(sb.expand(sb.shape[:-1] + (dsoc,)))
+        off += dsoc
+    scales = torch.cat(scales, dim=-1)
+    A_s = A * scales[..., None]
+    lb_s = lb * scales[..., :n_box]
+    ub_s = ub * scales[..., :n_box]
+    shift_s = None if shift is None else shift * scales
+    return A_s, lb_s, ub_s, shift_s, scales
+
+
+def solution_is_finite(sols: SOCPSolution) -> torch.Tensor:
+    """Per-instance all-finite check over the iterates."""
+    return (
+        torch.all(torch.isfinite(sols.x), dim=-1)
+        & torch.all(torch.isfinite(sols.y), dim=-1)
+        & torch.all(torch.isfinite(sols.z), dim=-1)
+    )
+
+
+def solve_socp(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    A: torch.Tensor,
+    lb: torch.Tensor,
+    ub: torch.Tensor,
+    *,
+    n_box: int,
+    soc_dims: Sequence[int] = (),
+    iters: int = 200,
+    rho: float = 0.4,
+    sigma: float = 1e-6,
+    alpha: float = 1.6,
+    warm: SOCPSolution | None = None,
+    check_every: int = 0,
+    tol: float = 0.0,
+    shift: torch.Tensor | None = None,
+    op: KKTOp | None = None,
+    precision: str = "f32",
+    active: torch.Tensor | None = None,
+) -> SOCPSolution:
+    """Solve a batch of conic QPs with ``iters`` fixed ADMM iterations.
+
+    Shapes: ``P (..., nv, nv)``, ``q (..., nv)``, ``A (..., m, nv)``,
+    ``lb``/``ub`` ``(..., n_box)``, ``shift (..., m)`` or None, ``warm`` a
+    :class:`SOCPSolution` with the same leading axes (None: cold start),
+    ``op`` a prebuilt :class:`KKTOp` (built here when None). The warm ``z``
+    is always projected onto the translated cone first (identity for an
+    in-cone start; repairs an all-zeros cold start).
+
+    The whole solve runs in one call of ``admm_kernel.fused_solve_lanes``:
+    its CUDA kernel for tensors on the card, its plain PyTorch version for
+    tensors on the CPU."""
+    if check_every or tol > 0:
+        raise NotImplementedError(
+            "the tolerance-chunked early-exit solve (check_every/tol) is not "
+            "ported yet (ROADMAP Queue 2 item 1(b))"
+        )
+    if active is not None:
+        raise NotImplementedError(
+            "active= gating (adaptive effort) is not ported yet (ROADMAP "
+            "Queue 2 item 1(b))"
+        )
+    if precision != "f32":
+        raise NotImplementedError(
+            f"precision={precision!r}: bf16 operator storage is not ported "
+            "yet (ROADMAP Queue 2 item 1(c))"
+        )
+    m, nv = A.shape[-2:]
+    assert m == n_box + sum(soc_dims)
+    batch = A.shape[:-2]
+    dtype, device = P.dtype, P.device
+
+    rho_vec = make_rho_vec(m, n_box, lb, ub, rho)
+    if op is None:
+        op = kkt_operator(P, A, rho_vec, sigma)
+    if warm is None:
+        x0 = torch.zeros(batch + (nv,), dtype=dtype, device=device)
+        y0 = torch.zeros(batch + (m,), dtype=dtype, device=device)
+        z0 = torch.zeros(batch + (m,), dtype=dtype, device=device)
+    else:
+        x0, y0, z0 = warm.x, warm.y, warm.z
+    z0 = _project_cone(z0, lb, ub, n_box, soc_dims, shift)
+
+    def lanes(t: torch.Tensor, k: int) -> torch.Tensor:
+        """Fold the leading axes into one contiguous lane axis."""
+        return t.reshape((-1,) + t.shape[t.dim() - k:]).contiguous()
+
+    args = [lanes(x0, 1), lanes(y0, 1), lanes(z0, 1), lanes(op.K2, 2),
+            lanes(op.Minv, 2), lanes(A, 2), lanes(P, 2), lanes(q, 1),
+            lanes(rho_vec, 1), lanes(lb, 1), lanes(ub, 1),
+            None if shift is None else lanes(shift, 1)]
+    with phases.scope(phases.FUSED_SOLVE):
+        x, y, z, prim, dual = admm_kernel.fused_solve_lanes(
+            *args, nv=nv, n_box=n_box, soc_dims=tuple(soc_dims), iters=iters,
+            alpha=alpha,
+        )
+    return SOCPSolution(
+        x=x.reshape(batch + (nv,)), y=y.reshape(batch + (m,)),
+        z=z.reshape(batch + (m,)), prim_res=prim.reshape(batch),
+        dual_res=dual.reshape(batch),
+    )
