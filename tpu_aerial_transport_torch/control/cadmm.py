@@ -118,11 +118,9 @@ def make_config(
     dt: float = 1e-3,
     rho0: float = 1.0,
     tau_incr: float = 1.0,
-    rho_max: float = 2.0,
     socp_fused: str = "auto",
     socp_precision: str = "auto",
     inner_tol: float = 0.0,
-    inner_check_every: int = 10,
     solve_retry_iters: int = 4,
     pad_operators: bool | None = None,
     effort: str = "auto",
