@@ -21,7 +21,34 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
 4. profile one MPC step (``torch.profiler``) and attribute device and host
    time to the ``tat.*`` phases;
 5. run the first MPC step of 8 scenarios on the CPU (plain path) and hold
-   the card's lanes against it.
+   the card's lanes against it;
+6. drive the adaptive headline -- the same rollout with
+   ``effort="adaptive"`` through the whole-solve kernel's early-exit form
+   -- for one warm-up and ``TIMED_STEPS`` timed steps: the early-exit
+   kernel must have launched exactly once per consensus iteration run, the
+   inner iterations must be positive and never above n x inner_iters x
+   iterations, the states finite; its first step must meet the fixed
+   arm's quality (final consensus residual under 1e-2 N wherever the fixed
+   arm's is, applied forces within 1e-2 N); then profile one adaptive step;
+7. drive DD at 256 x 8 with adaptive effort for one warm-up and
+   ``TIMED_STEPS`` timed steps (one early-exit launch per dual-ascent
+   iteration) and hold its first step of 8 scenarios against the CPU plain
+   path;
+8. hold the early-exit kernel against its plain version on inputs captured
+   from the adaptive main path (ungated, half the lanes gated off, a ragged
+   lane count, a remainder chunk) and from DD's (d = 56): effective
+   iteration counts equal in at least 99% of lanes and never more than one
+   chunk apart, outputs within the kernel bar on the lanes whose counts
+   agree; time both and compute the bound from this run's data;
+9. drive the chunked route (``socp_fused="pallas"``), fixed and adaptive,
+   for a few steps each: the chunk kernel must have launched exactly once
+   per chunk run (counted from each solve's effective iterations); hold it
+   against its plain version on captured inputs and time it.
+
+The kernel bar is 1e-4 x max(1, |ref|) for every output, or twice the
+plain version's own float32 rounding (its distance from the same plain
+version run in float64) where that is larger: DD's duals carry 400 times
+the rounding of A x (``ROUNDING_FACTOR``).
 
 Output: timing lines carry the card's name and power limit; a ``kernels``
 JSON line, the ``nvidia-smi`` name/power-limit line, and last
@@ -31,6 +58,7 @@ JSON line, the ``nvidia-smi`` name/power-limit line, and last
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -39,8 +67,15 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "tpu_aerial_transport_torch"
+# The port's kernels by their __global__ names (no name is a substring of
+# another), and the phase their device time is attributed to.
+OWN_KERNELS = {"fused_solve_kernel": "fused_solve",
+               "fused_solve_early_kernel": "fused_solve_early",
+               "admm_chunk_kernel": "admm_chunk"}
 
 N_AGENTS, N_SCENARIOS, TIMED_STEPS = 8, 256, 10
+# Steps of each chunked-route arm (fixed and adaptive), after a warm-up.
+CHUNK_STEPS = 3
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32
 # outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -53,6 +88,20 @@ PEAK_F32_FLOP_S = 67e12
 KERNEL_ATOL = 1e-4
 CPU_STATE_ATOL = 1e-4
 CPU_FORCE_ATOL = 1e-2  # the consensus tolerance res_tol, in N.
+# Adaptive against fixed effort: the JAX package's equal-quality bar
+# (ops/socp.py resolve_effort), the consensus tolerance in N.
+EFFORT_BAR = 1e-2
+# Early-exit kernel against its plain version: the sums run in another
+# order, so a lane whose residual sits at tol at a chunk boundary may stop
+# one chunk apart (the JAX package allows the same between its two kernel
+# bodies, tests/test_effort.py:252-254).
+EFF_EQUAL_SHARE = 0.99
+# Where the plain version's own float32 rounding is larger than the kernel
+# bar -- DD's duals: y moves by rho (Ax_rel - z) with rho = 400 on its nine
+# equality rows, so a last-bit difference in Ax_rel shows in y 400 times
+# larger -- an output may differ from it by up to this many times its
+# distance from the same plain version run in float64.
+ROUNDING_FACTOR = 2.0
 
 
 def fail(msg: str) -> None:
@@ -95,6 +144,78 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def event_ms(fn, reps: int) -> float:
+    """Device-clock milliseconds per call of ``fn`` between two CUDA events
+    around ``reps`` host-driven calls, for functions that synchronise with
+    the host inside (a graph cannot capture them): the number includes the
+    host's pauses between the calls' kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def capturing(module, name: str, store: list, when=lambda kw: True):
+    """Record (clones of) the arguments of the first call of
+    ``module.<name>`` whose keywords satisfy ``when``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        if not store and when(kw):
+            store.append(([None if a is None else a.clone() for a in args],
+                          dict(kw)))
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def zero_launches() -> None:
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    for k in admm_kernel.LAUNCHES:
+        admm_kernel.LAUNCHES[k] = 0
+
+
+def applied_forces(css):
+    """Each agent's applied force, the diagonal of its copies."""
+    import torch
+
+    ids = torch.arange(css.f.shape[-2], device=css.f.device)
+    return css.f[:, ids, ids, :]
+
+
+def bound(bytes_, flops):
+    """``(bound_ms, bound_by)``: the larger of moving ``bytes_`` at the
+    card's memory rate and doing ``flops`` at its float32 rate."""
+    t_bytes = bytes_ / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def per_launch_us(prof, kernel: str):
+    """Device microseconds per launch of ``kernel`` in a trace, or None."""
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    if not rows:
+        return None
+    tot = getattr(rows[0], "device_time_total", None)
+    if tot is None:
+        tot = getattr(rows[0], "cuda_time_total", 0.0)
+    return float(tot) / max(int(rows[0].count), 1)
+
+
 def phase_breakdown(prof) -> dict:
     """Device and host microseconds per innermost ``tat.*`` phase."""
     def dev(ev):
@@ -111,7 +232,8 @@ def phase_breakdown(prof) -> dict:
         for ch in ev.cpu_children:
             walk(ch, phase)
 
-    kernels_us = own_us = 0.0
+    kernels_us = 0.0
+    own_us = {phase: 0.0 for phase in OWN_KERNELS.values()}
     for ev in prof.events():
         kind = str(ev.device_type)
         if ev.cpu_parent is None and kind.endswith("CPU"):
@@ -120,14 +242,170 @@ def phase_breakdown(prof) -> dict:
                 getattr(ev, "is_user_annotation", False)
                 or ev.name.startswith("tat.")):
             kernels_us += float(ev.device_time_total)
-            if "fused_solve_kernel" in ev.name:
-                own_us += float(ev.device_time_total)
+            for kname, phase in OWN_KERNELS.items():
+                if kname in ev.name:
+                    own_us[phase] += float(ev.device_time_total)
     # The port's own kernels launch through their library's statically
     # linked runtime, which the trace does not tie to a host range: they
     # are named here, and only what remains is unattributed.
-    device["fused_solve"] = device.get("fused_solve", 0.0) + own_us
+    for phase, us in own_us.items():
+        device[phase] = device.get(phase, 0.0) + us
     device["unattributed"] = max(kernels_us - sum(device.values()), 0.0)
     return {"device_us": device, "host_us": host, "kernels_us": kernels_us}
+
+
+def first_step_quality(fixed, adaptive):
+    """The equal-quality bar of adaptive against fixed effort on the same
+    first step: ``fixed``/``adaptive`` are ``(css, states, stats)``."""
+    res_f, res_a = fixed[2].solve_res, adaptive[2].solve_res
+    good = res_f < EFFORT_BAR
+    worse = int((good & ~(res_a < EFFORT_BAR)).sum())
+    f_err = float((applied_forces(adaptive[0])
+                   - applied_forces(fixed[0])).abs().max())
+    return {"fixed_res_max": float(res_f.max()),
+            "adaptive_res_max": float(res_a.max()),
+            "scenarios_under_bar_fixed": int(good.sum()),
+            "lost_the_bar": worse, "force_err": f_err,
+            "ok": worse == 0 and f_err <= EFFORT_BAR}
+
+
+def timed_steps(mpc_step, css, states, n_steps):
+    """``n_steps`` MPC steps from ``(css, states)`` with every launch
+    counter set to 0 just before and read just after: ``(css, states,
+    iters (n_steps, S), inner (n_steps, S) or None, seconds, launches)``."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    iters, inner = [], []
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        css, states, stats = mpc_step(css, states)
+        iters.append(stats.iters)
+        inner.append(stats.inner_iters)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(admm_kernel.LAUNCHES)
+    inner = torch.stack(inner) if inner[0].numel() else None
+    return css, states, torch.stack(iters), inner, elapsed, launches
+
+
+def check_states(css, states, what):
+    import torch
+
+    for f in ("R", "w", "xl", "vl", "Rl", "wl"):
+        if not bool(torch.isfinite(getattr(states, f)).all()):
+            fail(f"{what}: non-finite state field {f}")
+    if not bool(torch.isfinite(css.f).all()):
+        fail(f"{what}: non-finite forces")
+
+
+def check_launches(launches, kernel, expected, what):
+    """``kernel`` launched exactly ``expected`` (> 0) times in the run and
+    no other kernel launched."""
+    if launches[kernel] <= 0:
+        fail(f"{what} never launched the {kernel} kernel")
+    if launches[kernel] != expected:
+        fail(f"{what}: {kernel} launches {launches[kernel]} != {expected}")
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if others:
+        fail(f"{what} launched other kernels too: {others}")
+
+
+def agreement(names, got, ref, ref64, lanes_ok=None):
+    """Per output: the kernel's largest difference from its plain version,
+    the plain version's own float32 rounding (its difference from the plain
+    version in float64), and whether the kernel is within the bar
+    ``max(KERNEL_ATOL x max(1, |ref|), ROUNDING_FACTOR x rounding)``, on
+    the lanes ``lanes_ok`` (all when None)."""
+    import torch
+
+    errs, noise, ok = {}, {}, True
+    for nm, g, r, r64 in zip(names, got, ref, ref64):
+        if lanes_ok is not None:
+            g, r, r64 = g[lanes_ok], r[lanes_ok], r64[lanes_ok]
+        if not g.numel():
+            errs[nm] = noise[nm] = 0.0
+            continue
+        errs[nm] = float((g - r).abs().max())
+        noise[nm] = float((r.double() - r64).abs().max())
+        bar = max(KERNEL_ATOL * max(1.0, float(r.abs().max())),
+                  ROUNDING_FACTOR * noise[nm])
+        ok = ok and errs[nm] <= bar and bool(torch.isfinite(g).all())
+    return errs, noise, ok
+
+
+def in_float64(args):
+    return [a.double() if a is not None and a.is_floating_point() else a
+            for a in args]
+
+
+def check_early_exit(cases, card):
+    """The early-exit kernel against its plain version on each case
+    ``(name, args, kw)``; returns the per-case report and the largest
+    error on the lanes whose effective counts agree."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    names = ("x", "y", "z", "prim_res", "dual_res")
+    checks, worst = {}, 0.0
+    for case, a, k in cases:
+        got = admm_kernel.fused_solve_lanes(*a, **k)
+        ref = admm_kernel.fused_solve_lanes_reference(*a, **k)
+        ref64 = admm_kernel.fused_solve_lanes_reference(*in_float64(a), **k)
+        torch.cuda.synchronize()
+        same = got[5] == ref[5]
+        share = float(same.float().mean())
+        apart = int((got[5] - ref[5]).abs().max())
+        errs, noise, ok = agreement(names, got[:5], ref[:5], ref64[:5],
+                                    same & (ref64[5] == ref[5]))
+        ok = ok and share >= EFF_EQUAL_SHARE and apart <= k["check_every"]
+        worst = max(worst, max(errs.values()))
+        B = a[0].shape[0]
+        gated = a[12] is not None and not bool(a[12].all())
+        print(f"early-exit check {case}: B={B} d={k['nv'] + a[8].shape[-1]} "
+              f"iters={k['iters']} check_every={k['check_every']} "
+              f"tol={k['tol']} gated_off={int((~a[12]).sum()) if gated else 0}"
+              f" eff equal in {share * 100:.2f}% of lanes, at most {apart} "
+              f"apart, mean {float(got[5].float().mean()):.2f}; max|err| on "
+              f"equal lanes " + " ".join(f"{n}={e:.3e}" for n, e in
+                                         errs.items())
+              + "; plain float32 vs float64 "
+              + " ".join(f"{n}={e:.3e}" for n, e in noise.items())
+              + f" (bar max({KERNEL_ATOL} x max(1, |ref|), "
+              f"{ROUNDING_FACTOR} x that)) "
+              + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+        checks[case] = {"B": B, "eff_equal_share": share, "eff_apart": apart,
+                        "max_abs_err": errs, "plain_f32_vs_f64": noise,
+                        "ok": ok}
+        if not ok:
+            fail(f"early-exit kernel disagrees with its plain version on "
+                 f"{case}")
+    return checks, worst
+
+
+def early_exit_bound(args, kw, eff):
+    """Bytes and operations one early-exit launch must move and do on this
+    data: a gated-off lane needs neither K2 nor Minv and iterates 0 times;
+    a lane that ran c chunks checked its residuals c + 1 times before the
+    exit residuals."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    nv, n_box, soc = kw["nv"], kw["n_box"], tuple(kw["soc_dims"])
+    m = args[8].shape[-1]
+    gate = args[12]
+    on = [True] * len(eff) if gate is None else gate.tolist()
+    bytes_ = flops = 0
+    for g, e in zip(on, eff.tolist()):
+        bytes_ += admm_kernel.fused_solve_bytes_per_lane(
+            nv, m, n_box, early=True, gated_off=not g)
+        checks = (e // kw["check_every"] + 1) if g else 0
+        flops += admm_kernel.fused_solve_flops_per_lane(
+            nv, m, e, soc, residual_checks=checks + 1, build=g)
+    return bytes_, flops
 
 
 def main() -> int:
@@ -144,7 +422,7 @@ def main() -> int:
         return 1
 
     from tpu_aerial_transport_torch.harness import rollout
-    from tpu_aerial_transport_torch.ops import _build, admm_kernel
+    from tpu_aerial_transport_torch.ops import _build, admm_kernel, socp
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -307,16 +585,8 @@ def main() -> int:
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
     phases = phase_breakdown(prof)
-    kernel_rows = [e for e in prof.key_averages()
-                   if "fused_solve_kernel" in e.key]
+    in_path_us = per_launch_us(prof, "fused_solve_kernel")
     dev_total = phases["kernels_us"] or sum(phases["device_us"].values())
-    in_path_us = None
-    if kernel_rows:
-        r = kernel_rows[0]
-        tot = getattr(r, "device_time_total", None)
-        if tot is None:
-            tot = getattr(r, "cuda_time_total", 0.0)
-        in_path_us = float(tot) / max(int(r.count), 1)
     print(f"profile of one MPC step: wall {step_s * 1e3:.2f} ms (profiler "
           f"on), device busy {dev_total / 1e3:.2f} ms = "
           f"{100 * dev_total / 1e3 / (step_s * 1e3):.1f}% | {card}",
@@ -362,6 +632,289 @@ def main() -> int:
     if not ok:
         fail("the card's first step disagrees with the CPU plain path")
 
+    # 6. The adaptive headline: the same rollout with effort="adaptive",
+    # through the whole-solve kernel's early-exit form.
+    step_fx, _, _ = rollout.make_mpc_step(
+        "cadmm", N_AGENTS, max_iter=20, inner_iters=20, effort="fixed",
+        device="cuda")
+    fixed_first = step_fx(css0, states0)
+    step_ad, _, _ = rollout.make_mpc_step(
+        "cadmm", N_AGENTS, max_iter=20, inner_iters=20, effort="adaptive",
+        device="cuda")
+    early_args = []
+    with capturing(admm_kernel, "fused_solve_lanes", early_args,
+                  when=lambda kw: kw.get("check_every", 0) > 0):
+        adaptive_first = step_ad(css0, states0)
+    torch.cuda.synchronize()
+    quality = first_step_quality(fixed_first, adaptive_first)
+    print(f"adaptive vs fixed effort, first MPC step of {N_SCENARIOS} "
+          f"scenarios: final consensus residual max "
+          f"{quality['fixed_res_max']:.3e} (fixed) "
+          f"{quality['adaptive_res_max']:.3e} (adaptive); "
+          f"{quality['scenarios_under_bar_fixed']} scenarios under "
+          f"{EFFORT_BAR} N with fixed effort, {quality['lost_the_bar']} of "
+          f"them not with adaptive; applied forces max|diff| "
+          f"{quality['force_err']:.3e} N (bar {EFFORT_BAR}) "
+          + ("ok" if quality["ok"] else "FAIL"), flush=True)
+    if not quality["ok"]:
+        fail("adaptive effort misses the fixed arm's quality bar")
+    css_a, states_a, iters_a, inner_a, secs_a, launches_a = timed_steps(
+        step_ad, css0, states0, TIMED_STEPS)
+    runs_a = int(iters_a.max(dim=1).values.sum())
+    check_launches(launches_a, "fused_solve_early", runs_a,
+                   "the adaptive headline")
+    check_states(css_a, states_a, "the adaptive headline")
+    if inner_a is None or not bool((inner_a.sum(dim=1) > 0).all()):
+        fail("the adaptive headline reported no inner iterations")
+    if bool((inner_a < 0).any()) or bool(
+            (inner_a > N_AGENTS * 20 * iters_a).any()):
+        fail("inner iterations outside [0, n x inner_iters x iterations]")
+    rate_a = N_SCENARIOS * TIMED_STEPS / secs_a
+    it_a = iters_a.to(torch.float32)
+    # The fixed arm runs every lane of the batch for the full inner budget
+    # in every consensus iteration it runs.
+    fixed_work = N_SCENARIOS * N_AGENTS * 20 * runs_a
+    inner_per_step = float(inner_a.sum()) / TIMED_STEPS
+    print(f"adaptive headline: {N_SCENARIOS}x{N_AGENTS} C-ADMM forest, "
+          f"effort adaptive, {TIMED_STEPS} MPC steps in {secs_a:.4f} s = "
+          f"{rate_a:.2f} scenario-MPC-steps/s | consensus iters/step mean "
+          f"{float(it_a.mean()):.3f} max {int(iters_a.max())} | inner "
+          f"iterations/step {inner_per_step:.1f} (summed over scenarios and "
+          f"agents; the fixed arm's kernel runs {fixed_work / TIMED_STEPS:.1f}"
+          f" lane-iterations/step for the same consensus iterations) | "
+          f"launches {launches_a} = consensus iterations run {runs_a} | "
+          f"{card}", flush=True)
+    # The same comparison in turns (fixed, adaptive, adaptive, fixed), so
+    # a drift of the shared host's speed does not read as a difference.
+    secs_a2 = timed_steps(step_ad, css0, states0, TIMED_STEPS)[4]
+    secs_f2 = timed_steps(step_fx, css0, states0, TIMED_STEPS)[4]
+    turns = {"fixed": [N_SCENARIOS * TIMED_STEPS / elapsed,
+                       N_SCENARIOS * TIMED_STEPS / secs_f2],
+             "adaptive": [rate_a, N_SCENARIOS * TIMED_STEPS / secs_a2]}
+    print(f"fixed vs adaptive effort in turns (fixed, adaptive, adaptive, "
+          f"fixed): fixed {turns['fixed'][0]:.2f} and {turns['fixed'][1]:.2f}"
+          f", adaptive {turns['adaptive'][0]:.2f} and "
+          f"{turns['adaptive'][1]:.2f} scenario-MPC-steps/s | {card}",
+          flush=True)
+    report["adaptive_path"] = {
+        "scenario_mpc_steps_per_s": rate_a, "seconds": secs_a,
+        "rates_in_turns": turns,
+        "iters_mean": float(it_a.mean()), "iters_max": int(iters_a.max()),
+        "inner_iters_per_step": inner_per_step,
+        "fixed_lane_iterations_per_step": fixed_work / TIMED_STEPS,
+        "launches": launches_a, "first_step_quality": quality,
+    }
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_ad(css0, states0)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    phases_a = phase_breakdown(prof)
+    dev_total = phases_a["kernels_us"]
+    print(f"profile of one adaptive MPC step: wall {step_s * 1e3:.2f} ms "
+          f"(profiler on), device busy {dev_total / 1e3:.2f} ms = "
+          f"{100 * dev_total / 1e3 / (step_s * 1e3):.1f}% | {card}",
+          flush=True)
+    for ph in sorted(phases_a["device_us"],
+                     key=lambda p: -phases_a["device_us"][p]):
+        print(f"  tat.{ph}: device {phases_a['device_us'][ph] / 1e3:.3f} ms,"
+              f" host {phases_a['host_us'].get(ph, 0.0) / 1e3:.3f} ms")
+    early_us = per_launch_us(prof, "fused_solve_early_kernel")
+    print(f"  fused_solve_early_kernel in the adaptive path: "
+          + ("not found in the trace" if early_us is None
+             else f"{early_us / 1e3:.4f} ms/launch"), flush=True)
+    report["adaptive_path"]["profile"] = {
+        "wall_ms": step_s * 1e3, "phases": phases_a,
+        "fused_solve_early_kernel_us_per_launch": early_us}
+
+    # 7. DD at 256 x 8, adaptive effort (its warm-up step gives phase 8
+    # DD's d = 56 inputs).
+    step_dd, cs0_dd, _ = rollout.make_mpc_step(
+        "dd", N_AGENTS, max_iter=20, effort="adaptive", device="cuda")
+    css0_dd = rollout.stack_scenarios(cs0_dd, N_SCENARIOS)
+    dd_args = []
+    with capturing(admm_kernel, "fused_solve_lanes", dd_args,
+                  when=lambda kw: kw.get("check_every", 0) > 0):
+        dd_first = step_dd(css0_dd, states0)
+    torch.cuda.synchronize()
+    css_d, states_d, iters_d, inner_d, secs_d, launches_d = timed_steps(
+        step_dd, css0_dd, states0, TIMED_STEPS)
+    runs_d = int(iters_d.max(dim=1).values.sum())
+    check_launches(launches_d, "fused_solve_early", runs_d, "DD")
+    check_states(css_d, states_d, "DD")
+    rate_d = N_SCENARIOS * TIMED_STEPS / secs_d
+    it_d = iters_d.to(torch.float32)
+    print(f"DD: {N_SCENARIOS}x{N_AGENTS} forest, effort adaptive (gate "
+          f"only), inner_iters 40, {TIMED_STEPS} MPC steps in {secs_d:.4f} "
+          f"s = {rate_d:.2f} scenario-MPC-steps/s | dual-ascent iters/step "
+          f"mean {float(it_d.mean()):.3f} max {int(iters_d.max())} | inner "
+          f"iterations/step {float(inner_d.sum()) / TIMED_STEPS:.1f} | "
+          f"launches {launches_d} = iterations run {runs_d} | {card}",
+          flush=True)
+    step_dd_cpu, cs0_dd_cpu, _ = rollout.make_mpc_step(
+        "dd", N_AGENTS, max_iter=20, effort="adaptive", pad_operators=True,
+        device="cpu")
+    css_c, st_c, stats_c = step_dd_cpu(
+        rollout.stack_scenarios(cs0_dd_cpu, n_cpu), st_cpu)
+    errs = {f: float((getattr(st_c, f)
+                      - to_cpu(getattr(dd_first[1], f))).abs().max())
+            for f in ("R", "w", "xl", "vl", "Rl", "wl")}
+    f_err = float((css_c.f - to_cpu(dd_first[0].f)).abs().max())
+    it_card = dd_first[2].iters[:n_cpu].cpu().tolist()
+    it_cpu = stats_c.iters.tolist()
+    ok = max(errs.values()) <= CPU_STATE_ATOL and f_err <= CPU_FORCE_ATOL
+    print(f"DD card vs CPU, first MPC step of {n_cpu} scenarios: max|state "
+          f"err| " + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+          + f" (atol {CPU_STATE_ATOL}), max|force err| {f_err:.2e} N (atol "
+          f"{CPU_FORCE_ATOL}), iterations card {it_card} CPU {it_cpu} "
+          + ("ok" if ok else "FAIL"), flush=True)
+    if not ok:
+        fail("DD's first step on the card disagrees with the CPU plain path")
+    report["dd_path"] = {
+        "scenario_mpc_steps_per_s": rate_d, "seconds": secs_d,
+        "iters_mean": float(it_d.mean()), "iters_max": int(iters_d.max()),
+        "inner_iters_per_step": float(inner_d.sum()) / TIMED_STEPS,
+        "launches": launches_d,
+        "card_vs_cpu": {"state_err": errs, "force_err": f_err,
+                        "iters_card": it_card, "iters_cpu": it_cpu},
+    }
+
+    # 8. The early-exit kernel against its plain version, on inputs
+    # captured from the adaptive main path (its first consensus iteration)
+    # and DD's.
+    if not early_args or not dd_args:
+        fail("no early-exit call captured in the warm-up steps")
+    e_args, e_kw = early_args[0]
+    B_e = e_args[0].shape[0]
+    half = torch.arange(B_e, device=e_args[0].device) % 2 == 0
+    cases = [
+        ("adaptive_headline", e_args, e_kw),
+        ("ungated", e_args[:12] + [None], e_kw),
+        ("half_gated", e_args[:12] + [half], e_kw),
+        ("ragged_B1000", lanes(e_args[:12] + [half], 1000), e_kw),
+        ("remainder_25_of_10", e_args, dict(e_kw, iters=25)),
+        ("dd_d56", dd_args[0][0], dd_args[0][1]),
+    ]
+    e_checks, e_err = check_early_exit(cases, card)
+    report["early_exit_checks"] = e_checks
+    got = admm_kernel.fused_solve_lanes(*e_args, **e_kw)
+    e_bytes, e_flops = early_exit_bound(e_args, e_kw, got[5])
+    e_bound, e_by = bound(e_bytes, e_flops)
+    e_ms = cuda_ms(lambda: admm_kernel.fused_solve_lanes(*e_args, **e_kw),
+                   100)
+    e_plain = event_ms(
+        lambda: admm_kernel.fused_solve_lanes_reference(*e_args, **e_kw), 5)
+    print(f"fused_solve early-exit timing (the adaptive headline's first "
+          f"consensus iteration: B={B_e}, d={e_kw['nv'] + e_args[8].shape[-1]}"
+          f", iters={e_kw['iters']}, check_every={e_kw['check_every']}, "
+          f"tol={e_kw['tol']}, mean eff {float(got[5].float().mean()):.2f}): "
+          f"kernel {e_ms:.4f} ms/launch (CUDA graph), plain PyTorch "
+          f"{e_plain:.4f} ms (host-driven: it synchronises once a chunk), "
+          f"bound {e_bound:.4f} ms by {e_by} ({e_bytes / 1e6:.2f} MB, "
+          f"{e_flops / 1e6:.1f} MFLOP) | {card}", flush=True)
+    report["fused_solve_early"] = {
+        "kernel_ms": e_ms, "plain_ms": e_plain, "bound_ms": e_bound,
+        "bound_by": e_by, "bytes": e_bytes, "flops": e_flops,
+    }
+
+    # 9. The chunked route, fixed and adaptive.
+    chunk_args, chunk_report, chunk_launches = [], {}, 0
+    for effort in ("fixed", "adaptive"):
+        step_c, _, _ = rollout.make_mpc_step(
+            "cadmm", N_AGENTS, max_iter=20, inner_iters=20,
+            socp_fused="pallas", effort=effort, device="cuda")
+        with capturing(admm_kernel, "admm_chunk_lanes", chunk_args):
+            step_c(css0, states0)
+        expected = [0]
+        solve = socp.solve_socp
+
+        def counted(*a, **kw):
+            """The chunks a solve ran, from its effective iterations: the
+            batch runs the most full chunks any lane ran, then one
+            remainder chunk if any lane ran it."""
+            out = solve(*a, **kw)
+            ce, tol = kw.get("check_every", 0), kw.get("tol", 0.0)
+            if ce and tol > 0:
+                eff = out[1].flatten()
+                expected[0] += int((eff // ce).max()) + int(
+                    bool((eff % ce != 0).any()))
+            else:
+                expected[0] += 1
+            return out
+
+        socp.solve_socp = counted
+        try:
+            css_c, states_c, iters_c, inner_c, secs_c, launches_c = \
+                timed_steps(step_c, css0, states0, CHUNK_STEPS)
+        finally:
+            socp.solve_socp = solve
+        check_launches(launches_c, "admm_chunk", expected[0],
+                       f"the chunked route ({effort})")
+        check_states(css_c, states_c, f"the chunked route ({effort})")
+        chunk_launches += launches_c["admm_chunk"]
+        runs_c = int(iters_c.max(dim=1).values.sum())
+        rate_c = N_SCENARIOS * CHUNK_STEPS / secs_c
+        print(f"chunked route (socp_fused='pallas', effort {effort}): "
+              f"{CHUNK_STEPS} MPC steps in {secs_c:.4f} s = {rate_c:.2f} "
+              f"scenario-MPC-steps/s (one host synchronisation a solve "
+              f"counts the chunks) | consensus iterations run {runs_c} | "
+              f"chunk launches {launches_c['admm_chunk']} = chunks run "
+              f"{expected[0]} | {card}", flush=True)
+        chunk_report[effort] = {
+            "scenario_mpc_steps_per_s": rate_c, "seconds": secs_c,
+            "consensus_iterations": runs_c, "launches": launches_c,
+            "chunks_run": expected[0],
+        }
+    if not chunk_args:
+        fail("no admm_chunk call captured")
+    c_args, c_kw = chunk_args[0]
+    c_names = ("x", "y", "z")
+    c_checks, c_err = {}, 0.0
+    for case, a, k in (("headline_20", c_args, c_kw),
+                       ("ragged_B1000", lanes(c_args, 1000), c_kw),
+                       ("chunk_10", c_args, dict(c_kw, iters=10))):
+        got = admm_kernel.admm_chunk_lanes(*a, **k)
+        ref = admm_kernel.admm_chunk_lanes_reference(*a, **k)
+        ref64 = admm_kernel.admm_chunk_lanes_reference(*in_float64(a), **k)
+        torch.cuda.synchronize()
+        errs, noise, ok = agreement(c_names, got, ref, ref64)
+        c_err = max(c_err, max(errs.values()))
+        print(f"chunk kernel check {case}: B={a[0].shape[0]} "
+              f"d={k['nv'] + a[5].shape[-1]} iters={k['iters']} max|err| "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + "; plain float32 vs float64 "
+              + " ".join(f"{n}={e:.3e}" for n, e in noise.items())
+              + f" (bar max({KERNEL_ATOL} x max(1, |ref|), "
+              f"{ROUNDING_FACTOR} x that)) "
+              + ("ok" if ok else "FAIL"), flush=True)
+        c_checks[case] = {"B": a[0].shape[0], "max_abs_err": errs,
+                          "plain_f32_vs_f64": noise, "ok": ok}
+        if not ok:
+            fail(f"chunk kernel disagrees with its plain version on {case}")
+    B_c = c_args[0].shape[0]
+    m_c = c_args[5].shape[-1]
+    c_bytes = B_c * admm_kernel.admm_chunk_bytes_per_lane(
+        c_kw["nv"], m_c, c_kw["n_box"])
+    c_flops = B_c * admm_kernel.admm_chunk_flops_per_lane(
+        c_kw["nv"], m_c, c_kw["iters"], tuple(c_kw["soc_dims"]))
+    c_bound, c_by = bound(c_bytes, c_flops)
+    c_ms = cuda_ms(lambda: admm_kernel.admm_chunk_lanes(*c_args, **c_kw), 100)
+    c_plain = cuda_ms(
+        lambda: admm_kernel.admm_chunk_lanes_reference(*c_args, **c_kw), 5)
+    print(f"admm_chunk timing (B={B_c}, d={c_kw['nv'] + m_c}, "
+          f"iters={c_kw['iters']}): kernel {c_ms:.4f} ms/launch, plain "
+          f"PyTorch {c_plain:.4f} ms (both CUDA graphs), bound {c_bound:.4f}"
+          f" ms by {c_by} ({c_bytes / 1e6:.2f} MB, {c_flops / 1e6:.1f} MFLOP)"
+          f"; no single PyTorch call computes this function | {card}",
+          flush=True)
+    report["chunk_route"] = chunk_report
+    report["chunk_checks"] = c_checks
+    report["admm_chunk"] = {
+        "kernel_ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
+        "bound_by": c_by, "bytes": c_bytes, "flops": c_flops,
+    }
+
     kernels = [{
         "name": "fused_solve", "route": "cuda",
         "source": f"{PKG}/csrc/fused_solve.cu",
@@ -371,6 +924,20 @@ def main() -> int:
                            for c in checks.values()),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
+    }, {
+        "name": "fused_solve_early_exit", "route": "cuda",
+        "source": f"{PKG}/csrc/fused_solve.cu",
+        "replaces": "tpu_aerial_transport/ops/admm_kernel.py:283",
+        "launches": launches_a["fused_solve_early"],
+        "max_abs_err": e_err, "ms": e_ms, "plain_ms": e_plain,
+        "bound_ms": e_bound, "bound_by": e_by, "library_ms": None,
+    }, {
+        "name": "admm_chunk", "route": "cuda",
+        "source": f"{PKG}/csrc/admm_chunk.cu",
+        "replaces": "tpu_aerial_transport/ops/admm_kernel.py:128",
+        "launches": chunk_launches, "max_abs_err": c_err, "ms": c_ms,
+        "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
+        "library_ms": None,
     }]
     report["kernels"] = kernels
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import tpu_aerial_transport_torch
-from tpu_aerial_transport_torch.control import cadmm, lowlevel
+from tpu_aerial_transport_torch.control import cadmm, dd, lowlevel
 from tpu_aerial_transport_torch.envs import forest, spatial
 from tpu_aerial_transport_torch.harness import rollout, setup
 from tpu_aerial_transport_torch.ops import admm_kernel, socp
@@ -33,6 +33,7 @@ def test_import_leaves_jax_out_of_sys_modules():
     nothing of the JAX package."""
     mods = ["tpu_aerial_transport_torch"] + _modules()
     assert "tpu_aerial_transport_torch.ops.admm_kernel" in mods
+    assert "tpu_aerial_transport_torch.control.dd" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -66,8 +67,17 @@ def _sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, f) for f in names
-                  if f.endswith((".py", ".cu"))]
+                  if f.endswith((".py", ".cu", ".cuh"))]
     return sorted(files)
+
+
+def test_source_scan_covers_the_slice():
+    """The scan reaches every module and kernel source of the port,
+    including the shared kernel header."""
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for f in ("control/dd.py", "csrc/admm_chunk.cu", "csrc/admm_common.cuh",
+              "csrc/fused_solve.cu", "ops/admm_kernel.py", "ops/socp.py"):
+        assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -105,15 +115,55 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(effort="adaptive"), dict(inner_tol=1e-3), dict(tau_incr=1.5),
-    dict(socp_precision="bf16"), dict(env_query="bucketed"),
-    dict(reduced_qp=False), dict(inner_iters_warm=5),
+    dict(tau_incr=1.5), dict(socp_precision="bf16"),
+    dict(env_query="bucketed"), dict(reduced_qp=False),
+    dict(inner_iters_warm=5),
 ], ids=lambda kw: next(iter(kw)))
 def test_left_out_options_raise(kw):
     """What the slice leaves out raises NotImplementedError naming its
     ROADMAP item; it never silently does something else."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _cfg(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(effort="adaptive"), dict(inner_tol=1e-3),
+    dict(socp_fused="pallas"), dict(socp_fused="kernel"),
+], ids=lambda kw: f"{next(iter(kw))}={next(iter(kw.values()))}")
+def test_ported_options_build(kw):
+    """Adaptive effort, tolerance-chunked solves and both solve routes are
+    ported: the configs build and hold the resolved values, for C-ADMM
+    and for DD's shared base."""
+    cfg = _cfg(**kw)
+    params, col, _ = setup.rqp_setup(8, device="cpu")
+    base = dd.make_config(params, col.collision_radius, col.max_deceleration,
+                          device="cpu", **kw).base
+    for c in (cfg, base):
+        for k, v in kw.items():
+            assert getattr(c, k) == v
+        assert c.socp_fused in socp.ROUTES and c.effort in socp.EFFORTS
+
+
+def test_resolve_effort_and_route(monkeypatch):
+    """``effort="auto"`` follows TAT_EFFORT, else fixed; junk raises; the
+    route "auto" is the whole-solve kernel, and the JAX package's
+    scan/interpret modes have no counterpart here."""
+    monkeypatch.delenv("TAT_EFFORT", raising=False)
+    assert socp.resolve_effort("auto") == "fixed"
+    assert socp.resolve_effort(None) == "fixed"
+    monkeypatch.setenv("TAT_EFFORT", "adaptive")
+    assert socp.resolve_effort("auto") == "adaptive"
+    assert socp.resolve_effort("fixed") == "fixed"
+    assert _cfg().effort == "adaptive"
+    monkeypatch.setenv("TAT_EFFORT", "lazy")
+    with pytest.raises(ValueError):
+        socp.resolve_effort("auto")
+    with pytest.raises(ValueError):
+        socp.resolve_effort("turbo")
+    assert socp.resolve_route("auto") == "kernel"
+    for mode in ("scan", "interpret", "reference"):
+        with pytest.raises(ValueError, match="socp_fused"):
+            socp.resolve_route(mode)
 
 
 def test_left_out_call_paths_raise():
@@ -131,12 +181,16 @@ def test_left_out_call_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         socp.solve_socp(torch.eye(4).expand(2, 4, 4), x, torch.eye(4).expand(
             2, 4, 4), -torch.ones(2, 4), torch.ones(2, 4), n_box=4,
-            check_every=5, tol=1e-3)
+            precision="bf16")
     cfg = _cfg()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cadmm.control(params, cfg, None, None, state, None, health=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dd.control(params, None, None, None, state, None, axis_name="agent")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rollout.make_mpc_step("centralized", 4, device="cpu")
     with pytest.raises(ValueError, match="socp_fused"):
-        _cfg(socp_fused="kernel")
+        _cfg(socp_fused="scan")
 
 
 def test_kernel_wrapper_refuses_other_devices():
@@ -148,3 +202,29 @@ def test_kernel_wrapper_refuses_other_devices():
             x, x, x, x, x, x, x, x, x, x, x, nv=4, n_box=4, soc_dims=(),
             iters=1, alpha=1.6,
         )
+    with pytest.raises(ValueError, match="unsupported device"):
+        admm_kernel.fused_solve_lanes(
+            x, x, x, x, x, x, x, x, x, x, x, nv=4, n_box=4, soc_dims=(),
+            iters=1, alpha=1.6, check_every=1, tol=1e-3,
+        )
+    with pytest.raises(ValueError, match="unsupported device"):
+        admm_kernel.admm_chunk_lanes(
+            x, x, x, x, x, x, x, x, x, nv=4, n_box=4, soc_dims=(), iters=1,
+            alpha=1.6,
+        )
+
+
+def test_active_gate_needs_the_tolerance_path():
+    """A fixed-iteration solve cannot express the 0-iteration
+    pass-through: ``active=`` without check_every/tol is a ValueError on
+    the solver and on the kernel wrapper, as in the JAX package."""
+    x = torch.zeros((2, 4))
+    eye = torch.eye(4).expand(2, 4, 4)
+    gate = torch.ones(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="active"):
+        socp.solve_socp(eye, x, eye, -torch.ones(2, 4), torch.ones(2, 4),
+                        n_box=4, active=gate)
+    with pytest.raises(ValueError, match="active"):
+        admm_kernel.fused_solve_lanes(
+            x, x, x, torch.zeros(2, 8, 8), eye, eye, eye, x, torch.ones(2, 4),
+            x, x, None, gate, nv=4, n_box=4, soc_dims=(), iters=1, alpha=1.6)

@@ -2,16 +2,26 @@
 Monte-Carlo scenarios.
 
 Counterpart of ``tpu_aerial_transport/control/cadmm.py`` on the single-program,
-nominal, fixed-effort path. ``n`` agents each hold a local copy of all forces;
-per consensus iteration every agent solves its primal conic QP, the copies are
-averaged, and the duals ascend while the residual is above ``res_tol``.
+nominal path, with fixed or adaptive solver effort. ``n`` agents each hold a
+local copy of all forces; per consensus iteration every agent solves its
+primal conic QP, the copies are averaged, and the duals ascend while the
+residual is above ``res_tol``.
 
 Each agent's QP is Schur-reduced to 12 variables (``SchurPlan``, n >= 4): the
 other agents' force columns carry no constraints of their own and are
 eliminated in closed form, then rebuilt for the consensus step. All
 ``S x n`` agent QPs of one consensus iteration are one batched solve
-(``ops.socp.solve_socp``), i.e. one launch of the whole-solve kernel on the
-card.
+(``ops.socp.solve_socp``): on the card, one launch of the whole-solve
+kernel (route ``"kernel"``, fixed-iteration or early-exit form) or one
+launch of the chunk kernel per chunk (route ``"pallas"``).
+
+Solver effort (``effort``): ``"fixed"`` runs every agent solve for
+``inner_iters`` iterations (or tolerance-chunked to ``inner_tol`` when that
+is set). ``"adaptive"`` runs them tolerance-chunked (to ``inner_tol``, else
+``solver_tol``) and gates each scenario's solves with that scenario's own
+consensus continue predicate, so a converged scenario's solves pass their
+warm starts through at 0 iterations while the loop drains the stragglers;
+the iterations spent land on ``SolverStats.inner_iters``.
 
 Batching: every state leaf carries a leading scenario axis ``S``. The
 consensus loop keeps the JAX package's vmapped ``while_loop`` semantics
@@ -21,10 +31,9 @@ keeps its carry (``torch.where`` on every carry leaf). The ``any`` test is
 one host synchronisation per consensus iteration.
 
 Not ported yet (each raises ``NotImplementedError``): the n = 3 full-QP branch
-(``reduced_qp=False``), ``health=``, ``axis_name=``, ``effort="adaptive"``,
-``inner_tol > 0``, ``inner_iters_warm``, ``tau_incr > 1``,
-``env_query="bucketed"`` and ``socp_precision="bf16"`` (ROADMAP Queue 1
-items 7, 10, 11, 13; Queue 2 items 1(b), 1(c)).
+(``reduced_qp=False``), ``health=``, ``axis_name=``, ``inner_iters_warm``,
+``tau_incr > 1``, ``env_query="bucketed"`` and ``socp_precision="bf16"``
+(ROADMAP Queue 1 items 7, 10, 11, 13; Queue 2 item 1(c)).
 """
 
 from __future__ import annotations
@@ -87,9 +96,19 @@ class RQPCADMMConfig:
     # Consensus iterations may continue past agreement while an agent's
     # solve fails, for at most this many consecutive failing iterations.
     solve_retry_iters: int = 4
-    # What runs the inner solves: "kernel" (the CUDA kernel, on the card)
-    # or "reference" (its plain PyTorch version, on the CPU).
+    # The route of the inner solves (ops/socp.py): "kernel" (the whole
+    # solve in one kernel launch) or "pallas" (w2 and residuals in plain
+    # ops, the iterations through the chunk kernel). On the CPU either
+    # route runs its kernels' plain versions.
     socp_fused: str = "kernel"
+    # Tolerance-chunked inner solves: with inner_tol > 0 each agent QP runs
+    # chunks of inner_check_every iterations until both residuals are at
+    # most inner_tol, capped at inner_iters. 0 = fixed-iteration solves.
+    inner_tol: float = 0.0
+    inner_check_every: int = 10
+    # Consensus-level solver effort, resolved ("fixed" | "adaptive"; see
+    # ops/socp.py resolve_effort and the module docstring).
+    effort: str = "fixed"
     # Pad every agent QP edge to a multiple of socp.SUBLANE_TILE (exact).
     pad_operators: bool = True
     env_query: str = "dense"
@@ -121,6 +140,7 @@ def make_config(
     socp_fused: str = "auto",
     socp_precision: str = "auto",
     inner_tol: float = 0.0,
+    inner_check_every: int = 10,
     solve_retry_iters: int = 4,
     pad_operators: bool | None = None,
     effort: str = "auto",
@@ -131,11 +151,10 @@ def make_config(
 
     ``pad_operators=None`` resolves to True on the card and False on the CPU
     (the JAX package's backend default); ``socp_fused="auto"`` resolves to
-    ``"kernel"`` on the card and ``"reference"`` on the CPU, and an explicit
-    value must name what that device runs. Constants the JAX package
-    computes with ``jnp`` in float32 (``sec_max_f_ang``, ``cos_max_p_ang``)
-    are computed in float32 here too."""
-    dev = resolve_device(device)
+    the ``"kernel"`` route (``ops.socp.resolve_route``), ``effort="auto"``
+    as ``ops.socp.resolve_effort`` says. Constants the JAX package computes
+    with ``jnp`` in float32 (``sec_max_f_ang``, ``cos_max_p_ang``) are
+    computed in float32 here too."""
     n = params.n
     if n < 4 or reduced_qp is False:
         raise _missing("the full (9 + 3n)-variable agent QP (n = 3, "
@@ -148,20 +167,48 @@ def make_config(
             raise ValueError(f"tau_incr={tau_incr} < 1 is not supported")
         raise _missing("the increasing rho schedule (tau_incr > 1)",
                        "Queue 1 item 7")
+    return make_base_config(
+        params, collision_radius, max_deceleration, n_env_cbfs=n_env_cbfs,
+        max_iter=max_iter, inner_iters=inner_iters, res_tol=res_tol,
+        k_smooth=k_smooth, dt=dt, rho0=rho0, socp_fused=socp_fused,
+        socp_precision=socp_precision, inner_tol=inner_tol,
+        inner_check_every=inner_check_every,
+        solve_retry_iters=solve_retry_iters, pad_operators=pad_operators,
+        effort=effort, env_query=env_query, device=device,
+    )
+
+
+def make_base_config(
+    params: RQPParams,
+    collision_radius: float,
+    max_deceleration: float,
+    *,
+    n_env_cbfs: int = 10,
+    max_iter: int = 100,
+    inner_iters: int = 60,
+    res_tol: float = 1e-2,
+    k_smooth: float = 0.0,
+    dt: float = 1e-3,
+    rho0: float = 1.0,
+    socp_fused: str = "auto",
+    socp_precision: str = "auto",
+    inner_tol: float = 0.0,
+    inner_check_every: int = 10,
+    solve_retry_iters: int = 4,
+    pad_operators: bool | None = None,
+    effort: str = "auto",
+    env_query: str = "auto",
+    device="cuda",
+) -> RQPCADMMConfig:
+    """The constants C-ADMM and DD share (DD's ``base``), without C-ADMM's
+    own formulation checks; see :func:`make_config` for the knobs."""
+    dev = resolve_device(device)
+    n = params.n
     if socp_precision not in ("auto", "f32"):
         raise _missing(f"socp_precision={socp_precision!r}",
                        "Queue 2 item 1(c)")
-    if inner_tol > 0:
-        raise _missing("tolerance-chunked inner solves (inner_tol > 0)",
-                       "Queue 2 item 1(b)")
-    if effort not in ("auto", "fixed"):
-        raise _missing(f"effort={effort!r}", "Queue 2 item 1(b)")
-    runs = "kernel" if dev.type == "cuda" else "reference"
-    if socp_fused not in ("auto", runs):
-        raise ValueError(
-            f"socp_fused={socp_fused!r}: on {dev.type} the inner solves run "
-            f"{runs!r} (pass 'auto')"
-        )
+    if inner_check_every < 1:
+        raise ValueError(f"inner_check_every={inner_check_every} < 1")
     mTg = float(params.mT) * GRAVITY
     return RQPCADMMConfig(
         min_fz=mTg / (n * 10.0),
@@ -191,7 +238,10 @@ def make_config(
         n_env_cbfs=n_env_cbfs,
         max_iter=max_iter,
         inner_iters=inner_iters,
-        socp_fused=runs,
+        socp_fused=socp.resolve_route(socp_fused),
+        inner_tol=inner_tol,
+        inner_check_every=inner_check_every,
+        effort=socp.resolve_effort(effort),
         solve_retry_iters=solve_retry_iters,
         pad_operators=(dev.type == "cuda") if pad_operators is None
         else bool(pad_operators),
@@ -604,12 +654,6 @@ def control(
     n = params.n
     dtype, dev = state.xl.dtype, state.xl.device
     S = admm_state.f.shape[0]
-    runs = "kernel" if dev.type == "cuda" else "reference"
-    if cfg.socp_fused != runs:
-        raise ValueError(
-            f"config built for socp_fused={cfg.socp_fused!r} but the state "
-            f"lives on {dev.type}, where the inner solves run {runs!r}"
-        )
     agent_ids = torch.arange(n, device=dev)
 
     with phases.scope(phases.CBF_ROWS):
@@ -643,8 +687,22 @@ def control(
     Rl_a = Rl[:, None]  # (S, 1, 3, 3)
     V_p = pk.N.shape[-1]
 
-    def primal_solve(lam, f_mean, warm):
-        """Solve every agent QP of every scenario; rebuild the full copies."""
+    # Solver effort. Adaptive: tolerance-chunked solves (to inner_tol, else
+    # to the solve-success gate solver_tol, so "converged" means "would
+    # pass solver_tol"), each scenario's solves gated by its own continue
+    # predicate (JAX cadmm.py:1254-1303, :1320-1328).
+    adaptive = cfg.effort == "adaptive"
+    if adaptive:
+        inner_tol = cfg.inner_tol if cfg.inner_tol > 0 else cfg.solver_tol
+    else:
+        inner_tol = cfg.inner_tol
+    check_every = cfg.inner_check_every if inner_tol > 0 else 0
+
+    def primal_solve(lam, f_mean, warm, active):
+        """Solve every agent QP of every scenario; rebuild the full copies.
+        ``active`` (S,) gates each scenario's solves (adaptive effort) or
+        is None. Returns ``(f_new, sols, eff)``, ``eff`` the (S, n) int32
+        effective inner iterations under adaptive effort, else None."""
         delta = lam - rho * f_mean[:, None]  # (S, n, n, 3)
         dperm = torch.gather(
             delta, 2, pk.perm[None, :, :, None].expand(S, n, n, 3)
@@ -659,10 +717,14 @@ def control(
             d_u - _mv(Rl_a, _mv(pk.Mu, d_v)),
         ], dim=-1)
         q = torch.cat([q0[..., :nv] + q_delta, q0[..., nv:]], dim=-1)
-        sols = socp.solve_socp(
+        gate = None if active is None else active[:, None].expand(S, n)
+        out = socp.solve_socp(
             P, q, A, lb, ub, n_box=n_box, soc_dims=(4, 4),
             iters=cfg.inner_iters, warm=warm, shift=shift, op=op,
+            fused=cfg.socp_fused, check_every=check_every, tol=inner_tol,
+            active=gate, report_iters=adaptive,
         )
+        sols, eff = out if adaptive else (out, None)
         c, u = sols.x[..., :9], sols.x[..., 9:12]
         ut = _mv(Rl_a.transpose(-1, -2), u)
         d6 = (e0s[:, None] - _mv(Ecc[:, None], c) - _mv(pk.Eu, ut))
@@ -677,7 +739,7 @@ def control(
         f_new = torch.gather(
             f_perm, 2, pk.inv_perm[None, :, :, None].expand(S, n, n, 3)
         )
-        return f_new, sols
+        return f_new, sols, eff
 
     retry_cap = cfg.solve_retry_iters or cfg.max_iter
     steps = torch.arange(cfg.max_iter + 1, device=dev)
@@ -687,11 +749,14 @@ def control(
                  | ((ok_last < 1.0) & (fail_count <= retry_cap)))
                 & (it <= cfg.max_iter))
 
-    def consensus_iter(carry):
+    def consensus_iter(carry, active):
+        """One consensus iteration of every scenario; ``active`` is each
+        scenario's continue predicate, the adaptive-effort gate."""
         (f, lam, f_mean, warm, it, res, err_buf, okf, _ok_last,
-         fail_count) = carry
+         fail_count) = carry[:10]
         with phases.scope(phases.LOCAL_SOLVE):
-            f_new, sols = primal_solve(lam, f_mean, warm)
+            f_new, sols, eff = primal_solve(lam, f_mean, warm,
+                                            active if adaptive else None)
         # Failed agents fall back to the equilibrium forces.
         ok = (sols.prim_res < cfg.solver_tol)[..., None, None] & torch.all(
             torch.isfinite(f_new).flatten(-2), dim=-1
@@ -725,8 +790,13 @@ def control(
         okf = torch.minimum(okf, ok_last)
         fail_count = torch.where(ok_last < 1.0, fail_count + 1,
                                  torch.zeros_like(fail_count))
-        return (f_new, lam_new, f_mean_new, sols, it, res_new, err_buf, okf,
-                ok_last, fail_count)
+        out = (f_new, lam_new, f_mean_new, sols, it, res_new, err_buf, okf,
+               ok_last, fail_count)
+        if adaptive:
+            # Effective inner iterations spent this consensus iteration.
+            out = out + (carry[10] + torch.sum(eff, dim=1,
+                                               dtype=torch.int32),)
+        return out
 
     carry = (
         admm_state.f, admm_state.lam, admm_state.f_mean, admm_state.warm,
@@ -737,6 +807,9 @@ def control(
         torch.ones((S,), dtype=dtype, device=dev),
         torch.zeros((S,), dtype=torch.int32, device=dev),
     )
+    if adaptive:
+        # The inner-iteration total, frozen with the carry.
+        carry = carry + (torch.zeros((S,), dtype=torch.int32, device=dev),)
     # The vmapped while_loop, written out: every scenario iterates while any
     # scenario's predicate holds; a scenario whose predicate is false keeps
     # its carry. One host synchronisation per consensus iteration.
@@ -744,9 +817,9 @@ def control(
         active = continue_pred(carry[4], carry[5], carry[8], carry[9])
         if not bool(active.any()):
             break
-        new = consensus_iter(carry)
+        new = consensus_iter(carry, active)
         carry = tuple(_where(active, a, b) for a, b in zip(new, carry))
-    f, lam, f_mean, warm, iters, res, err_buf, ok_frac, _, _ = carry
+    f, lam, f_mean, warm, iters, res, err_buf, ok_frac, _, _ = carry[:10]
 
     f_app = f[:, agent_ids, agent_ids, :]
     new_state = CADMMState(f=f, lam=lam, f_mean=f_mean, warm=warm)
@@ -757,5 +830,7 @@ def control(
         min_env_dist=torch.amin(env_cbfs.min_dist, dim=1),
         err_seq=err_buf,
         ok_frac=ok_frac,
+        inner_iters=(carry[10] if adaptive else
+                     torch.zeros((S, 0), dtype=torch.int32, device=dev)),
     )
     return f_app, new_state, stats

@@ -7,7 +7,7 @@ leading batch axes (scenarios, agents).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -16,8 +16,11 @@ import torch
 class SolverStats:
     """Per-control-step statistics (per scenario when batched): consensus
     iterations, final consensus residual, any-collision flag, min env
-    distance, the NaN-padded per-iteration residual sequence, and the
-    worst-iteration fraction of agent solves that met ``solver_tol``."""
+    distance, the NaN-padded per-iteration residual sequence, the
+    worst-iteration fraction of agent solves that met ``solver_tol``, and
+    the total effective inner ADMM iterations of the step (summed over
+    agents and consensus iterations; set only under ``effort="adaptive"``,
+    empty ``(..., 0)`` otherwise, as in the JAX package)."""
 
     iters: torch.Tensor  # (...) int32.
     solve_res: torch.Tensor  # (...).
@@ -25,6 +28,8 @@ class SolverStats:
     min_env_dist: torch.Tensor  # (...).
     err_seq: torch.Tensor  # (..., max_iter + 1).
     ok_frac: torch.Tensor  # (...).
+    inner_iters: torch.Tensor = field(  # (...) int32, or (..., 0).
+        default_factory=lambda: torch.zeros((0,), dtype=torch.int32))
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,12 @@
-"""The headline batched rollout: Monte-Carlo C-ADMM in the forest.
+"""The batched rollouts: Monte-Carlo distributed MPC in the forest.
 
-Counterpart of the JAX package's headline workload (``bench.py`` ``build``,
+Counterpart of the JAX package's bench workloads (``bench.py`` ``build``,
 ``make_mpc_step``, ``_scenario_batch`` and ``_substeps``): each MPC step of
-every scenario runs the per-agent vision-cone environment queries, the
-consensus-ADMM controller over Schur-reduced agent QPs, and ten 1 kHz
-low-level SO(3) control + physics substeps. All ``S`` scenarios advance
-together; state leaves carry the leading scenario axis.
+every scenario runs the per-agent vision-cone environment queries, a
+distributed controller -- consensus ADMM over Schur-reduced agent QPs
+(``"cadmm"``, the headline) or dual decomposition (``"dd"``) -- and ten
+1 kHz low-level SO(3) control + physics substeps. All ``S`` scenarios
+advance together; state leaves carry the leading scenario axis.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from tpu_aerial_transport_torch import resolve_device
-from tpu_aerial_transport_torch.control import cadmm, centralized, lowlevel
+from tpu_aerial_transport_torch.control import cadmm, centralized, dd, lowlevel
 from tpu_aerial_transport_torch.envs import forest as forest_mod
 from tpu_aerial_transport_torch.harness import setup
 from tpu_aerial_transport_torch.models import rqp
@@ -22,6 +23,8 @@ from tpu_aerial_transport_torch.obs import phases
 
 N_AGENTS = 8
 N_SCENARIOS = 256
+# The JAX bench's inner-iteration knees (bench.py:257-263): C-ADMM 20, DD 40.
+INNER_ITERS = {"cadmm": 20, "dd": 40}
 
 
 def substeps(params, ll, state, f_des, n_sub: int = 10, dt: float = 1e-3):
@@ -35,15 +38,19 @@ def substeps(params, ll, state, f_des, n_sub: int = 10, dt: float = 1e-3):
 
 def make_mpc_step(controller: str, n: int, max_iter: int = 20,
                   inner_iters: int | None = None,
-                  pad_operators: bool | None = None, device="cuda"):
+                  pad_operators: bool | None = None, socp_fused: str = "auto",
+                  inner_tol: float = 0.0, effort: str = "auto",
+                  device="cuda"):
     """``(mpc_step(css, states) -> (css, states, stats), cs0, state0)`` for
-    the headline set-up: ``rqp_setup(n)``, forest seed 0, PD low level,
-    ``acc_des = ((0.3, 0, 0), 0)``. ``cs0``/``state0`` are one scenario's
-    (no scenario axis); ``mpc_step`` takes and returns batched ones."""
-    if controller != "cadmm":
+    the bench set-up: ``rqp_setup(n)``, forest seed 0, PD low level,
+    ``acc_des = ((0.3, 0, 0), 0)``, ``controller`` ``"cadmm"`` or ``"dd"``
+    with the JAX bench's defaults (``inner_iters`` 20 and 40). ``cs0``/
+    ``state0`` are one scenario's (no scenario axis); ``mpc_step`` takes
+    and returns batched ones."""
+    if controller not in INNER_ITERS:
         raise NotImplementedError(
-            f"controller={controller!r}: only 'cadmm' is ported (the "
-            "centralized controller is ROADMAP Queue 1 item 6, DD item 9)"
+            f"controller={controller!r}: 'cadmm' and 'dd' are ported (the "
+            "centralized controller is ROADMAP Queue 1 item 6)"
         )
     dev = resolve_device(device)
     params, col, state0 = setup.rqp_setup(n, device=dev)
@@ -53,17 +60,24 @@ def make_mpc_step(controller: str, n: int, max_iter: int = 20,
     dvl_des = torch.zeros(3, dtype=torch.float32, device=dev)
     dvl_des[0] = 0.3
     acc_des = (dvl_des, torch.zeros(3, dtype=torch.float32, device=dev))
-    cfg = cadmm.make_config(
+    mod = cadmm if controller == "cadmm" else dd
+    cfg = mod.make_config(
         params, col.collision_radius, col.max_deceleration,
         max_iter=max_iter,
-        inner_iters=inner_iters if inner_iters is not None else 20,
-        pad_operators=pad_operators, device=dev,
+        inner_iters=(inner_iters if inner_iters is not None
+                     else INNER_ITERS[controller]),
+        pad_operators=pad_operators, socp_fused=socp_fused,
+        inner_tol=inner_tol, effort=effort, device=dev,
     )
-    cs0 = cadmm.init_cadmm_state(params, cfg, f_eq)
-    plan = cadmm.make_plan(params, cfg)
+    if controller == "cadmm":
+        cs0 = cadmm.init_cadmm_state(params, cfg, f_eq)
+        plan = cadmm.make_plan(params, cfg)
+    else:
+        cs0 = dd.init_dd_state(params, cfg, f_eq)
+        plan = dd.make_dd_plan(params, cfg)
 
     def mpc_step(css, states):
-        f_app, css, stats = cadmm.control(
+        f_app, css, stats = mod.control(
             params, cfg, f_eq, css, states, acc_des, forest, plan=plan
         )
         return css, substeps(params, ll, states, f_app), stats
@@ -109,13 +123,18 @@ def rollout(mpc_step, css, states, n_steps: int):
 
 
 def build(n: int = N_AGENTS, n_scenarios: int = N_SCENARIOS,
-          max_iter: int = 20, inner_iters: int = 20,
-          pad_operators: bool | None = None, device="cuda"):
-    """The headline workload: ``(run(css, states, n_steps), css, states)``
-    with C-ADMM at ``n`` agents over ``n_scenarios`` seeded scenarios."""
+          max_iter: int = 20, inner_iters: int | None = None,
+          pad_operators: bool | None = None, device="cuda", *,
+          controller: str = "cadmm", socp_fused: str = "auto",
+          inner_tol: float = 0.0, effort: str = "auto"):
+    """A bench workload: ``(run(css, states, n_steps), css, states)`` with
+    ``controller`` at ``n`` agents over ``n_scenarios`` seeded scenarios;
+    the defaults are the headline (C-ADMM, fixed effort, whole-solve
+    kernel route)."""
     mpc_step, cs0, state0 = make_mpc_step(
-        "cadmm", n, max_iter=max_iter, inner_iters=inner_iters,
-        pad_operators=pad_operators, device=device,
+        controller, n, max_iter=max_iter, inner_iters=inner_iters,
+        pad_operators=pad_operators, socp_fused=socp_fused,
+        inner_tol=inner_tol, effort=effort, device=device,
     )
     states = scenario_batch(state0, n_scenarios)
     css = stack_scenarios(cs0, n_scenarios)

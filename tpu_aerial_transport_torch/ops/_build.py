@@ -6,8 +6,9 @@ interface, loaded through ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. The build directory is
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+a stale library is never loaded. The build directory is
 ``build/kernels`` beside the package (listed in ``.gitignore``), or
 ``TAT_TORCH_BUILD_DIR``. :func:`build` compiles several sources at once, one
 ``nvcc`` process each, all started together.
@@ -25,7 +26,7 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-KERNELS = ("fused_solve",)
+KERNELS = ("fused_solve", "admm_chunk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,8 +66,12 @@ def _source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [_source(name)] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -115,9 +120,10 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def error_string(err: int) -> str:
-    lib = load("fused_solve")
-    fn = lib.fused_solve_error_string
+def error_string(err: int, name: str = "fused_solve") -> str:
+    """The CUDA runtime's text for ``err``, from kernel library ``name``."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_error_string")
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(err).decode()

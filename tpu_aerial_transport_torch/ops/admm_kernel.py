@@ -1,22 +1,32 @@
-"""Whole-solve batched ADMM: the hand-written CUDA kernel and its plain twin.
+"""Batched ADMM kernels for the inner conic QPs, and their plain twins.
 
-Counterpart of ``tpu_aerial_transport/ops/admm_kernel.py``'s
-``fused_solve_lanes`` / ``_fused_solve_kernel`` in its compiled form
-(``exact_dot=False``), fixed-iteration, float32, with or without a cone
-shift. Per lane (one small conic QP) it computes:
+Counterparts of ``tpu_aerial_transport/ops/admm_kernel.py``:
 
-1. the qp-build tail ``wq = Minv q``, ``w2 = [wq; A wq]``;
-2. ``iters`` iterations of ``v = K2 [x; rho z - y] - w2``, ``x = v[:nv]``,
-   ``Ax_rel = alpha v[nv:] + (1 - alpha) z``, ``z = Pi(Ax_rel + y / rho)``
-   (the translated box x SOC projection), ``y += rho (Ax_rel - z)``;
-3. the exit residuals ``prim = max|A x - z|``, ``dual = max|P x + q + A^T y|``.
+- :func:`fused_solve_lanes` -- ``_fused_solve_kernel``, the whole solve per
+  lane in its compiled form (``exact_dot=False``), float32, with or without
+  a cone shift:
 
-Layout is batch-first, ``(B lanes, rows...)``, with no lane padding.
-:func:`fused_solve_lanes` launches the kernel (``csrc/fused_solve.cu``,
+  1. the qp-build tail ``wq = Minv q``, ``w2 = [wq; A wq]``;
+  2. ``iters`` iterations of ``v = K2 [x; rho z - y] - w2``, ``x = v[:nv]``,
+     ``Ax_rel = alpha v[nv:] + (1 - alpha) z``, ``z = Pi(Ax_rel + y / rho)``
+     (the translated box x SOC projection), ``y += rho (Ax_rel - z)``;
+  3. the exit residuals ``prim = max|A x - z|``, ``dual = max|P x + q +
+     A^T y|``.
+
+  With ``check_every > 0`` and ``tol > 0`` it is the early-exit form: the
+  iterations run in chunks of ``check_every`` and a lane stops once its
+  residuals are both at most ``tol`` (tested before the first chunk too;
+  NaN counts as converged), or an ``active`` gate switches it off from the
+  start; the return gains ``eff_iters`` (B,) int32.
+- :func:`admm_chunk_lanes` -- ``_admm_chunk_kernel``: ``iters`` iterations
+  with ``K2`` and ``w2`` given; returns ``(x, y, z)`` and nothing else.
+
+Layout is batch-first, ``(B lanes, rows...)``, with no lane padding. Each
+wrapper launches its kernel (``csrc/fused_solve.cu``, ``csrc/admm_chunk.cu``,
 built at first use by :mod:`ops._build`) for tensors on the card and runs
-:func:`fused_solve_lanes_reference` for tensors on the CPU; it never falls
-back from the one to the other. The early-exit and bf16 forms are not ported
-yet (ROADMAP Queue 2 items 1(b), 1(c)).
+its ``*_reference`` twin for tensors on the CPU; it never falls back from
+the one to the other. The bf16 form of the whole-solve kernel is not ported
+yet (ROADMAP Queue 2 item 1(c)).
 """
 
 from __future__ import annotations
@@ -26,11 +36,12 @@ from typing import Sequence
 
 import torch
 
-# Plain launch counter: the wrapper adds one where it launches the kernel,
-# and nowhere else.
-LAUNCHES = {"fused_solve": 0}
+# Plain launch counters: each wrapper adds one where it launches its kernel,
+# and nowhere else. "fused_solve" counts the fixed-iteration form,
+# "fused_solve_early" the early-exit form of the same kernel source.
+LAUNCHES = {"fused_solve": 0, "fused_solve_early": 0, "admm_chunk": 0}
 
-# The kernel's compile-time bounds (csrc/fused_solve.cu FS_MAX_*).
+# The kernels' compile-time bounds (csrc/admm_common.cuh FS_MAX_*).
 MAX_SOC_BLOCKS = 16
 MAX_DIM = 256
 # Shared memory a block may opt in to on Hopper (227 KB).
@@ -43,34 +54,62 @@ class _SocDims(ctypes.Structure):
     _fields_ = [("n", ctypes.c_int), ("d", ctypes.c_int * MAX_SOC_BLOCKS)]
 
 
-# fused_solve_launch(16 pointers, B, nv, m, n_box, iters, has_shift, alpha,
-# 1 - alpha, soc, device, stream) -> cudaError_t.
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
+# fused_solve_launch(13 input and 5 output pointers, B, nv, m, n_box, iters,
+# check_every, tol, has_shift, alpha, 1 - alpha, soc, device, stream)
+# -> cudaError_t.
+_FUSED_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, _SocDims,
+    ctypes.c_int, ctypes.c_void_p,
+]
+# admm_chunk_launch(9 input and 3 output pointers, B, nv, m, n_box, iters,
+# has_shift, alpha, 1 - alpha, soc, device, stream) -> cudaError_t.
+_CHUNK_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, _SocDims, ctypes.c_int, ctypes.c_void_p,
 ]
 
 
-def fused_solve_bytes_per_lane(nv: int, m: int, n_box: int) -> int:
+def _iter_flops(nv: int, m: int, soc_dims: Sequence[int]) -> int:
+    """float32 operations of one ADMM iteration of one lane: the K2 matvec
+    plus ~12 elementwise operations a row and each SOC norm."""
+    d = nv + m
+    return 2 * d * d + 12 * m + sum(2 * (k - 1) + 4 for k in soc_dims)
+
+
+def _residual_flops(nv: int, m: int) -> int:
+    """float32 operations of one evaluation of both residuals."""
+    return 2 * m * nv + 2 * nv * nv + 2 * m * nv + 6 * nv + 2 * m
+
+
+def fused_solve_bytes_per_lane(nv: int, m: int, n_box: int, *,
+                               early: bool = False,
+                               gated_off: bool = False) -> int:
     """float32 bytes one lane's solve must read and write at least once:
     K2 ``(d, d)``, Minv and P ``(nv, nv)``, A ``(m, nv)``, q, rho, lb/ub,
-    shift and the (x, y, z) carry in; (x, y, z) and both residuals out."""
+    shift and the (x, y, z) carry in; (x, y, z) and both residuals out. The
+    early-exit form also reads the gate and writes ``eff_iters``; a
+    gated-off lane iterates 0 times and needs neither K2 nor Minv."""
     d = nv + m
     mats = d * d + 2 * nv * nv + m * nv
+    if gated_off:
+        mats -= d * d + nv * nv
     reads = mats + nv + m + 2 * n_box + m + (nv + 2 * m)
     writes = (nv + 2 * m) + 2
+    if early:
+        reads += 1
+        writes += 1
     return 4 * (reads + writes)
 
 
 def fused_solve_flops_per_lane(nv: int, m: int, iters: int,
-                               soc_dims: Sequence[int] = ()) -> int:
-    """float32 operations of one lane's solve: the w2 build, ``iters``
-    iterations (the K2 matvec plus ~12 elementwise operations a row and
-    each SOC norm), and the two residual matvecs."""
-    d = nv + m
-    build = 2 * nv * nv + 2 * m * nv
-    per_iter = 2 * d * d + 12 * m + sum(2 * (k - 1) + 4 for k in soc_dims)
-    residuals = 2 * m * nv + 2 * nv * nv + 2 * m * nv + 6 * nv + 2 * m
-    return build + iters * per_iter + residuals
+                               soc_dims: Sequence[int] = (),
+                               residual_checks: int = 1,
+                               build: bool = True) -> int:
+    """float32 operations of one lane's solve: the w2 build (when the lane
+    iterates), ``iters`` iterations and ``residual_checks`` evaluations of
+    both residuals (1 for the fixed form: the exit residuals)."""
+    w2 = 2 * nv * nv + 2 * m * nv if build else 0
+    return (w2 + iters * _iter_flops(nv, m, soc_dims)
+            + residual_checks * _residual_flops(nv, m))
 
 
 def fused_solve_smem_bytes(nv: int, m: int) -> int:
@@ -78,36 +117,108 @@ def fused_solve_smem_bytes(nv: int, m: int) -> int:
     row strides padded to odd word counts, two d-vectors and the reduction
     scratch (csrc/fused_solve.cu fs_smem_floats)."""
     d = nv + m
-    return 4 * (d * (d | 1) + (2 * nv + m) * (nv | 1) + 2 * d + 64)
+    return 4 * (d * (d | 1) + (2 * nv + m) * (nv | 1) + 2 * d + 66)
+
+
+def admm_chunk_bytes_per_lane(nv: int, m: int, n_box: int) -> int:
+    """float32 bytes one lane's chunk must read and write at least once:
+    K2 ``(d, d)``, w2 ``(d,)``, rho, lb/ub, shift and (x, y, z) in;
+    (x, y, z) out."""
+    d = nv + m
+    reads = d * d + d + m + 2 * n_box + m + (nv + 2 * m)
+    writes = nv + 2 * m
+    return 4 * (reads + writes)
+
+
+def admm_chunk_flops_per_lane(nv: int, m: int, iters: int,
+                              soc_dims: Sequence[int] = ()) -> int:
+    """float32 operations of one lane's chunk: ``iters`` iterations."""
+    return iters * _iter_flops(nv, m, soc_dims)
+
+
+def admm_chunk_smem_bytes(nv: int, m: int) -> int:
+    """Dynamic shared memory of one chunk block: K2 with an odd row stride
+    and two d-vectors (csrc/admm_chunk.cu chunk_smem_floats)."""
+    d = nv + m
+    return 4 * (d * (d | 1) + 2 * d)
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (M @ v[..., None])[..., 0]
 
 
+def _early(check_every: int, tol: float) -> bool:
+    """The early-exit form is selected by both ``check_every`` and ``tol``
+    being set (``admm_kernel.py:555`` of the JAX package)."""
+    return bool(check_every) and tol > 0.0
+
+
 def fused_solve_lanes_reference(
-    x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift=None,
+    x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift=None, active=None,
+    *, nv: int, n_box: int, soc_dims: Sequence[int], iters: int,
+    alpha: float, check_every: int = 0, tol: float = 0.0,
+):
+    """Plain PyTorch version of the kernel, on any device: batched tensor ops
+    in the kernel's order of operations (``ops.socp._admm_step``) and Python
+    loops. Returns ``(x, y, z, prim_res, dual_res)``, and ``eff_iters`` last
+    in the early-exit form, whose loop is ``ops.socp._masked_chunk_loop``:
+    the JAX kernel's masked loop (``admm_kernel.py:442-491``) over the whole
+    batch, every lane frozen by a select once it stops."""
+    from tpu_aerial_transport_torch.ops import socp
+
+    early = _early(check_every, tol)
+    if active is not None and not early:
+        raise ValueError(
+            "active= gating needs the early-exit form (check_every > 0 and "
+            "tol > 0): a fixed-iteration kernel cannot express a "
+            "0-effective-iteration pass-through"
+        )
+    wq = _mv(Minv, q)
+    w2 = torch.cat([wq, _mv(A, wq)], dim=-1)
+    step_kw = dict(nv=nv, n_box=n_box, soc_dims=tuple(soc_dims), alpha=alpha)
+
+    def run_chunk(carry, k):
+        for _ in range(k):
+            carry = socp._admm_step(carry, K2, w2, rho, lb, ub, shift,
+                                    **step_kw)
+        return carry
+
+    def residuals(carry):
+        x_, y_, z_ = carry
+        prim = torch.amax(torch.abs(_mv(A, x_) - z_), dim=-1)
+        ATy = _mv(A.transpose(-1, -2), y_)
+        dual = torch.amax(torch.abs(_mv(P, x_) + q + ATy), dim=-1)
+        return prim, dual
+
+    if not early:
+        carry = run_chunk((x, y, z), iters)
+        return (*carry, *residuals(carry))
+
+    def above_tol(carry):
+        prim, dual = residuals(carry)
+        return (prim > tol) | (dual > tol)
+
+    gate = None if active is None else active > 0
+    carry, _, eff = socp._masked_chunk_loop(
+        (x, y, z), run_chunk, above_tol, gate, iters, check_every)
+    return (*carry, *residuals(carry), eff)
+
+
+def admm_chunk_lanes_reference(
+    x, y, z, K2, w2, rho, lb, ub, shift,
     *, nv: int, n_box: int, soc_dims: Sequence[int], iters: int,
     alpha: float,
 ):
-    """Plain PyTorch version of the kernel, on any device: batched tensor ops
-    in the kernel's order of operations (``ops.socp._admm_step``) and a
-    Python loop over ``iters``. Returns ``(x, y, z, prim_res, dual_res)``."""
+    """Plain PyTorch version of the chunk kernel: ``iters`` batched
+    ``ops.socp._admm_step`` calls. Returns ``(x, y, z)``."""
     from tpu_aerial_transport_torch.ops import socp
 
-    wq = _mv(Minv, q)
-    w2 = torch.cat([wq, _mv(A, wq)], dim=-1)
     carry = (x, y, z)
     for _ in range(iters):
-        carry = socp._admm_step(
-            carry, K2, w2, rho, lb, ub, shift, nv=nv, n_box=n_box,
-            soc_dims=tuple(soc_dims), alpha=alpha,
-        )
-    x, y, z = carry
-    prim = torch.amax(torch.abs(_mv(A, x) - z), dim=-1)
-    ATy = _mv(A.transpose(-1, -2), y)
-    dual = torch.amax(torch.abs(_mv(P, x) + q + ATy), dim=-1)
-    return x, y, z, prim, dual
+        carry = socp._admm_step(carry, K2, w2, rho, lb, ub, shift, nv=nv,
+                                n_box=n_box, soc_dims=tuple(soc_dims),
+                                alpha=alpha)
+    return carry
 
 
 def _check(name, t, shape, device):
@@ -123,22 +234,84 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
+def _check_layout(kernel, nv, m, n_box, soc_dims, iters, smem):
+    """Raise on a cone layout or size the kernels do not take."""
+    d = nv + m
+    if m != n_box + sum(soc_dims):
+        raise ValueError(
+            f"m={m} != n_box={n_box} + sum(soc_dims)={sum(soc_dims)}"
+        )
+    if (len(soc_dims) > MAX_SOC_BLOCKS or d > MAX_DIM or iters < 0
+            or smem > MAX_SMEM_BYTES):
+        raise ValueError(
+            f"{kernel} kernel takes d <= {MAX_DIM}, at most "
+            f"{MAX_SOC_BLOCKS} SOC blocks, {MAX_SMEM_BYTES} B of shared "
+            f"memory a lane and iters >= 0 (got d={d}, {len(soc_dims)} "
+            f"blocks, {smem} B, iters={iters})"
+        )
+    if any(k < 2 for k in soc_dims):
+        raise ValueError(
+            f"soc_dims={soc_dims}: every SOC block needs dim >= 2")
+
+
+def _soc_struct(soc_dims) -> _SocDims:
+    dims = _SocDims()
+    dims.n = len(soc_dims)
+    for i, k in enumerate(soc_dims):
+        dims.d[i] = k
+    return dims
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bind(name: str, argtypes):
+    from tpu_aerial_transport_torch.ops import _build
+
+    fn = getattr(_build.load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        from tpu_aerial_transport_torch.ops import _build
+
+        raise RuntimeError(
+            f"{name} kernel launch failed: {_build.error_string(err, name)} "
+            f"(cudaError {err})"
+        )
+
+
 def fused_solve_lanes(
-    x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift=None,
+    x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift=None, active=None,
     *, nv: int, n_box: int, soc_dims: Sequence[int], iters: int,
-    alpha: float,
+    alpha: float, check_every: int = 0, tol: float = 0.0,
 ):
     """Whole batched solves, batch-first ``(B, rows...)``; returns
-    ``(x, y, z, prim_res, dual_res)``.
+    ``(x, y, z, prim_res, dual_res)``, plus ``eff_iters`` ((B,) int32) in
+    the early-exit form (``check_every > 0`` and ``tol > 0``), which also
+    takes the ``active`` gate ((B,) bool or float; > 0 is on).
 
     CPU tensors run :func:`fused_solve_lanes_reference`. CUDA tensors launch
     the kernel on the current stream (no synchronisation) or raise: on a
     wrong device, dtype, shape or layout, on dims the kernel does not take,
     or on a launch error."""
+    early = _early(check_every, tol)
+    if active is not None and not early:
+        raise ValueError(
+            "active= gating needs the early-exit form (check_every > 0 and "
+            "tol > 0): a fixed-iteration kernel cannot express a "
+            "0-effective-iteration pass-through"
+        )
     if x.device.type == "cpu":
         return fused_solve_lanes_reference(
-            x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift, nv=nv,
+            x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift, active, nv=nv,
             n_box=n_box, soc_dims=soc_dims, iters=iters, alpha=alpha,
+            check_every=check_every, tol=tol,
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_solve_lanes: unsupported device {x.device}")
@@ -146,21 +319,8 @@ def fused_solve_lanes(
     B = x.shape[0]
     m = rho.shape[-1]
     d = nv + m
-    if m != n_box + sum(soc_dims):
-        raise ValueError(
-            f"m={m} != n_box={n_box} + sum(soc_dims)={sum(soc_dims)}"
-        )
-    if (len(soc_dims) > MAX_SOC_BLOCKS or d > MAX_DIM or iters < 0
-            or fused_solve_smem_bytes(nv, m) > MAX_SMEM_BYTES):
-        raise ValueError(
-            f"fused_solve kernel takes d <= {MAX_DIM}, at most "
-            f"{MAX_SOC_BLOCKS} SOC blocks, {MAX_SMEM_BYTES} B of shared "
-            f"memory a lane and iters >= 0 (got d={d}, {len(soc_dims)} "
-            f"blocks, {fused_solve_smem_bytes(nv, m)} B, iters={iters})"
-        )
-    if any(k < 2 for k in soc_dims):
-        raise ValueError(
-            f"soc_dims={soc_dims}: every SOC block needs dim >= 2")
+    _check_layout("fused_solve", nv, m, n_box, soc_dims, iters,
+                  fused_solve_smem_bytes(nv, m))
     dev = x.device
     for name, t, shape in (
         ("x", x, (B, nv)), ("y", y, (B, m)), ("z", z, (B, m)),
@@ -171,35 +331,83 @@ def fused_solve_lanes(
         _check(name, t, shape, dev)
     if shift is not None:
         _check("shift", shift, (B, m), dev)
+    gate = None
+    if active is not None:
+        if tuple(active.shape) != (B,) or active.device != dev:
+            raise ValueError(
+                f"active: shape {tuple(active.shape)} on {active.device}, "
+                f"expected ({B},) on {dev}")
+        gate = active.to(torch.float32).contiguous()
 
-    from tpu_aerial_transport_torch.ops import _build
-
-    lib = _build.load("fused_solve")
-    fn = lib.fused_solve_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    fn = _bind("fused_solve", _FUSED_ARGTYPES)
     xo = torch.empty((B, nv), dtype=torch.float32, device=dev)
     yo = torch.empty((B, m), dtype=torch.float32, device=dev)
     zo = torch.empty((B, m), dtype=torch.float32, device=dev)
     res = torch.empty((B, 2), dtype=torch.float32, device=dev)
-    dims = _SocDims()
-    dims.n = len(soc_dims)
-    for i, k in enumerate(soc_dims):
-        dims.d[i] = k
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    eff = (torch.empty((B,), dtype=torch.int32, device=dev) if early
+           else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
-        ptr(K2), ptr(Minv), ptr(A), ptr(P), ptr(q), ptr(rho), ptr(lb),
-        ptr(ub), ptr(shift), ptr(x), ptr(y), ptr(z),
-        ptr(xo), ptr(yo), ptr(zo), ptr(res),
-        B, nv, m, n_box, iters, 1 if shift is not None else 0,
-        float(alpha), float(1 - alpha), dims, dev.index, stream,
+        _ptr(K2), _ptr(Minv), _ptr(A), _ptr(P), _ptr(q), _ptr(rho), _ptr(lb),
+        _ptr(ub), _ptr(shift), _ptr(x), _ptr(y), _ptr(z), _ptr(gate),
+        _ptr(xo), _ptr(yo), _ptr(zo), _ptr(res), _ptr(eff),
+        B, nv, m, n_box, iters, int(check_every) if early else 0,
+        float(tol) if early else 0.0, 1 if shift is not None else 0,
+        float(alpha), float(1 - alpha), _soc_struct(soc_dims), dev.index,
+        stream,
     )
-    if err != 0:
-        raise RuntimeError(
-            f"fused_solve kernel launch failed: {_build.error_string(err)} "
-            f"(cudaError {err})"
-        )
+    _raise_on(err, "fused_solve")
+    if early:
+        LAUNCHES["fused_solve_early"] += 1
+        return xo, yo, zo, res[:, 0], res[:, 1], eff
     LAUNCHES["fused_solve"] += 1
     return xo, yo, zo, res[:, 0], res[:, 1]
+
+
+def admm_chunk_lanes(
+    x, y, z, K2, w2, rho, lb, ub, shift,
+    *, nv: int, n_box: int, soc_dims: Sequence[int], iters: int,
+    alpha: float,
+):
+    """``iters`` ADMM iterations per lane with ``K2`` and ``w2`` given,
+    batch-first ``(B, rows...)``; returns ``(x, y, z)``.
+
+    CPU tensors run :func:`admm_chunk_lanes_reference`. CUDA tensors launch
+    the kernel on the current stream (no synchronisation) or raise, as
+    :func:`fused_solve_lanes` does."""
+    if x.device.type == "cpu":
+        return admm_chunk_lanes_reference(
+            x, y, z, K2, w2, rho, lb, ub, shift, nv=nv, n_box=n_box,
+            soc_dims=soc_dims, iters=iters, alpha=alpha,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"admm_chunk_lanes: unsupported device {x.device}")
+    soc_dims = tuple(int(k) for k in soc_dims)
+    B = x.shape[0]
+    m = rho.shape[-1]
+    d = nv + m
+    _check_layout("admm_chunk", nv, m, n_box, soc_dims, iters,
+                  admm_chunk_smem_bytes(nv, m))
+    dev = x.device
+    for name, t, shape in (
+        ("x", x, (B, nv)), ("y", y, (B, m)), ("z", z, (B, m)),
+        ("K2", K2, (B, d, d)), ("w2", w2, (B, d)), ("rho", rho, (B, m)),
+        ("lb", lb, (B, n_box)), ("ub", ub, (B, n_box)),
+        ("shift", shift, (B, m)),
+    ):
+        _check(name, t, shape, dev)
+
+    fn = _bind("admm_chunk", _CHUNK_ARGTYPES)
+    xo = torch.empty((B, nv), dtype=torch.float32, device=dev)
+    yo = torch.empty((B, m), dtype=torch.float32, device=dev)
+    zo = torch.empty((B, m), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(
+        _ptr(K2), _ptr(w2), _ptr(rho), _ptr(lb), _ptr(ub), _ptr(shift),
+        _ptr(x), _ptr(y), _ptr(z), _ptr(xo), _ptr(yo), _ptr(zo),
+        B, nv, m, n_box, iters, 1, float(alpha), float(1 - alpha),
+        _soc_struct(soc_dims), dev.index, stream,
+    )
+    _raise_on(err, "admm_chunk")
+    LAUNCHES["admm_chunk"] += 1
+    return xo, yo, zo

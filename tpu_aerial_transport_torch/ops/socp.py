@@ -1,4 +1,4 @@
-"""Batched conic QP/SOCP solver on tensors (fixed-iteration ADMM).
+"""Batched conic QP/SOCP solver on tensors (ADMM).
 
 Counterpart of ``tpu_aerial_transport/ops/socp.py``. Problem form:
 
@@ -8,20 +8,28 @@ Counterpart of ``tpu_aerial_transport/ops/socp.py``. Problem form:
 with the first ``n_box`` rows box rows (equalities as ``lb == ub``) and the
 rest second-order-cone blocks of static dims ``soc_dims``. Every argument
 carries explicit leading batch axes (e.g. ``(S scenarios, n agents)``); the
-solver folds them into one lane axis and runs the whole solve -- the
-``w2 = [Minv q; A Minv q]`` build, ``iters`` ADMM iterations with the
-prebuilt fused operator ``K2``, and the exit residuals -- through
-``ops.admm_kernel.fused_solve_lanes``: the hand-written CUDA kernel for
-tensors on the card, its plain PyTorch version for tensors on the CPU.
+solver folds them into one lane axis.
 
-Ported: the fixed-iteration path. The tolerance-chunked early exit
-(``check_every``/``tol``), the adaptive-effort gate (``active``) and bf16
-operator storage raise ``NotImplementedError`` (ROADMAP Queue 2 items 1(b),
-1(c)).
+Two routes run the ADMM iterations (``solve_socp(fused=...)``, the JAX
+package's ``fused`` modes of the same names):
+
+- ``"kernel"`` (the default): the whole solve -- the ``w2 = [Minv q; A Minv
+  q]`` build, the iterations with the prebuilt fused operator ``K2``, the
+  exit residuals, and in the tolerance-chunked form the per-lane early exit
+  -- in one call of ``ops.admm_kernel.fused_solve_lanes``;
+- ``"pallas"``: ``w2`` and the residuals in plain tensor ops, the
+  iterations in chunks through ``ops.admm_kernel.admm_chunk_lanes`` (one
+  call for a fixed-iteration solve, one per chunk of a tolerance-chunked
+  one, under :func:`_masked_chunk_loop`).
+
+Each call is the hand-written CUDA kernel for tensors on the card and its
+plain PyTorch version for tensors on the CPU. bf16 operator storage raises
+``NotImplementedError`` (ROADMAP Queue 2 item 1(c)).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Sequence
 
 import torch
@@ -32,6 +40,12 @@ from tpu_aerial_transport_torch.ops import admm_kernel
 
 EQ_RHO_SCALE = 1e3  # rho boost for equality rows.
 INF = 1e20  # "infinity" bound.
+
+# The routes that run the ADMM iterations (see the module docstring).
+ROUTES = ("kernel", "pallas")
+# The consensus-level solver-effort vocabulary (controllers' ``effort=``
+# knob; see :func:`resolve_effort`).
+EFFORTS = ("fixed", "adaptive")
 
 # Operator edges are padded to multiples of this when pad_operators is on
 # (the JAX package's f32 sublane tile; on the card it keeps rows aligned).
@@ -225,6 +239,95 @@ def solution_is_finite(sols: SOCPSolution) -> torch.Tensor:
     )
 
 
+def _where_lanes(pred: torch.Tensor, new, old):
+    """Per-lane select ``pred (batch)`` over tensors ``(batch, rows)``."""
+    return tuple(torch.where(pred[..., None], a, b) for a, b in zip(new, old))
+
+
+def _masked_chunk_loop(carry0, run_chunk, above_tol, gate, iters: int,
+                       check_every: int):
+    """The tolerance-chunked early-exit loop over a batch of lanes (the JAX
+    package's ``_masked_chunk_loop``, ``socp.py:607``, under ``vmap``).
+
+    Chunks of ``check_every`` iterations (``run_chunk(carry, k)``) run while
+    any lane is active; a lane is active while it has run fewer than
+    ``iters // check_every`` chunks and ``above_tol`` holds for its carry
+    (tested before the first chunk too), and only if its ``gate`` ((batch,)
+    bool or None) is on. An inactive lane keeps its carry (a select), so
+    its result does not depend on the lanes that are still running. Then
+    one remainder chunk of ``iters % check_every`` for the lanes still
+    above tolerance: under ``vmap`` the JAX package runs it as a select for
+    every lane; here it is skipped when no lane needs it (the values are
+    the same). One host synchronisation per chunk (the ``any`` test).
+
+    Returns ``(carry, n_chunks, eff_iters)``: per-lane chunks run and
+    effective iterations (int32; 0 for a gated-off lane)."""
+    n_full, rem = divmod(iters, check_every)
+    carry = tuple(carry0)
+    batch = carry[0].shape[:-1]
+    n_chunks = torch.zeros(batch, dtype=torch.int32, device=carry[0].device)
+
+    def working(c):
+        return above_tol(c) if gate is None else gate & above_tol(c)
+
+    if n_full:
+        act = working(carry)
+        while bool(act.any()):
+            carry = _where_lanes(act, run_chunk(carry, check_every), carry)
+            n_chunks = n_chunks + act.to(torch.int32)
+            act = act & (n_chunks < n_full) & above_tol(carry)
+    eff = n_chunks * check_every
+    if rem:
+        need = working(carry)
+        if bool(need.any()):
+            carry = _where_lanes(need, run_chunk(carry, rem), carry)
+        eff = eff + torch.where(need, rem, 0).to(torch.int32)
+    return carry, n_chunks, eff
+
+
+def resolve_effort(effort: str | None = "auto") -> str:
+    """Resolve the controllers' consensus-level solver-effort knob at config
+    build time (the JAX package's ``resolve_effort``): ``"auto"`` (or None)
+    reads ``TAT_EFFORT`` (``fixed`` | ``adaptive`` | ``auto``/unset) and
+    otherwise stays ``"fixed"``, the fixed-iteration-cap behaviour.
+    ``"adaptive"`` runs the inner solves tolerance-chunked with per-lane
+    early exit and gates each lane with its scenario's own consensus
+    continue predicate, so a converged scenario's solves are
+    0-effective-iteration pass-throughs while the loop drains stragglers;
+    per-step effort lands on ``SolverStats.inner_iters``."""
+    if effort is None:
+        effort = "auto"
+    if effort == "auto":
+        env = os.environ.get("TAT_EFFORT", "").strip().lower()
+        if env in EFFORTS:
+            return env
+        if env not in ("", "auto"):
+            raise ValueError(
+                f"TAT_EFFORT={env!r}: expected one of {EFFORTS} or 'auto'"
+            )
+        return "fixed"
+    if effort not in EFFORTS:
+        raise ValueError(
+            f"effort={effort!r}: expected one of {EFFORTS} or 'auto'"
+        )
+    return effort
+
+
+def resolve_route(fused: str) -> str:
+    """``"auto"`` -> ``"kernel"``; a route of :data:`ROUTES` passes through;
+    anything else (the JAX package's ``"scan"``/``"interpret"`` modes
+    included, which have no counterpart here) is a ValueError. The device
+    of the tensors, not the route, decides between a kernel and its plain
+    version."""
+    if fused == "auto":
+        return "kernel"
+    if fused not in ROUTES:
+        raise ValueError(
+            f"socp_fused={fused!r}: expected one of {ROUTES} or 'auto'"
+        )
+    return fused
+
+
 def solve_socp(
     P: torch.Tensor,
     q: torch.Tensor,
@@ -243,10 +346,12 @@ def solve_socp(
     tol: float = 0.0,
     shift: torch.Tensor | None = None,
     op: KKTOp | None = None,
+    fused: str = "kernel",
     precision: str = "f32",
     active: torch.Tensor | None = None,
-) -> SOCPSolution:
-    """Solve a batch of conic QPs with ``iters`` fixed ADMM iterations.
+    report_iters: bool = False,
+):
+    """Solve a batch of conic QPs by ADMM.
 
     Shapes: ``P (..., nv, nv)``, ``q (..., nv)``, ``A (..., m, nv)``,
     ``lb``/``ub`` ``(..., n_box)``, ``shift (..., m)`` or None, ``warm`` a
@@ -255,23 +360,27 @@ def solve_socp(
     is always projected onto the translated cone first (identity for an
     in-cone start; repairs an all-zeros cold start).
 
-    The whole solve runs in one call of ``admm_kernel.fused_solve_lanes``:
-    its CUDA kernel for tensors on the card, its plain PyTorch version for
-    tensors on the CPU."""
-    if check_every or tol > 0:
-        raise NotImplementedError(
-            "the tolerance-chunked early-exit solve (check_every/tol) is not "
-            "ported yet (ROADMAP Queue 2 item 1(b))"
-        )
-    if active is not None:
-        raise NotImplementedError(
-            "active= gating (adaptive effort) is not ported yet (ROADMAP "
-            "Queue 2 item 1(b))"
-        )
+    ``iters`` fixed iterations, or, with ``check_every > 0`` and ``tol >
+    0``, the tolerance-chunked early exit: chunks of ``check_every``
+    iterations per lane until both residuals are at most ``tol``, capped at
+    ``iters`` (see :func:`_masked_chunk_loop`). ``active`` ((...) bool, the
+    consensus-level adaptive-effort gate; tolerance-chunked path only)
+    makes a lane a 0-effective-iteration pass-through of its warm start.
+    ``fused`` names the route (see the module docstring). With
+    ``report_iters`` the return is ``(solution, eff_iters)``, the (...)
+    int32 iterations each lane applied."""
     if precision != "f32":
         raise NotImplementedError(
             f"precision={precision!r}: bf16 operator storage is not ported "
             "yet (ROADMAP Queue 2 item 1(c))"
+        )
+    route = resolve_route(fused)
+    tol_path = bool(check_every) and tol > 0
+    if active is not None and not tol_path:
+        raise ValueError(
+            "solve_socp(active=) needs the tolerance-chunked path "
+            "(check_every > 0 and tol > 0): a fixed-iteration solve cannot "
+            "express a 0-effective-iteration pass-through"
         )
     m, nv = A.shape[-2:]
     assert m == n_box + sum(soc_dims)
@@ -293,17 +402,66 @@ def solve_socp(
         """Fold the leading axes into one contiguous lane axis."""
         return t.reshape((-1,) + t.shape[t.dim() - k:]).contiguous()
 
-    args = [lanes(x0, 1), lanes(y0, 1), lanes(z0, 1), lanes(op.K2, 2),
-            lanes(op.Minv, 2), lanes(A, 2), lanes(P, 2), lanes(q, 1),
-            lanes(rho_vec, 1), lanes(lb, 1), lanes(ub, 1),
-            None if shift is None else lanes(shift, 1)]
-    with phases.scope(phases.FUSED_SOLVE):
-        x, y, z, prim, dual = admm_kernel.fused_solve_lanes(
-            *args, nv=nv, n_box=n_box, soc_dims=tuple(soc_dims), iters=iters,
-            alpha=alpha,
-        )
-    return SOCPSolution(
+    carry0 = (lanes(x0, 1), lanes(y0, 1), lanes(z0, 1))
+    gate = None if active is None else lanes(active, 0)
+    solve_kw = dict(nv=nv, n_box=n_box, soc_dims=tuple(soc_dims),
+                    iters=iters, alpha=alpha)
+    if route == "kernel":
+        args = [*carry0, lanes(op.K2, 2), lanes(op.Minv, 2), lanes(A, 2),
+                lanes(P, 2), lanes(q, 1), lanes(rho_vec, 1), lanes(lb, 1),
+                lanes(ub, 1), None if shift is None else lanes(shift, 1)]
+        with phases.scope(phases.FUSED_SOLVE):
+            if tol_path:
+                x, y, z, prim, dual, eff = admm_kernel.fused_solve_lanes(
+                    *args, gate, check_every=check_every, tol=tol,
+                    **solve_kw)
+            else:
+                x, y, z, prim, dual = admm_kernel.fused_solve_lanes(
+                    *args, **solve_kw)
+                eff = None
+    else:
+        # The chunked route: w2 and the residuals in plain tensor ops, the
+        # iterations through the chunk kernel (JAX: socp.py:1020-1021,
+        # :1060-1076).
+        Al, Pl, ql = lanes(A, 2), lanes(P, 2), lanes(q, 1)
+        wq = _mv(lanes(op.Minv, 2), ql)
+        w2 = torch.cat([wq, _mv(Al, wq)], dim=-1)
+        shift_l = (lanes(shift, 1) if shift is not None
+                   else torch.zeros(carry0[1].shape, dtype=dtype,
+                                    device=device))
+        chunk_args = (lanes(op.K2, 2), w2, lanes(rho_vec, 1), lanes(lb, 1),
+                      lanes(ub, 1), shift_l)
+
+        def run_chunk(carry, k):
+            return admm_kernel.admm_chunk_lanes(
+                *carry, *chunk_args, **dict(solve_kw, iters=k))
+
+        def residuals(carry):
+            x_, y_, z_ = carry
+            prim_ = torch.amax(torch.abs(_mv(Al, x_) - z_), dim=-1)
+            ATy = _mv(Al.transpose(-1, -2), y_)
+            dual_ = torch.amax(torch.abs(_mv(Pl, x_) + ql + ATy), dim=-1)
+            return prim_, dual_
+
+        if tol_path:
+            def above_tol(carry):
+                prim_, dual_ = residuals(carry)
+                return (prim_ > tol) | (dual_ > tol)
+
+            carry, _, eff = _masked_chunk_loop(
+                carry0, run_chunk, above_tol,
+                None if gate is None else gate > 0, iters, check_every)
+        else:
+            carry, eff = run_chunk(carry0, iters), None
+        x, y, z = carry
+        prim, dual = residuals(carry)
+    sol = SOCPSolution(
         x=x.reshape(batch + (nv,)), y=y.reshape(batch + (m,)),
         z=z.reshape(batch + (m,)), prim_res=prim.reshape(batch),
         dual_res=dual.reshape(batch),
     )
+    if not report_iters:
+        return sol
+    if eff is None:
+        eff = torch.full(batch, iters, dtype=torch.int32, device=device)
+    return sol, eff.reshape(batch)
