@@ -71,6 +71,8 @@ PKG = "tpu_aerial_transport_torch"
 # another), and the phase their device time is attributed to.
 OWN_KERNELS = {"fused_solve_kernel": "fused_solve",
                "fused_solve_early_kernel": "fused_solve_early",
+               "fused_solve_bf16_kernel": "fused_solve_bf16",
+               "fused_solve_early_bf16_kernel": "fused_solve_early_bf16",
                "admm_chunk_kernel": "admm_chunk"}
 
 N_AGENTS, N_SCENARIOS, TIMED_STEPS = 8, 256, 10
@@ -272,7 +274,8 @@ def first_step_quality(fixed, adaptive):
 def timed_steps(mpc_step, css, states, n_steps):
     """``n_steps`` MPC steps from ``(css, states)`` with every launch
     counter set to 0 just before and read just after: ``(css, states,
-    iters (n_steps, S), inner (n_steps, S) or None, seconds, launches)``."""
+    iters (n_steps, S), inner (n_steps, S) or None, seconds, launches,
+    the last step's stats)``."""
     import torch
 
     from tpu_aerial_transport_torch.ops import admm_kernel
@@ -289,7 +292,13 @@ def timed_steps(mpc_step, css, states, n_steps):
     elapsed = time.perf_counter() - t0
     launches = dict(admm_kernel.LAUNCHES)
     inner = torch.stack(inner) if inner[0].numel() else None
-    return css, states, torch.stack(iters), inner, elapsed, launches
+    return css, states, torch.stack(iters), inner, elapsed, launches, stats
+
+
+def forces_of(css):
+    """The forces a controller state carries: the consensus copies
+    (C-ADMM), the own forces (DD) or the previous forces (centralized)."""
+    return css.prev_f if hasattr(css, "prev_f") else css.f
 
 
 def check_states(css, states, what):
@@ -298,7 +307,7 @@ def check_states(css, states, what):
     for f in ("R", "w", "xl", "vl", "Rl", "wl"):
         if not bool(torch.isfinite(getattr(states, f)).all()):
             fail(f"{what}: non-finite state field {f}")
-    if not bool(torch.isfinite(css.f).all()):
+    if not bool(torch.isfinite(forces_of(css)).all()):
         fail(f"{what}: non-finite forces")
 
 
@@ -342,10 +351,22 @@ def in_float64(args):
             for a in args]
 
 
-def check_early_exit(cases, card):
+def plain64(args, kw):
+    """The whole-solve plain version in float64 on the same inputs: bf16
+    operators upcast exactly, so it runs the plain math on the rounded
+    operators."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    return admm_kernel.fused_solve_lanes_reference(
+        *in_float64(args), **dict(kw, precision="f32"))
+
+
+def check_early_exit(cases, card, chunks_apart=1):
     """The early-exit kernel against its plain version on each case
     ``(name, args, kw)``; returns the per-case report and the largest
-    error on the lanes whose effective counts agree."""
+    error on the lanes whose effective counts agree. Counts must be equal
+    in EFF_EQUAL_SHARE of the lanes and at most ``chunks_apart`` chunks
+    apart (None: any)."""
     import torch
 
     from tpu_aerial_transport_torch.ops import admm_kernel
@@ -355,18 +376,20 @@ def check_early_exit(cases, card):
     for case, a, k in cases:
         got = admm_kernel.fused_solve_lanes(*a, **k)
         ref = admm_kernel.fused_solve_lanes_reference(*a, **k)
-        ref64 = admm_kernel.fused_solve_lanes_reference(*in_float64(a), **k)
+        ref64 = plain64(a, k)
         torch.cuda.synchronize()
         same = got[5] == ref[5]
         share = float(same.float().mean())
         apart = int((got[5] - ref[5]).abs().max())
         errs, noise, ok = agreement(names, got[:5], ref[:5], ref64[:5],
                                     same & (ref64[5] == ref[5]))
-        ok = ok and share >= EFF_EQUAL_SHARE and apart <= k["check_every"]
+        ok = ok and share >= EFF_EQUAL_SHARE and (
+            chunks_apart is None or apart <= chunks_apart * k["check_every"])
         worst = max(worst, max(errs.values()))
         B = a[0].shape[0]
         gated = a[12] is not None and not bool(a[12].all())
         print(f"early-exit check {case}: B={B} d={k['nv'] + a[8].shape[-1]} "
+              f"{a[3].dtype} "
               f"iters={k['iters']} check_every={k['check_every']} "
               f"tol={k['tol']} gated_off={int((~a[12]).sum()) if gated else 0}"
               f" eff equal in {share * 100:.2f}% of lanes, at most {apart} "
@@ -401,11 +424,408 @@ def early_exit_bound(args, kw, eff):
     bytes_ = flops = 0
     for g, e in zip(on, eff.tolist()):
         bytes_ += admm_kernel.fused_solve_bytes_per_lane(
-            nv, m, n_box, early=True, gated_off=not g)
+            nv, m, n_box, early=True, gated_off=not g,
+            precision=kw.get("precision", "f32"))
         checks = (e // kw["check_every"] + 1) if g else 0
         flops += admm_kernel.fused_solve_flops_per_lane(
             nv, m, e, soc, residual_checks=checks + 1, build=g)
     return bytes_, flops
+
+
+STATE_FIELDS = ("R", "w", "xl", "vl", "Rl", "wl")
+
+
+def workload(controller, n, n_scenarios, device="cuda", **kw):
+    """``(mpc_step, css0, states0)``: the bench set-up of
+    ``rollout.make_mpc_step`` over the headline's seeded scenario batch."""
+    from tpu_aerial_transport_torch.harness import rollout
+
+    step, cs0, st0 = rollout.make_mpc_step(controller, n, device=device, **kw)
+    return (step, rollout.stack_scenarios(cs0, n_scenarios),
+            rollout.scenario_batch(st0, n_scenarios))
+
+
+def card_vs_cpu(what, controller, n, first, card, n_cpu=8, **kw):
+    """The card's first MPC step (``first = (css, states, stats)`` from the
+    seeded batch) against the CPU plain path's on its first ``n_cpu``
+    scenarios: states within CPU_STATE_ATOL, forces within CPU_FORCE_ATOL
+    and equal iteration counts, or the run fails."""
+    if controller != "centralized":
+        kw = dict(kw, pad_operators=True)  # the card's operator layout.
+    step, css, states = workload(controller, n, n_cpu, device="cpu", **kw)
+    css_c, st_c, stats_c = step(css, states)
+    css_g, st_g, stats_g = first
+    cut = lambda t: t[:n_cpu].cpu()  # noqa: E731
+    errs = {f: float((getattr(st_c, f) - cut(getattr(st_g, f))).abs().max())
+            for f in STATE_FIELDS}
+    f_err = float((forces_of(css_c) - cut(forces_of(css_g))).abs().max())
+    it_card = cut(stats_g.iters).tolist()
+    it_cpu = stats_c.iters.tolist()
+    ok = (max(errs.values()) <= CPU_STATE_ATOL and f_err <= CPU_FORCE_ATOL
+          and it_card == it_cpu)
+    print(f"{what} card vs CPU, first MPC step of {n_cpu} scenarios: "
+          f"max|state err| {max(errs.values()):.2e} (atol {CPU_STATE_ATOL}),"
+          f" max|force err| {f_err:.2e} N (atol {CPU_FORCE_ATOL}), "
+          f"iterations card {it_card} CPU {it_cpu} "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    if not ok:
+        fail(f"{what}: the card's first step disagrees with the CPU")
+    return {"state_err": errs, "force_err": f_err, "iters_card": it_card,
+            "iters_cpu": it_cpu}
+
+
+def check_fixed_forms(cases, card):
+    """The fixed-iteration form (either storage) against its plain version
+    on each case ``(name, args, kw)``, at the kernel bar; returns the
+    per-case report and the largest error."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    names = ("x", "y", "z", "prim_res", "dual_res")
+    checks, worst = {}, 0.0
+    for case, a, k in cases:
+        got = admm_kernel.fused_solve_lanes(*a, **k)
+        ref = admm_kernel.fused_solve_lanes_reference(*a, **k)
+        ref64 = plain64(a, k)
+        torch.cuda.synchronize()
+        errs, noise, ok = agreement(names, got, ref, ref64)
+        worst = max(worst, max(errs.values()))
+        print(f"kernel check {case}: B={a[0].shape[0]} "
+              f"d={k['nv'] + a[8].shape[-1]} {a[3].dtype} iters={k['iters']}"
+              f" shift={a[11] is not None} max|err| "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + "; plain float32 vs float64 "
+              + " ".join(f"{n}={e:.3e}" for n, e in noise.items())
+              + " " + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+        checks[case] = {"B": a[0].shape[0], "max_abs_err": errs,
+                        "plain_f32_vs_f64": noise, "ok": ok}
+        if not ok:
+            fail(f"kernel disagrees with its plain version on {case}")
+    return checks, worst
+
+
+def fixed_form(args, kw):
+    """An early-exit call's inputs as a fixed-iteration call's."""
+    return args[:12], {k: v for k, v in kw.items()
+                       if k not in ("check_every", "tol")}
+
+
+def bf16_phases(card, report, lanes):
+    """Phases 10-12: the bf16 headline (C-ADMM), DD with bf16, and the bf16
+    kernel forms against their plain version. Returns the two bf16 rows
+    of the kernels line."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    # 10. The bf16 headline: 256 x 8 C-ADMM, fixed effort, bf16 storage.
+    step_b, css0, st0 = workload("cadmm", N_AGENTS, N_SCENARIOS,
+                                 socp_precision="bf16")
+    step_f, _, _ = workload("cadmm", N_AGENTS, 1, socp_precision="f32")
+    b_args = []
+    with capturing(admm_kernel, "fused_solve_lanes", b_args):
+        first_b = step_b(css0, st0)
+    torch.cuda.synchronize()
+    css_b, st_b, iters_b, _, secs_b, launches_b, stats_b = timed_steps(
+        step_b, css0, st0, TIMED_STEPS)
+    runs_b = int(iters_b.max(dim=1).values.sum())
+    check_launches(launches_b, "fused_solve_bf16", runs_b, "the bf16 headline")
+    check_states(css_b, st_b, "the bf16 headline")
+    # In turns: bf16 (above), f32, bf16, f32.
+    *_, secs_f, _, stats_f = timed_steps(step_f, css0, st0, TIMED_STEPS)
+    secs_b2 = timed_steps(step_b, css0, st0, TIMED_STEPS)[4]
+    secs_f2 = timed_steps(step_f, css0, st0, TIMED_STEPS)[4]
+    rate = lambda secs: N_SCENARIOS * TIMED_STEPS / secs  # noqa: E731
+    res_b = float(stats_b.solve_res.max())
+    res_f = float(stats_f.solve_res.max())
+    # The JAX bench's bf16 gate (bench.py:881-907): a finding, not a failure.
+    verdict = ("bf16" if res_b < EFFORT_BAR else
+               "bf16_refused" if res_f < EFFORT_BAR else
+               "res_bar_inconclusive")
+    it_b = iters_b.to(torch.float32)
+    print(f"bf16 headline: {N_SCENARIOS}x{N_AGENTS} C-ADMM forest, fixed "
+          f"effort, socp_precision bf16, {TIMED_STEPS} MPC steps in "
+          f"{secs_b:.4f} s = {rate(secs_b):.2f} scenario-MPC-steps/s | "
+          f"consensus iters/step mean {float(it_b.mean()):.3f} max "
+          f"{int(iters_b.max())} | launches {launches_b} = consensus "
+          f"iterations run {runs_b} | {card}", flush=True)
+    print(f"bf16 vs f32 in turns (bf16, f32, bf16, f32): "
+          f"{rate(secs_b):.2f}, {rate(secs_f):.2f}, {rate(secs_b2):.2f}, "
+          f"{rate(secs_f2):.2f} scenario-MPC-steps/s; final step's worst "
+          f"consensus residual bf16 {res_b:.4e} N, f32 {res_f:.4e} N (bar "
+          f"{EFFORT_BAR}): verdict {verdict} | {card}", flush=True)
+    report["bf16_path"] = {
+        "rates_in_turns": {"bf16": [rate(secs_b), rate(secs_b2)],
+                           "f32": [rate(secs_f), rate(secs_f2)]},
+        "iters_mean": float(it_b.mean()), "iters_max": int(iters_b.max()),
+        "launches": launches_b, "final_res_bf16": res_b,
+        "final_res_f32": res_f, "verdict": verdict,
+        "card_vs_cpu": card_vs_cpu("bf16 headline", "cadmm", N_AGENTS,
+                                   first_b, card, socp_precision="bf16"),
+    }
+
+    # 11. DD at 256 x 8, adaptive effort, bf16 storage.
+    step_d, css0_d, st0_d = workload("dd", N_AGENTS, N_SCENARIOS,
+                                     socp_precision="bf16", effort="adaptive")
+    d_args = []
+    with capturing(admm_kernel, "fused_solve_lanes", d_args):
+        first_d = step_d(css0_d, st0_d)
+    torch.cuda.synchronize()
+    css_d, st_d, iters_d, inner_d, secs_d, launches_d, _ = timed_steps(
+        step_d, css0_d, st0_d, TIMED_STEPS)
+    runs_d = int(iters_d.max(dim=1).values.sum())
+    check_launches(launches_d, "fused_solve_early_bf16", runs_d, "bf16 DD")
+    check_states(css_d, st_d, "bf16 DD")
+    print(f"bf16 DD: {N_SCENARIOS}x{N_AGENTS} forest, effort adaptive, "
+          f"{TIMED_STEPS} MPC steps in {secs_d:.4f} s = {rate(secs_d):.2f} "
+          f"scenario-MPC-steps/s | dual-ascent iters/step mean "
+          f"{float(iters_d.float().mean()):.3f} max {int(iters_d.max())} | "
+          f"launches {launches_d} = iterations run {runs_d} | {card}",
+          flush=True)
+    report["bf16_dd_path"] = {
+        "scenario_mpc_steps_per_s": rate(secs_d), "launches": launches_d,
+        "iters_mean": float(iters_d.float().mean()),
+        "card_vs_cpu": card_vs_cpu("bf16 DD", "dd", N_AGENTS, first_d, card,
+                                   socp_precision="bf16", effort="adaptive"),
+    }
+
+    # 12. The bf16 forms against their plain bf16 version, on inputs
+    # captured from phases 10 and 11.
+    if not b_args or not d_args:
+        fail("no bf16 call captured in the warm-up steps")
+    a, k = b_args[0]
+    if a[3].dtype != torch.bfloat16 or k.get("precision") != "bf16":
+        fail("the bf16 headline did not hand the kernel bf16 operators")
+    B = a[0].shape[0]
+    half = torch.arange(B, device=a[0].device) % 2 == 0
+    early_kw = dict(k, check_every=10, tol=5e-3)
+    checks, err_b = check_fixed_forms([
+        ("bf16_headline", a, k), ("bf16_no_shift", a[:11] + [None], k),
+        ("bf16_ragged_B1000", lanes(a, 1000), k),
+    ], card)
+    e_checks, err_e = check_early_exit([
+        ("bf16_d48_ungated", a + [None], early_kw),
+        ("bf16_d48_half_gated", a + [half], early_kw),
+        ("bf16_dd_d56", *d_args[0]),
+    ], card)
+    report["bf16_kernel_checks"] = {**checks, **e_checks}
+    nv, n_box, soc = k["nv"], k["n_box"], tuple(k["soc_dims"])
+    m = a[8].shape[-1]
+    b_bytes = B * admm_kernel.fused_solve_bytes_per_lane(
+        nv, m, n_box, precision="bf16")
+    b_flops = B * admm_kernel.fused_solve_flops_per_lane(nv, m, k["iters"],
+                                                         soc)
+    b_bound, b_by = bound(b_bytes, b_flops)
+    b_ms = cuda_ms(lambda: admm_kernel.fused_solve_lanes(*a, **k), 100)
+    b_plain = cuda_ms(
+        lambda: admm_kernel.fused_solve_lanes_reference(*a, **k), 5)
+    f32_args = [t.float() if t is not None and t.dtype == torch.bfloat16
+                else t for t in a]
+    f32_kw = dict(k, precision="f32")
+    f_ms = cuda_ms(lambda: admm_kernel.fused_solve_lanes(*f32_args, **f32_kw),
+                   100)
+    print(f"fused_solve bf16 timing (B={B}, d={nv + m}, iters={k['iters']}):"
+          f" kernel {b_ms:.4f} ms/launch (the float32 form on the same "
+          f"inputs {f_ms:.4f}), plain PyTorch {b_plain:.4f} ms (both CUDA "
+          f"graphs), bound {b_bound:.4f} ms by {b_by} ({b_bytes / 1e6:.2f} "
+          f"MB with 2-byte operators, {b_flops / 1e6:.1f} MFLOP) | {card}",
+          flush=True)
+    ea, ek = d_args[0]
+    eff = admm_kernel.fused_solve_lanes(*ea, **ek)[5]
+    e_bytes, e_flops = early_exit_bound(ea, ek, eff)
+    e_bound, e_by = bound(e_bytes, e_flops)
+    e_ms = cuda_ms(lambda: admm_kernel.fused_solve_lanes(*ea, **ek), 100)
+    ea32 = [t.float() if t is not None and t.dtype == torch.bfloat16
+            else t for t in ea]
+    ek32 = dict(ek, precision="f32")
+    fe_ms = cuda_ms(lambda: admm_kernel.fused_solve_lanes(*ea32, **ek32), 100)
+    e_plain = event_ms(
+        lambda: admm_kernel.fused_solve_lanes_reference(*ea, **ek), 5)
+    print(f"fused_solve early-exit bf16 timing (bf16 DD's first dual-ascent "
+          f"iteration: B={ea[0].shape[0]}, d={ek['nv'] + ea[8].shape[-1]}, "
+          f"iters={ek['iters']}, mean eff {float(eff.float().mean()):.2f}): "
+          f"kernel {e_ms:.4f} ms/launch (CUDA graph; the float32 form on the "
+          f"same inputs {fe_ms:.4f}), plain PyTorch "
+          f"{e_plain:.4f} ms (host-driven), bound {e_bound:.4f} ms by {e_by} "
+          f"({e_bytes / 1e6:.2f} MB, {e_flops / 1e6:.1f} MFLOP) | {card}",
+          flush=True)
+    report["fused_solve_bf16"] = {
+        "kernel_ms": b_ms, "f32_kernel_ms_same_inputs": f_ms,
+        "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
+        "bytes": b_bytes, "flops": b_flops}
+    report["fused_solve_early_bf16"] = {
+        "kernel_ms": e_ms, "f32_kernel_ms_same_inputs": fe_ms,
+        "plain_ms": e_plain, "bound_ms": e_bound,
+        "bound_by": e_by, "bytes": e_bytes, "flops": e_flops}
+    source = f"{PKG}/csrc/fused_solve.cu"
+    replaces = "tpu_aerial_transport/ops/admm_kernel.py:283"
+    return [{
+        "name": "fused_solve_bf16_kernel", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches_b["fused_solve_bf16"],
+        "max_abs_err": err_b, "ms": b_ms, "plain_ms": b_plain,
+        "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
+    }, {
+        "name": "fused_solve_early_bf16_kernel", "route": "cuda",
+        "source": source, "replaces": replaces,
+        "launches": launches_d["fused_solve_early_bf16"],
+        "max_abs_err": err_e, "ms": e_ms, "plain_ms": e_plain,
+        "bound_ms": e_bound, "bound_by": e_by, "library_ms": None,
+    }]
+
+
+def centralized_phases(card, report):
+    """Phase 13: the entry step (n = 3) and the centralized rollout (n = 4),
+    each one early-exit launch a step, against the CPU; one entry period
+    profiled; the kernel against its plain version at d = 67 and d = 79
+    (256 lanes each). Returns the entry run's launches and the largest
+    kernel error."""
+    import torch
+
+    from tpu_aerial_transport_torch import entry
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    from torch.profiler import ProfilerActivity, profile
+
+    step_e, (cs0, st0, acc) = entry.entry()
+    step_e(cs0, st0, acc)  # warm-up.
+    cs, st = cs0, st0
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        cs, st, stats = step_e(cs, st, acc)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(admm_kernel.LAUNCHES)
+    check_launches(launches, "fused_solve_early", TIMED_STEPS,
+                   "the entry step")
+    check_states(cs, st, "the entry step")
+    print(f"entry step (n = 3, centralized, d = 67): {TIMED_STEPS} MPC "
+          f"periods in {secs:.4f} s = {TIMED_STEPS / secs:.2f} periods/s | "
+          f"launches {launches} | {card}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_e(cs0, st0, acc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ph = phase_breakdown(prof)
+    print(f"profile of one entry period: wall {wall * 1e3:.2f} ms (profiler "
+          f"on), device busy {ph['kernels_us'] / 1e3:.2f} ms | {card}",
+          flush=True)
+    for name in sorted(ph["host_us"], key=lambda p: -ph["host_us"][p]):
+        print(f"  tat.{name}: host {ph['host_us'][name] / 1e3:.3f} ms, "
+              f"device {ph['device_us'].get(name, 0.0) / 1e3:.3f} ms")
+    early_us = per_launch_us(prof, "fused_solve_early_kernel")
+    print("  fused_solve_early_kernel in the entry period: "
+          + ("not found in the trace" if early_us is None
+             else f"{early_us / 1e3:.4f} ms/launch"), flush=True)
+    step_c, (cs_c, st_c, acc_c) = entry.entry(device="cpu")
+    cs_g, st_g = cs0, st0
+    worst, f_worst = 0.0, 0.0
+    for _ in range(5):
+        cs_g, st_g, _ = step_e(cs_g, st_g, acc)
+        cs_c, st_c, _ = step_c(cs_c, st_c, acc_c)
+        worst = max(worst, max(float((getattr(st_c, f)
+                                      - getattr(st_g, f).cpu()).abs().max())
+                               for f in STATE_FIELDS))
+        f_worst = max(f_worst, float((cs_c.prev_f
+                                      - cs_g.prev_f.cpu()).abs().max()))
+    ok = worst <= CPU_STATE_ATOL and f_worst <= CPU_FORCE_ATOL
+    print(f"entry step card vs CPU, 5 periods: max|state err| {worst:.2e} "
+          f"(atol {CPU_STATE_ATOL}), max|force err| {f_worst:.2e} N (atol "
+          f"{CPU_FORCE_ATOL}) " + ("ok" if ok else "FAIL") + f" | {card}",
+          flush=True)
+    if not ok:
+        fail("the entry step on the card disagrees with the CPU")
+    report["entry"] = {"periods_per_s": TIMED_STEPS / secs,
+                       "launches": launches,
+                       "profile": {"wall_ms": wall * 1e3, "phases": ph,
+                                   "kernel_us_per_launch": early_us},
+                       "card_vs_cpu": {"state_err": worst,
+                                       "force_err": f_worst}}
+
+    captured = {}
+    for n in (3, 4):
+        step_n, css0, st0_n = workload("centralized", n, N_SCENARIOS)
+        args = []
+        with capturing(admm_kernel, "fused_solve_lanes", args):
+            first = step_n(css0, st0_n)
+        torch.cuda.synchronize()
+        captured[n] = args[0]
+        if n == 3:
+            continue
+        css, st_n, _, _, secs_n, launches_n, stats_n = timed_steps(
+            step_n, css0, st0_n, CHUNK_STEPS)
+        check_launches(launches_n, "fused_solve_early", CHUNK_STEPS,
+                       "the centralized rollout")
+        check_states(css, st_n, "the centralized rollout")
+        ok_frac = float(stats_n.ok_frac.mean())
+        print(f"centralized rollout: {N_SCENARIOS} scenarios x n = {n} "
+              f"(d = 79), {CHUNK_STEPS} MPC steps in {secs_n:.4f} s = "
+              f"{N_SCENARIOS * CHUNK_STEPS / secs_n:.2f} scenario-MPC-steps/s"
+              f" | solves under solver_tol in the last step {ok_frac:.4f} | "
+              f"launches {launches_n} | {card}", flush=True)
+        report["centralized_n4"] = {
+            "scenario_mpc_steps_per_s": N_SCENARIOS * CHUNK_STEPS / secs_n,
+            "launches": launches_n, "ok_frac_last_step": ok_frac,
+            "card_vs_cpu": card_vs_cpu("centralized n = 4", "centralized",
+                                       n, first, card),
+        }
+    # The stop decision at the centralized solves' converged point is
+    # decided by float32 rounding (the dual residual swings by ~+-3e-4
+    # around tol from chunk to chunk), so a flipped decision may stop
+    # chunks apart: counts must be equal in EFF_EQUAL_SHARE of the lanes,
+    # and the fixed form at the same inputs is held to the kernel bar.
+    (a3, k3), (a4, k4) = captured[3], captured[4]
+    cases = [("central_d67_B256", a3, k3), ("central_d79_B256", a4, k4)]
+    e_checks, err_e = check_early_exit(cases, card, chunks_apart=None)
+    f_checks, err_f = check_fixed_forms(
+        [(c + "_fixed", *fixed_form(a, k)) for c, a, k in cases], card)
+    report["centralized_kernel_checks"] = {**e_checks, **f_checks}
+    return launches["fused_solve_early"], max(err_e, err_f)
+
+
+def cadmm_option_phases(card, report):
+    """Phase 14: C-ADMM at n = 3 (the full QP, d = 56), with tau_incr = 1.5
+    and with inner_iters_warm = 10: launches = consensus iterations, finite
+    states, and the card against the CPU. Returns the launches."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    total, report["cadmm_options"] = 0, {}
+    for name, n, kw in (("n3_full_qp", 3, {}),
+                        ("tau_incr_1.5", N_AGENTS, dict(tau_incr=1.5)),
+                        ("inner_iters_warm_10", N_AGENTS,
+                         dict(inner_iters_warm=10))):
+        step, css0, st0 = workload("cadmm", n, N_SCENARIOS, **kw)
+        args = []
+        with capturing(admm_kernel, "fused_solve_lanes", args):
+            first = step(css0, st0)
+        torch.cuda.synchronize()
+        css, st, iters, _, secs, launches, _ = timed_steps(
+            step, css0, st0, CHUNK_STEPS)
+        runs = int(iters.max(dim=1).values.sum())
+        check_launches(launches, "fused_solve", runs, f"C-ADMM {name}")
+        check_states(css, st, f"C-ADMM {name}")
+        total += launches["fused_solve"]
+        a, k = args[0]
+        print(f"C-ADMM {name}: {N_SCENARIOS}x{n}, d = "
+              f"{k['nv'] + a[8].shape[-1]}, {CHUNK_STEPS} MPC steps in "
+              f"{secs:.4f} s = {N_SCENARIOS * CHUNK_STEPS / secs:.2f} "
+              f"scenario-MPC-steps/s | consensus iters/step mean "
+              f"{float(iters.float().mean()):.3f} max {int(iters.max())} | "
+              f"launches {launches} = consensus iterations run {runs} | "
+              f"{card}", flush=True)
+        report["cadmm_options"][name] = {
+            "scenario_mpc_steps_per_s": N_SCENARIOS * CHUNK_STEPS / secs,
+            "launches": launches,
+            "card_vs_cpu": card_vs_cpu(f"C-ADMM {name}", "cadmm", n, first,
+                                       card, **kw),
+        }
+    return total
 
 
 def main() -> int:
@@ -658,7 +1078,7 @@ def main() -> int:
           + ("ok" if quality["ok"] else "FAIL"), flush=True)
     if not quality["ok"]:
         fail("adaptive effort misses the fixed arm's quality bar")
-    css_a, states_a, iters_a, inner_a, secs_a, launches_a = timed_steps(
+    css_a, states_a, iters_a, inner_a, secs_a, launches_a, _ = timed_steps(
         step_ad, css0, states0, TIMED_STEPS)
     runs_a = int(iters_a.max(dim=1).values.sum())
     check_launches(launches_a, "fused_solve_early", runs_a,
@@ -738,7 +1158,7 @@ def main() -> int:
                   when=lambda kw: kw.get("check_every", 0) > 0):
         dd_first = step_dd(css0_dd, states0)
     torch.cuda.synchronize()
-    css_d, states_d, iters_d, inner_d, secs_d, launches_d = timed_steps(
+    css_d, states_d, iters_d, inner_d, secs_d, launches_d, _ = timed_steps(
         step_dd, css0_dd, states0, TIMED_STEPS)
     runs_d = int(iters_d.max(dim=1).values.sum())
     check_launches(launches_d, "fused_solve_early", runs_d, "DD")
@@ -845,7 +1265,7 @@ def main() -> int:
 
         socp.solve_socp = counted
         try:
-            css_c, states_c, iters_c, inner_c, secs_c, launches_c = \
+            css_c, states_c, iters_c, inner_c, secs_c, launches_c, _ = \
                 timed_steps(step_c, css0, states0, CHUNK_STEPS)
         finally:
             socp.solve_socp = solve
@@ -915,8 +1335,14 @@ def main() -> int:
         "bound_by": c_by, "bytes": c_bytes, "flops": c_flops,
     }
 
+    # 10-12. bf16 storage; 13. the entry step and the centralized
+    # controller; 14. C-ADMM's full QP, rho schedule and two-phase budget.
+    bf16_rows = bf16_phases(card, report, lanes)
+    central_launches, central_err = centralized_phases(card, report)
+    option_launches = cadmm_option_phases(card, report)
+
     kernels = [{
-        "name": "fused_solve", "route": "cuda",
+        "name": "fused_solve_kernel", "route": "cuda",
         "source": f"{PKG}/csrc/fused_solve.cu",
         "replaces": "tpu_aerial_transport/ops/admm_kernel.py:283",
         "launches": launches["fused_solve"],
@@ -925,21 +1351,26 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
     }, {
-        "name": "fused_solve_early_exit", "route": "cuda",
+        "name": "fused_solve_early_kernel", "route": "cuda",
         "source": f"{PKG}/csrc/fused_solve.cu",
         "replaces": "tpu_aerial_transport/ops/admm_kernel.py:283",
         "launches": launches_a["fused_solve_early"],
         "max_abs_err": e_err, "ms": e_ms, "plain_ms": e_plain,
         "bound_ms": e_bound, "bound_by": e_by, "library_ms": None,
     }, {
-        "name": "admm_chunk", "route": "cuda",
+        "name": "admm_chunk_kernel", "route": "cuda",
         "source": f"{PKG}/csrc/admm_chunk.cu",
         "replaces": "tpu_aerial_transport/ops/admm_kernel.py:128",
         "launches": chunk_launches, "max_abs_err": c_err, "ms": c_ms,
         "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
         "library_ms": None,
-    }]
+    }] + bf16_rows
     report["kernels"] = kernels
+    report["launches_elsewhere"] = {
+        "fused_solve_early_centralized": central_launches,
+        "fused_solve_cadmm_options": option_launches,
+        "centralized_max_abs_err": central_err,
+    }
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(
         HERE, "build", "chip_smoke.json")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

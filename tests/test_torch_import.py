@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import tpu_aerial_transport_torch
+from tpu_aerial_transport_torch import entry
 from tpu_aerial_transport_torch.control import cadmm, dd, lowlevel
 from tpu_aerial_transport_torch.envs import forest, spatial
 from tpu_aerial_transport_torch.harness import rollout, setup
@@ -75,8 +76,9 @@ def test_source_scan_covers_the_slice():
     """The scan reaches every module and kernel source of the port,
     including the shared kernel header."""
     rel = {os.path.relpath(p, REPO) for p in _sources()}
-    for f in ("control/dd.py", "csrc/admm_chunk.cu", "csrc/admm_common.cuh",
-              "csrc/fused_solve.cu", "ops/admm_kernel.py", "ops/socp.py"):
+    for f in ("control/centralized.py", "control/dd.py", "csrc/admm_chunk.cu",
+              "csrc/admm_common.cuh", "csrc/fused_solve.cu", "entry.py",
+              "ops/admm_kernel.py", "ops/socp.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
@@ -106,6 +108,8 @@ def test_entry_point_default_device_is_the_card():
         rollout.build(n=4, n_scenarios=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpu_aerial_transport_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.entry()
 
 
 def _cfg(**kw):
@@ -120,10 +124,19 @@ def _cfg(**kw):
     dict(inner_iters_warm=5),
 ], ids=lambda kw: next(iter(kw)))
 def test_left_out_options_raise(kw):
-    """What the slice leaves out raises NotImplementedError naming its
-    ROADMAP item; it never silently does something else."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _cfg(**kw)
+    """What is still left out (the bucketed query) raises
+    NotImplementedError naming its ROADMAP item and never silently does
+    something else; the options the port has since taken up (the rho
+    schedule, bf16 storage, the full agent QP, the two-phase budget)
+    build and hold their values."""
+    if kw == dict(env_query="bucketed"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _cfg(**kw)
+        return
+    cfg = _cfg(**kw)
+    for k, v in kw.items():
+        assert getattr(cfg, k) == v
+    assert cadmm._use_reduced(cfg, 8) == (kw != dict(reduced_qp=False))
 
 
 @pytest.mark.parametrize("kw", [
@@ -167,30 +180,46 @@ def test_resolve_effort_and_route(monkeypatch):
 
 
 def test_left_out_call_paths_raise():
+    """The four paths still left out (the SM law, the bucketed query,
+    health=, axis_name=) raise NotImplementedError naming their ROADMAP
+    item; n = 3 C-ADMM, bf16 solves and the centralized rollout, ported
+    since, run; junk option values are ValueErrors."""
     params, col, state = setup.rqp_setup(4, device="cpu")
     params3 = setup.rqp_setup(3, device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cadmm.make_config(params3, col.collision_radius,
-                          col.max_deceleration, device="cpu")
+    cfg3 = cadmm.make_config(params3, col.collision_radius,
+                             col.max_deceleration, device="cpu")
+    assert not cadmm._use_reduced(cfg3, 3) and cadmm.make_plan(
+        params3, cfg3) is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lowlevel.make_lowlevel_controller("sm", params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         spatial.runtime_env_query(
             "auto", forest.make_forest(seed=0, max_trees=201, device="cpu"))
     x = torch.zeros((2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        socp.solve_socp(torch.eye(4).expand(2, 4, 4), x, torch.eye(4).expand(
-            2, 4, 4), -torch.ones(2, 4), torch.ones(2, 4), n_box=4,
-            precision="bf16")
+    eye = torch.eye(4).expand(2, 4, 4)
+    sol = socp.solve_socp(eye, x, eye, -torch.ones(2, 4), torch.ones(2, 4),
+                          n_box=4, iters=5, precision="bf16")
+    assert torch.isfinite(sol.x).all()
     cfg = _cfg()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cadmm.control(params, cfg, None, None, state, None, health=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dd.control(params, None, None, None, state, None, axis_name="agent")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rollout.make_mpc_step("centralized", 4, device="cpu")
+    step, cs0, st0 = rollout.make_mpc_step("centralized", 4, device="cpu")
+    _, st1, stats = step(rollout.stack_scenarios(cs0, 2),
+                         rollout.stack_scenarios(st0, 2))
+    assert torch.isfinite(st1.xl).all() and stats.iters.tolist() == [-1, -1]
     with pytest.raises(ValueError, match="socp_fused"):
         _cfg(socp_fused="scan")
+    with pytest.raises(ValueError, match="precision"):
+        _cfg(socp_precision="fp8")
+    with pytest.raises(ValueError, match="precision"):
+        socp.solve_socp(eye, x, eye, -torch.ones(2, 4), torch.ones(2, 4),
+                        n_box=4, precision="fp8")
+    with pytest.raises(ValueError, match="tau_incr"):
+        _cfg(tau_incr=0.5)
+    with pytest.raises(ValueError, match="controller"):
+        rollout.make_mpc_step("lqr", 4, device="cpu")
 
 
 def test_kernel_wrapper_refuses_other_devices():

@@ -7,13 +7,27 @@ local copy of all forces; per consensus iteration every agent solves its
 primal conic QP, the copies are averaged, and the duals ascend while the
 residual is above ``res_tol``.
 
-Each agent's QP is Schur-reduced to 12 variables (``SchurPlan``, n >= 4): the
-other agents' force columns carry no constraints of their own and are
-eliminated in closed form, then rebuilt for the consensus step. All
-``S x n`` agent QPs of one consensus iteration are one batched solve
+Two agent-QP formulations (``reduced_qp``; None picks by n):
+
+- n >= 4: each agent's QP is Schur-reduced to 12 variables (``SchurPlan``):
+  the other agents' force columns carry no constraints of their own and
+  are eliminated in closed form, then rebuilt for the consensus step;
+- n < 4 (or ``reduced_qp=False``): the full (9 + 3n)-variable QP, whose
+  force columns are the agent's copy of every force (at n = 3 the
+  elimination's coupling block is singular).
+
+All ``S x n`` agent QPs of one consensus iteration are one batched solve
 (``ops.socp.solve_socp``): on the card, one launch of the whole-solve
-kernel (route ``"kernel"``, fixed-iteration or early-exit form) or one
-launch of the chunk kernel per chunk (route ``"pallas"``).
+kernel (route ``"kernel"``, fixed-iteration or early-exit form, float32 or
+bf16 operator storage by ``socp_precision``) or one launch of the chunk
+kernel per chunk (route ``"pallas"``, where bf16 is inert).
+
+The consensus penalty follows the schedule ``rho_k = min(rho0 tau_incr^k,
+rho_max)`` (constant at the default ``tau_incr = 1``): the agent QPs, their
+KKT operators and the Schur plan are built once per control step for every
+rho the schedule visits, and each consensus iteration picks its own. With
+``inner_iters_warm`` the first consensus iteration's solves run
+``inner_iters`` iterations and the later ones ``inner_iters_warm``.
 
 Solver effort (``effort``): ``"fixed"`` runs every agent solve for
 ``inner_iters`` iterations (or tolerance-chunked to ``inner_tol`` when that
@@ -30,14 +44,14 @@ scenario's iteration is computed, and a scenario whose predicate was false
 keeps its carry (``torch.where`` on every carry leaf). The ``any`` test is
 one host synchronisation per consensus iteration.
 
-Not ported yet (each raises ``NotImplementedError``): the n = 3 full-QP branch
-(``reduced_qp=False``), ``health=``, ``axis_name=``, ``inner_iters_warm``,
-``tau_incr > 1``, ``env_query="bucketed"`` and ``socp_precision="bf16"``
-(ROADMAP Queue 1 items 7, 10, 11, 13; Queue 2 item 1(c)).
+Not ported yet (each raises ``NotImplementedError``): ``health=``,
+``axis_name=`` and ``env_query="bucketed"`` (ROADMAP Queue 1 items 10, 11,
+13).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -84,7 +98,10 @@ class RQPCADMMConfig:
     k_feq: float
     k_dvl: float
     k_dwl: float
-    rho0: float = 1.0  # the (constant) consensus penalty.
+    # Consensus penalty schedule rho_k = min(rho0 tau_incr^k, rho_max).
+    rho0: float = 1.0
+    tau_incr: float = 1.0
+    rho_max: float = 2.0
     res_tol: float = 1e-2
     leader_idx: int = 0
     k_smooth: float = 0.0
@@ -92,6 +109,10 @@ class RQPCADMMConfig:
     n_env_cbfs: int = 10
     max_iter: int = 100
     inner_iters: int = 60
+    # Inner budget of consensus iterations >= 2 (0 = inner_iters).
+    inner_iters_warm: int = 0
+    # Agent-QP formulation: None = Schur-reduced for n >= 4, full below.
+    reduced_qp: bool | None = None
     solver_tol: float = 5e-3
     # Consensus iterations may continue past agreement while an agent's
     # solve fails, for at most this many consecutive failing iterations.
@@ -101,6 +122,9 @@ class RQPCADMMConfig:
     # ops, the iterations through the chunk kernel). On the CPU either
     # route runs its kernels' plain versions.
     socp_fused: str = "kernel"
+    # Operator storage of route "kernel" ("f32" | "bf16"; ops/socp.py
+    # resolve_precision), inert on route "pallas".
+    socp_precision: str = "f32"
     # Tolerance-chunked inner solves: with inner_tol > 0 each agent QP runs
     # chunks of inner_check_every iterations until both residuals are at
     # most inner_tol, capped at inner_iters. 0 = fixed-iteration solves.
@@ -117,6 +141,27 @@ class RQPCADMMConfig:
 def _cos32(x: float) -> torch.Tensor:
     """``cos`` taken in float32, as ``jnp.cos`` takes it in the JAX package."""
     return torch.cos(torch.tensor(x, dtype=torch.float32))
+
+
+def _rho_schedule(cfg: RQPCADMMConfig) -> list[float]:
+    """The distinct penalties ``rho_k = min(rho0 tau_incr^k, rho_max)`` the
+    consensus loop can visit before saturating (the JAX package's
+    ``_rho_schedule``): one value at ``tau_incr = 1``."""
+    if cfg.tau_incr < 1.0:
+        raise ValueError(
+            f"tau_incr={cfg.tau_incr} < 1: the schedule only ever increases "
+            "rho toward rho_max; a decaying schedule is not supported"
+        )
+    rhos = [float(cfg.rho0)]
+    if cfg.tau_incr > 1.0:
+        while rhos[-1] < cfg.rho_max and len(rhos) <= cfg.max_iter:
+            rhos.append(min(rhos[-1] * cfg.tau_incr, cfg.rho_max))
+    return rhos
+
+
+def _use_reduced(cfg: RQPCADMMConfig, n: int) -> bool:
+    """The agent-QP formulation: Schur-reduced, or the full QP."""
+    return cfg.reduced_qp if cfg.reduced_qp is not None else n >= 4
 
 
 def _missing(what: str, item: str) -> NotImplementedError:
@@ -137,6 +182,7 @@ def make_config(
     dt: float = 1e-3,
     rho0: float = 1.0,
     tau_incr: float = 1.0,
+    rho_max: float = 2.0,
     socp_fused: str = "auto",
     socp_precision: str = "auto",
     inner_tol: float = 0.0,
@@ -152,22 +198,11 @@ def make_config(
     ``pad_operators=None`` resolves to True on the card and False on the CPU
     (the JAX package's backend default); ``socp_fused="auto"`` resolves to
     the ``"kernel"`` route (``ops.socp.resolve_route``), ``effort="auto"``
-    as ``ops.socp.resolve_effort`` says. Constants the JAX package computes
-    with ``jnp`` in float32 (``sec_max_f_ang``, ``cos_max_p_ang``) are
-    computed in float32 here too."""
-    n = params.n
-    if n < 4 or reduced_qp is False:
-        raise _missing("the full (9 + 3n)-variable agent QP (n = 3, "
-                       "reduced_qp=False)", "Queue 1 item 7")
-    if inner_iters_warm:
-        raise _missing("the two-phase inner budget (inner_iters_warm)",
-                       "Queue 1 item 7")
-    if tau_incr != 1.0:
-        if tau_incr < 1.0:
-            raise ValueError(f"tau_incr={tau_incr} < 1 is not supported")
-        raise _missing("the increasing rho schedule (tau_incr > 1)",
-                       "Queue 1 item 7")
-    return make_base_config(
+    and ``socp_precision="auto"`` as ``ops.socp.resolve_effort`` and
+    ``resolve_precision`` say. Constants the JAX package computes with
+    ``jnp`` in float32 (``sec_max_f_ang``, ``cos_max_p_ang``) are computed
+    in float32 here too. ``tau_incr < 1`` is a ValueError."""
+    base = make_base_config(
         params, collision_radius, max_deceleration, n_env_cbfs=n_env_cbfs,
         max_iter=max_iter, inner_iters=inner_iters, res_tol=res_tol,
         k_smooth=k_smooth, dt=dt, rho0=rho0, socp_fused=socp_fused,
@@ -176,6 +211,12 @@ def make_config(
         solve_retry_iters=solve_retry_iters, pad_operators=pad_operators,
         effort=effort, env_query=env_query, device=device,
     )
+    cfg = dataclasses.replace(
+        base, tau_incr=tau_incr, rho_max=rho_max,
+        inner_iters_warm=inner_iters_warm, reduced_qp=reduced_qp,
+    )
+    _rho_schedule(cfg)  # tau_incr < 1 raises here, at config build.
+    return cfg
 
 
 def make_base_config(
@@ -204,9 +245,6 @@ def make_base_config(
     own formulation checks; see :func:`make_config` for the knobs."""
     dev = resolve_device(device)
     n = params.n
-    if socp_precision not in ("auto", "f32"):
-        raise _missing(f"socp_precision={socp_precision!r}",
-                       "Queue 2 item 1(c)")
     if inner_check_every < 1:
         raise ValueError(f"inner_check_every={inner_check_every} < 1")
     mTg = float(params.mT) * GRAVITY
@@ -239,6 +277,7 @@ def make_base_config(
         max_iter=max_iter,
         inner_iters=inner_iters,
         socp_fused=socp.resolve_route(socp_fused),
+        socp_precision=socp.resolve_precision(socp_precision),
         inner_tol=inner_tol,
         inner_check_every=inner_check_every,
         effort=socp.resolve_effort(effort),
@@ -260,10 +299,13 @@ class CADMMState(NamedTuple):
 
 
 def _qp_dims(cfg: RQPCADMMConfig, n: int):
-    """``(nv, n_box, nv_p, n_box_p, m_p)`` of one agent's reduced QP; the
-    ``_p`` values are the tile bucket (equal to the raw dims without
-    padding). Cone layout [box | 2 x SOC(4)]."""
-    nv, n_box = 12, 7 + cfg.n_env_cbfs
+    """``(nv, n_box, nv_p, n_box_p, m_p)`` of one agent's QP (reduced: 12
+    variables; full: 9 + 3n); the ``_p`` values are the tile bucket (equal
+    to the raw dims without padding). Cone layout [box | 2 x SOC(4)]."""
+    if _use_reduced(cfg, n):
+        nv, n_box = 12, 7 + cfg.n_env_cbfs
+    else:
+        nv, n_box = 9 + 3 * n, 13 + cfg.n_env_cbfs
     if cfg.pad_operators:
         nv_p, n_box_p = socp.padded_dims(nv, n_box, (4, 4))
     else:
@@ -274,8 +316,8 @@ def _qp_dims(cfg: RQPCADMMConfig, n: int):
 def init_cadmm_state(params: RQPParams, cfg: RQPCADMMConfig,
                      f_eq: torch.Tensor | None = None) -> CADMMState:
     """One scenario's initial state (no scenario axis): every copy at the
-    equilibrium forces, zero duals, warm starts ``[0 | f_eq_i]`` in the
-    (possibly padded) solve layout."""
+    equilibrium forces, zero duals, warm starts ``[0 | f_eq_i]`` (reduced)
+    or ``[0 | f_eq]`` (full QP) in the (possibly padded) solve layout."""
     from tpu_aerial_transport_torch.control.centralized import (
         equilibrium_forces,
     )
@@ -285,7 +327,12 @@ def init_cadmm_state(params: RQPParams, cfg: RQPCADMMConfig,
         f_eq = equilibrium_forces(params)
     dtype, dev = f_eq.dtype, f_eq.device
     nv, _, nv_p, _, m_p = _qp_dims(cfg, n)
-    x0 = torch.cat([torch.zeros((n, 9), dtype=dtype, device=dev), f_eq], dim=1)
+    if _use_reduced(cfg, n):
+        x0 = torch.cat([torch.zeros((n, 9), dtype=dtype, device=dev), f_eq],
+                       dim=1)
+    else:
+        x0 = torch.cat([torch.zeros((9,), dtype=dtype, device=dev),
+                        f_eq.reshape(-1)]).repeat(n, 1)
     warm = socp.SOCPSolution(
         x=torch.nn.functional.pad(x0, (0, nv_p - nv)),
         y=torch.zeros((n, m_p), dtype=dtype, device=dev),
@@ -325,9 +372,12 @@ class SchurPlan(NamedTuple):
     scale: torch.Tensor  # (.., 6) equality-row equilibration.
 
 
-def make_plan(params: RQPParams, cfg: RQPCADMMConfig) -> SchurPlan:
-    """The precomputed Schur plan for ``control(plan=...)`` (every config
-    the port builds uses the reduced formulation)."""
+def make_plan(params: RQPParams, cfg: RQPCADMMConfig) -> SchurPlan | None:
+    """The precomputed Schur plan for ``control(plan=...)`` when the reduced
+    formulation is active for this (cfg, n), else None (the full QP needs
+    no plan)."""
+    if not _use_reduced(cfg, params.n):
+        return None
     return make_schur_plan(params, cfg)
 
 
@@ -336,11 +386,14 @@ def _sym(M: torch.Tensor) -> torch.Tensor:
 
 
 def make_schur_plan(params: RQPParams, cfg: RQPCADMMConfig) -> SchurPlan:
-    """Elimination cores for every agent at the config's (constant) rho,
-    float32, on the params' device; the leading ``n_rho`` axis has size 1."""
+    """Elimination cores for every agent and every rho the schedule visits
+    (the leading ``n_rho`` axis), float32, on the params' device."""
     n = params.n
     if n < 4:
-        raise ValueError(f"the Schur-reduced formulation needs n >= 4 (n={n})")
+        raise ValueError(
+            f"the Schur-reduced formulation needs n >= 4 (n={n}): at n = 3 "
+            "the coupling block E_v is singular; use the full QP "
+            "(reduced_qp=False, the n < 4 default)")
     dtype, dev = params.r.dtype, params.r.device
     kw = dict(dtype=dtype, device=dev)
     V = 3 * (n - 1)
@@ -396,9 +449,12 @@ def make_schur_plan(params: RQPParams, cfg: RQPCADMMConfig) -> SchurPlan:
             scale=scale,
         )
 
-    rho = torch.tensor(cfg.rho0, **kw)
-    agents = [one_agent(a, rho) for a in range(n)]
-    plan = SchurPlan(*(torch.stack(f)[None] for f in zip(*agents)))
+    per_rho = []
+    for r in _rho_schedule(cfg):
+        rho = torch.tensor(r, **kw)
+        agents = [one_agent(a, rho) for a in range(n)]
+        per_rho.append([torch.stack(f) for f in zip(*agents)])
+    plan = SchurPlan(*(torch.stack(f) for f in zip(*per_rho)))
     if cfg.pad_operators:
         pv = bucket_dim(V, socp.SUBLANE_TILE) - V
 
@@ -571,6 +627,134 @@ def _schur_step_qp(params: RQPParams, cfg: RQPCADMMConfig, pk: SchurPlan,
     return P_red, q_red0, A_full, lb, ub, shift
 
 
+def _build_agent_qp(params: RQPParams, cfg: RQPCADMMConfig,
+                    f_eq: torch.Tensor, state: RQPState, acc_des,
+                    env_cbf: EnvCBF, is_leader: torch.Tensor, rho):
+    """Every agent's full (9 + 3n)-variable QP ``(P, q0, A, lb, ub,
+    shift)``, shapes ``(S, n, ...)`` (the JAX package's ``_build_agent_qp``
+    under ``vmap`` over agents and scenarios).
+
+    Variables [dv_com 0:3 | dvl 3:6 | dwl 6:9 | f_1..f_n 9:9+3n], the
+    agent's copy of every force. Box rows [dyn-trans 3 | dyn-rot 3 | kin 3 |
+    own fz 1 | tilt 1 | wl 1 | vl 1 | env k]; SOC: own thrust cone + own
+    norm cap. The consensus quadratic ``(rho/2)||f||^2`` is in P; the
+    caller adds the iteration's ``lam - rho f_mean`` to q's force part."""
+    n = params.n
+    nv = 9 + 3 * n
+    dtype, dev = state.xl.dtype, state.xl.device
+    kw = dict(dtype=dtype, device=dev)
+    S = state.xl.shape[0]
+    dvl_des, dwl_des = (a.expand(S, 3)[:, None, :] for a in acc_des)
+    e3 = _e3(dtype, dev)
+    eye3 = torch.eye(3, **kw)
+    Rl = state.Rl  # (S, 3, 3)
+    onehot = torch.eye(n, **kw)  # row i: agent i.
+    own = onehot.repeat_interleave(3, dim=1)  # (n, 3n) own force columns.
+    fz_row = own * e3.repeat(n)  # (n, 3n) own f_z column.
+    own_block = (onehot[:, None, :, None] * eye3[None, :, None, :]).reshape(
+        n, 3, 3 * n)  # kron(onehot_i, I3).
+
+    P = torch.zeros((S, n, nv, nv), **kw)
+    q = torch.zeros((S, n, nv), **kw)
+    k_dvl = cfg.k_dvl * is_leader  # (n,)
+    k_dwl = cfg.k_dwl * is_leader
+    P[..., 3:6, 3:6] += (2.0 * k_dvl)[:, None, None] * eye3
+    q[..., 3:6] += (-2.0 * k_dvl)[:, None] * dvl_des
+    P[..., 6:9, 6:9] += (2.0 * k_dwl)[:, None, None] * eye3
+    q[..., 6:9] += (-2.0 * k_dwl)[:, None] * dwl_des
+
+    Ssum = eye3.repeat(1, n)  # (3, 3n)
+    # G = [hat(r_com_i) Rl^T]_i, (S, 3, 3n).
+    G = (lie.hat(params.r_com)[None] @ Rl.transpose(-1, -2)[:, None]).permute(
+        0, 2, 1, 3).reshape(S, 3, 3 * n)
+    Pff = (
+        (2.0 * cfg.k_f * (Ssum.T @ Ssum)
+         + 2.0 * cfg.k_m * (G.transpose(-1, -2) @ G))[:, None]
+        + 2.0 * cfg.k_feq * torch.diag_embed(own)
+        + rho * torch.eye(3 * n, **kw)  # (rho/2)||f||^2.
+    )
+    # Own-column force-smoothing cost (default k_smooth = 0).
+    blocks = smooth_block(cfg, state.R, state.w)  # (S, n, 3, 3)
+    smooth = torch.zeros((S, n, 3 * n, 3 * n), **kw)
+    for i in range(n):
+        smooth[:, i, 3 * i:3 * i + 3, 3 * i:3 * i + 3] = blocks[:, i]
+    P[..., 9:, 9:] += Pff + smooth
+    q[..., 9:] += (
+        -2.0 * cfg.k_f * (params.mT * GRAVITY * e3).repeat(n)
+        - 2.0 * cfg.k_feq * own * f_eq.reshape(-1)
+    )
+
+    n_box = 13 + cfg.n_env_cbfs
+    A = torch.zeros((S, n, n_box, nv), **kw)
+    lb = torch.zeros((S, n, n_box), **kw)
+    ub = torch.zeros((S, n, n_box), **kw)
+    # Dynamics translation: mT dv_com - sum f = -mT g e3.
+    A[..., 0:3, 0:3] = params.mT * eye3
+    A[..., 0:3, 9:] = -Ssum
+    rhs = -params.mT * GRAVITY * e3
+    lb[..., 0:3] = rhs
+    ub[..., 0:3] = rhs
+    # Dynamics rotation: dwl - JT_inv G f = -JT_inv (wl x JT wl).
+    A[..., 3:6, 6:9] = eye3
+    A[..., 3:6, 9:] = (-params.JT_inv @ G)[:, None]
+    rot_rhs = _mv(-params.JT_inv,
+                  lie.cross(state.wl, _mv(params.JT, state.wl)))
+    lb[..., 3:6] = rot_rhs[:, None]
+    ub[..., 3:6] = rot_rhs[:, None]
+    # CoM -> payload-point kinematics.
+    R_w_hat = Rl @ lie.hat(state.wl)
+    R_w_hat_sq = Rl @ lie.hat_square(state.wl, state.wl)
+    A[..., 6:9, 0:3] = -eye3
+    A[..., 6:9, 3:6] = eye3
+    A[..., 6:9, 6:9] = (-Rl @ lie.hat(params.x_com))[:, None]
+    kin_rhs = _mv(-R_w_hat_sq, params.x_com)
+    lb[..., 6:9] = kin_rhs[:, None]
+    ub[..., 6:9] = kin_rhs[:, None]
+    # Own f_z lower bound.
+    A[..., 9, 9:] = fz_row
+    lb[..., 9] = cfg.min_fz
+    ub[..., 9] = socp.INF
+    # Payload tilt second-order CBF.
+    A[..., 10, 6:9] = (-(Rl[:, 2, None, :] @ lie.hat(e3))[:, 0])[:, None]
+    tilt_rhs = (
+        -R_w_hat_sq[:, 2, 2]
+        - (cfg.alpha1_p_cbf + cfg.alpha2_p_cbf) * R_w_hat[:, 2, 2]
+        - cfg.alpha1_p_cbf * cfg.alpha2_p_cbf
+        * (Rl[:, 2, 2] - cfg.cos_max_p_ang)
+    )
+    lb[..., 10] = tilt_rhs[:, None]
+    ub[..., 10] = socp.INF
+    # Angular-velocity and velocity norm CBFs.
+    wl, vl = state.wl, state.vl
+    A[..., 11, 6:9] = (-2.0 * wl)[:, None]
+    lb[..., 11] = (-cfg.alpha_wl_cbf
+                   * (cfg.max_wl_sq - torch.sum(wl * wl, dim=-1)))[:, None]
+    ub[..., 11] = socp.INF
+    A[..., 12, 3:6] = (-2.0 * vl)[:, None]
+    lb[..., 12] = (-cfg.alpha_vl_cbf
+                   * (cfg.max_vl_sq - torch.sum(vl * vl, dim=-1)))[:, None]
+    ub[..., 12] = socp.INF
+    # Environment collision CBFs.
+    A[..., 13:13 + cfg.n_env_cbfs, 3:6] = env_cbf.lhs
+    lb[..., 13:13 + cfg.n_env_cbfs] = env_cbf.rhs
+    ub[..., 13:13 + cfg.n_env_cbfs] = socp.INF
+    # SOC rows: own thrust cone [sec30 fz; f_own], own norm cap [max_f; f_own].
+    soc = torch.zeros((n, 8, nv), **kw)
+    shift_soc = torch.zeros((8,), **kw)
+    soc[:, 0, 9:] = cfg.sec_max_f_ang * fz_row
+    soc[:, 1:4, 9:] = own_block
+    shift_soc[4] = cfg.max_f
+    soc[:, 5:8, 9:] = own_block
+
+    A_full = torch.cat([A, soc.expand(S, n, 8, nv)], dim=-2)
+    shift = torch.cat(
+        [torch.zeros((n_box,), **kw), shift_soc]).expand(S, n, n_box + 8)
+    A_full, lb, ub, shift, _ = socp.equilibrate_rows(
+        A_full, lb, ub, shift, n_box, (4, 4)
+    )
+    return P, q, A_full, lb, ub, shift
+
+
 def agent_env_cbfs_for(params: RQPParams, cfg: RQPCADMMConfig,
                        forest: forest_mod.Forest | None, state: RQPState,
                        r_block: torch.Tensor) -> EnvCBF:
@@ -646,7 +830,8 @@ def control(
     ``-> (f_app (S, n, 3), CADMMState, SolverStats)``. ``admm_state`` and
     ``state`` carry the leading scenario axis; ``f_eq``, ``acc_des``,
     ``forest`` and ``plan`` are shared. Pass ``plan=make_plan(...)`` to
-    build the elimination cores once outside a rollout."""
+    build the elimination cores once outside a rollout (None for the full
+    QP)."""
     if axis_name is not None:
         raise _missing("agent-sharded control (axis_name=)", "Queue 1 item 13")
     if health is not None:
@@ -660,32 +845,47 @@ def control(
         env_cbfs = agent_env_cbfs_for(params, cfg, forest, state, params.r)
     leaders = (agent_ids == cfg.leader_idx).to(dtype)
 
+    use_reduced = _use_reduced(cfg, n)
     nv, n_box_raw, nv_p, n_box, m = _qp_dims(cfg, n)
-    if plan is None:
-        plan = make_schur_plan(params, cfg)
-    pk = SchurPlan(*(x[0] for x in plan))  # the plan at the one rho.
+    # The penalties the schedule visits, as 0-dim CPU tensors: float32
+    # arithmetic like the JAX package's rho array, used as scalars on the
+    # card (no host-to-device copy).
+    rhos = [torch.tensor(r, dtype=dtype) for r in _rho_schedule(cfg)]
+    n_rho = len(rhos)
     Rl = state.Rl
+    Rl_a = Rl[:, None]  # (S, 1, 3, 3)
     V = 3 * (n - 1)
-    # A 0-dim CPU tensor: float32 arithmetic like the JAX package's rho
-    # array, used as a scalar on the card (no host-to-device copy).
-    rho = torch.tensor(cfg.rho0, dtype=dtype)
 
-    with phases.scope(phases.QP_BUILD):
-        Ecc, e0s, xq = _schur_state_pieces(params, cfg, state,
-                                           plan.scale[0, 0])
-        P, q0, A, lb, ub, shift = _schur_step_qp(
-            params, cfg, pk, f_eq, state, acc_des, env_cbfs, leaders, rho,
-            Ecc, e0s, xq,
-        )
+    def build_qp(k: int):
+        """The agent QPs, their KKT operators (in the solve's operator
+        storage) and the plan slice at the schedule's k-th rho."""
+        if use_reduced:
+            pk = SchurPlan(*(x[k] for x in plan))
+            qp = _schur_step_qp(params, cfg, pk, f_eq, state, acc_des,
+                                env_cbfs, leaders, rhos[k], Ecc, e0s, xq)
+        else:
+            pk = None
+            qp = _build_agent_qp(params, cfg, f_eq, state, acc_des,
+                                 env_cbfs, leaders, rhos[k])
         if cfg.pad_operators:
-            P, q0, A, lb, ub, shift = socp.pad_qp(
-                P, q0, A, lb, ub, shift, n_box=n_box_raw, soc_dims=(4, 4)
-            )
+            qp = socp.pad_qp(*qp, n_box=n_box_raw, soc_dims=(4, 4))
+        P, q0, A, lb, ub, shift = qp
         rho_vec = socp.make_rho_vec(m, n_box, lb, ub, 0.4)
         op = socp.kkt_operator(P, A, rho_vec)
+        # bf16 storage: rounded once per control step, not per solve.
+        op, A, P = socp.stored_operators(op, A, P, cfg.socp_precision,
+                                         cfg.socp_fused)
+        return pk, (P, q0, A, lb, ub, shift), op
 
-    Rl_a = Rl[:, None]  # (S, 1, 3, 3)
-    V_p = pk.N.shape[-1]
+    with phases.scope(phases.QP_BUILD):
+        if use_reduced:
+            if plan is None:
+                plan = make_schur_plan(params, cfg)
+            Ecc, e0s, xq = _schur_state_pieces(params, cfg, state,
+                                               plan.scale[0, 0])
+        # One entry per rho of the schedule; iteration k reads entry
+        # min(k, n_rho - 1) (JAX cadmm.py:1222-1252).
+        stack = [build_qp(k) for k in range(n_rho)]
 
     # Solver effort. Adaptive: tolerance-chunked solves (to inner_tol, else
     # to the solve-success gate solver_tol, so "converged" means "would
@@ -697,34 +897,49 @@ def control(
     else:
         inner_tol = cfg.inner_tol
     check_every = cfg.inner_check_every if inner_tol > 0 else 0
+    # Two-phase budget: the first consensus iteration solves with
+    # inner_iters, the later ones (warm-started from this step's previous
+    # iterate) with inner_iters_warm (JAX cadmm.py:1305-1308, :1450-1462).
+    warm_iters = cfg.inner_iters_warm or cfg.inner_iters
 
-    def primal_solve(lam, f_mean, warm, active):
-        """Solve every agent QP of every scenario; rebuild the full copies.
-        ``active`` (S,) gates each scenario's solves (adaptive effort) or
-        is None. Returns ``(f_new, sols, eff)``, ``eff`` the (S, n) int32
-        effective inner iterations under adaptive effort, else None."""
-        delta = lam - rho * f_mean[:, None]  # (S, n, n, 3)
-        dperm = torch.gather(
-            delta, 2, pk.perm[None, :, :, None].expand(S, n, n, 3)
-        )
-        d_u = dperm[:, :, 0, :]
-        # Other columns in the payload frame (ft = Rl^T f), V-padded.
-        d_v = (dperm[:, :, 1:, :] @ Rl_a).reshape(S, n, V)
-        d_v = torch.nn.functional.pad(d_v, (0, V_p - V))
-        jv = _mv(pk.J.transpose(-1, -2), d_v)  # (S, n, 6)
-        q_delta = torch.cat([
-            -(jv @ Ecc),
-            d_u - _mv(Rl_a, _mv(pk.Mu, d_v)),
-        ], dim=-1)
-        q = torch.cat([q0[..., :nv] + q_delta, q0[..., nv:]], dim=-1)
+    def primal_solve(k, lam, f_mean, warm, active):
+        """Solve every agent QP of every scenario in consensus iteration
+        ``k``; rebuild the full copies. ``active`` (S,) gates each
+        scenario's solves (adaptive effort) or is None. Returns ``(f_new,
+        sols, eff)``, ``eff`` the (S, n) int32 effective inner iterations
+        under adaptive effort, else None."""
+        pk, (P, q0, A, lb, ub, shift), op = stack[min(k, n_rho - 1)]
+        delta = lam - rhos[min(k, n_rho - 1)] * f_mean[:, None]
+        if use_reduced:
+            dperm = torch.gather(
+                delta, 2, pk.perm[None, :, :, None].expand(S, n, n, 3)
+            )
+            d_u = dperm[:, :, 0, :]
+            # Other columns in the payload frame (ft = Rl^T f), V-padded.
+            d_v = (dperm[:, :, 1:, :] @ Rl_a).reshape(S, n, V)
+            d_v = torch.nn.functional.pad(d_v, (0, pk.N.shape[-1] - V))
+            jv = _mv(pk.J.transpose(-1, -2), d_v)  # (S, n, 6)
+            q_delta = torch.cat([
+                -(jv @ Ecc),
+                d_u - _mv(Rl_a, _mv(pk.Mu, d_v)),
+            ], dim=-1)
+            q = torch.cat([q0[..., :nv] + q_delta, q0[..., nv:]], dim=-1)
+        else:
+            # Augmented linear term <lam_i, f> - rho <f_mean, f>.
+            q = torch.cat([q0[..., :9],
+                           q0[..., 9:nv] + delta.reshape(S, n, 3 * n),
+                           q0[..., nv:]], dim=-1)
         gate = None if active is None else active[:, None].expand(S, n)
         out = socp.solve_socp(
             P, q, A, lb, ub, n_box=n_box, soc_dims=(4, 4),
-            iters=cfg.inner_iters, warm=warm, shift=shift, op=op,
-            fused=cfg.socp_fused, check_every=check_every, tol=inner_tol,
-            active=gate, report_iters=adaptive,
+            iters=cfg.inner_iters if k == 0 else warm_iters, warm=warm,
+            shift=shift, op=op, fused=cfg.socp_fused,
+            precision=cfg.socp_precision, check_every=check_every,
+            tol=inner_tol, active=gate, report_iters=adaptive,
         )
         sols, eff = out if adaptive else (out, None)
+        if not use_reduced:
+            return sols.x[..., 9:nv].reshape(S, n, n, 3), sols, eff
         c, u = sols.x[..., :9], sols.x[..., 9:12]
         ut = _mv(Rl_a.transpose(-1, -2), u)
         d6 = (e0s[:, None] - _mv(Ecc[:, None], c) - _mv(pk.Eu, ut))
@@ -749,13 +964,15 @@ def control(
                  | ((ok_last < 1.0) & (fail_count <= retry_cap)))
                 & (it <= cfg.max_iter))
 
-    def consensus_iter(carry, active):
-        """One consensus iteration of every scenario; ``active`` is each
-        scenario's continue predicate, the adaptive-effort gate."""
+    def consensus_iter(carry, active, k):
+        """Consensus iteration ``k`` of every scenario; ``active`` is each
+        scenario's continue predicate, the adaptive-effort gate. Every
+        scenario that iterates is at iteration ``it = k`` (a scenario that
+        stops keeps its carry), so ``k`` selects the schedule's rho."""
         (f, lam, f_mean, warm, it, res, err_buf, okf, _ok_last,
          fail_count) = carry[:10]
         with phases.scope(phases.LOCAL_SOLVE):
-            f_new, sols, eff = primal_solve(lam, f_mean, warm,
+            f_new, sols, eff = primal_solve(k, lam, f_mean, warm,
                                             active if adaptive else None)
         # Failed agents fall back to the equilibrium forces.
         ok = (sols.prim_res < cfg.solver_tol)[..., None, None] & torch.all(
@@ -779,12 +996,14 @@ def control(
                               err_buf)
         it = it + 1
         # Dual update, gated like the reference loop: rho advances after the
-        # solves and the update is skipped when converged or past the cap.
+        # solves, the update is skipped when converged or past the cap, and
+        # it uses the advanced rho.
         with phases.scope(phases.DUAL_UPDATE):
             do_dual = (res_new >= cfg.res_tol) & (it <= cfg.max_iter)
             lam_new = torch.where(
                 do_dual[:, None, None, None],
-                lam + rho * (f_new - f_mean_new[:, None]), lam,
+                lam + rhos[min(k + 1, n_rho - 1)]
+                * (f_new - f_mean_new[:, None]), lam,
             )
         ok_last = torch.sum(ok_flat.to(dtype), dim=1) / n
         okf = torch.minimum(okf, ok_last)
@@ -813,12 +1032,14 @@ def control(
     # The vmapped while_loop, written out: every scenario iterates while any
     # scenario's predicate holds; a scenario whose predicate is false keeps
     # its carry. One host synchronisation per consensus iteration.
+    k = 0
     while True:
         active = continue_pred(carry[4], carry[5], carry[8], carry[9])
         if not bool(active.any()):
             break
-        new = consensus_iter(carry, active)
+        new = consensus_iter(carry, active, k)
         carry = tuple(_where(active, a, b) for a, b in zip(new, carry))
+        k += 1
     f, lam, f_mean, warm, iters, res, err_buf, ok_frac, _, _ = carry[:10]
 
     f_app = f[:, agent_ids, agent_ids, :]

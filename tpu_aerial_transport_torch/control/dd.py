@@ -13,7 +13,9 @@ rank-9 Woodbury correction.
 
 All ``S x n`` agent QPs of one dual-ascent iteration are one batched solve
 (``ops.socp.solve_socp``), i.e. one kernel launch on the card (route
-``"kernel"``), or one chunk-kernel launch per chunk (route ``"pallas"``).
+``"kernel"``, float32 or bf16 operator storage by ``socp_precision``; the
+operators are rounded once per control step), or one chunk-kernel launch
+per chunk (route ``"pallas"``, where bf16 is inert).
 The batched loop keeps the JAX package's vmapped ``while_loop`` semantics as
 ``control.cadmm`` does: it runs while any scenario's continue predicate
 holds, and a scenario whose predicate was false keeps its carry.
@@ -443,6 +445,9 @@ def control(
                 P, q0, A, lb, ub, shift, n_box=n_box_raw, soc_dims=(4, 4))
         rho_vec = socp.make_rho_vec(m, n_box, lb, ub, 0.4)
         op = socp.kkt_operator(P, A, rho_vec)
+        # bf16 storage: rounded once per control step, not per solve.
+        op, A, P = socp.stored_operators(op, A, P, base.socp_precision,
+                                         base.socp_fused)
 
     if plan is None:
         plan = make_dd_plan(params, cfg)
@@ -495,8 +500,8 @@ def control(
             out = socp.solve_socp(
                 P, q, A, lb, ub, n_box=n_box, soc_dims=(4, 4),
                 iters=base.inner_iters, warm=warm, shift=shift, op=op,
-                fused=base.socp_fused, check_every=check_every,
-                tol=inner_tol,
+                fused=base.socp_fused, precision=base.socp_precision,
+                check_every=check_every, tol=inner_tol,
                 active=active[:, None].expand(S, n) if adaptive else None,
                 report_iters=adaptive,
             )

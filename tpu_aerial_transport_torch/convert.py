@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from tpu_aerial_transport_torch import resolve_device
-from tpu_aerial_transport_torch.control import cadmm
+from tpu_aerial_transport_torch.control import cadmm, centralized
 from tpu_aerial_transport_torch.envs import forest as forest_mod
 from tpu_aerial_transport_torch.models import rqp
 from tpu_aerial_transport_torch.ops import socp
@@ -58,12 +58,23 @@ def socp_solution(src, device="cuda") -> socp.SOCPSolution:
 
 
 def cadmm_state(src, device="cuda") -> cadmm.CADMMState:
-    """``f``, ``lam``, ``f_mean`` and the ``warm`` solution (the JAX
-    package's ``held`` snapshot belongs to the unported fault path)."""
+    """``f``, ``lam``, ``f_mean`` and the ``warm`` solution, in whichever
+    layout the source has: ``(n, nv_p)``/``(n, m_p)`` warm starts of the
+    Schur-reduced or of the full agent QP alike (the JAX package's ``held``
+    snapshot belongs to the unported fault path)."""
     dev = resolve_device(device)
     return cadmm.CADMMState(
         f=_tensor(_get(src, "f"), dev), lam=_tensor(_get(src, "lam"), dev),
         f_mean=_tensor(_get(src, "f_mean"), dev),
+        warm=socp_solution(_get(src, "warm"), dev),
+    )
+
+
+def ctrl_state(src, device="cuda") -> centralized.CtrlState:
+    """The centralized controller's ``prev_f`` and ``warm`` solution."""
+    dev = resolve_device(device)
+    return centralized.CtrlState(
+        prev_f=_tensor(_get(src, "prev_f"), dev),
         warm=socp_solution(_get(src, "warm"), dev),
     )
 

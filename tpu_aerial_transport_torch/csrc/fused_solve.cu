@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel ops/admm_kernel.py _fused_solve_kernel of the JAX
 // package (tpu_aerial_transport), in its compiled form (exact_dot=False),
-// float32, with or without a cone shift, in both of its forms:
+// with or without a cone shift, in both of its forms and both operator
+// storage types (float32, or bfloat16 for K2, Minv, A and P: the JAX
+// package's precision="bf16", ops/admm_kernel.py:541-546 and :574-579):
 //
 // - fixed-iteration (fused_solve_kernel): per lane
 //     wq = Minv q,  w2 = [wq; A wq]
@@ -23,6 +25,14 @@
 //   ran). Exit residuals are written for every lane, gated-off ones
 //   included.
 //
+// bf16 storage (fused_solve_bf16_kernel, fused_solve_early_bf16_kernel): the
+// four operators arrive rounded to bfloat16 and are converted to float32
+// exactly (__bfloat162float) while they are staged into shared memory, so
+// every use -- the w2 build (Minv, A), the iterations (K2) and the residuals
+// (A, P) -- reads the rounded operators in float32, as the JAX kernel
+// upcasts before every contraction (ops/admm_kernel.py:361-364). Vectors,
+// the (x, y, z) carry and all sums stay float32. Only the staging differs.
+//
 // Cone layout [box (n_box) | SOC blocks (soc.d[0..n))]; Pi clips the box rows
 // and applies the closed-form SOC projection (keep inside, zero in the polar
 // cone, radial shrink otherwise, with the nrm > 0 guard) to each block, all
@@ -36,7 +46,9 @@
 // over 3.35 TB/s, 20 operations a byte), so it is bound by memory bandwidth
 // and by latency. The early-exit form does less work on the same bytes (a
 // converged lane stops), and a gated-off lane needs neither K2 nor Minv, so
-// its bound is lower still and still set by bytes. What the design does
+// its bound is lower still and still set by bytes. bf16 storage halves the
+// operator bytes (7,816 B a lane at the headline instead of 14,472 B). What
+// the design does
 // about that: each lane's operators (K2, Minv, A, P) are read from device
 // memory once per solve into shared memory and stay there across all
 // iterations, instead of once per iteration; a gated-off lane skips K2 and
@@ -50,6 +62,8 @@
 // SOC norms are summed by each row of the block in order; residuals are
 // reduced with warp shuffles and one pass over the warps.
 
+#include <cuda_bf16.h>
+
 #include "admm_common.cuh"
 
 static __host__ __device__ size_t fs_smem_floats(int nv, int m) {
@@ -58,10 +72,17 @@ static __host__ __device__ size_t fs_smem_floats(int nv, int m) {
          + 2 * (size_t)d + FS_RED_FLOATS;
 }
 
-template <bool EARLY>
+// One operator entry from global memory as float32 (exact for bfloat16).
+__device__ __forceinline__ float fs_load(const float* p) { return *p; }
+__device__ __forceinline__ float fs_load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// OP is the operators' storage type (float or __nv_bfloat16).
+template <bool EARLY, typename OP>
 __device__ __forceinline__ void fused_solve_lane(
-    const float* __restrict__ K2g, const float* __restrict__ Minvg,
-    const float* __restrict__ Ag, const float* __restrict__ Pg,
+    const OP* __restrict__ K2g, const OP* __restrict__ Minvg,
+    const OP* __restrict__ Ag, const OP* __restrict__ Pg,
     const float* __restrict__ qg, const float* __restrict__ rhog,
     const float* __restrict__ lbg, const float* __restrict__ ubg,
     const float* __restrict__ shiftg, const float* __restrict__ x0g,
@@ -89,20 +110,22 @@ __device__ __forceinline__ void fused_solve_lane(
   // A gated-off lane iterates 0 times: it needs neither K2 nor Minv.
   const bool gate = !EARLY || activeg == nullptr || activeg[lane] > 0.f;
 
-  // Stage this lane's operators once (coalesced global reads).
+  // Stage this lane's operators once (coalesced global reads), as float32
+  // whatever their storage type.
   if (gate) {
-    const float* K2l = K2g + lane * d * d;
+    const OP* K2l = K2g + lane * d * d;
     for (int i = tid; i < d * d; i += nth)
-      sK2[(i / d) * ld_d + i % d] = K2l[i];
-    const float* Minvl = Minvg + lane * nv * nv;
+      sK2[(i / d) * ld_d + i % d] = fs_load(K2l + i);
+    const OP* Minvl = Minvg + lane * nv * nv;
     for (int i = tid; i < nv * nv; i += nth)
-      sMinv[(i / nv) * ld_v + i % nv] = Minvl[i];
+      sMinv[(i / nv) * ld_v + i % nv] = fs_load(Minvl + i);
   }
-  const float* Pl = Pg + lane * nv * nv;
+  const OP* Pl = Pg + lane * nv * nv;
   for (int i = tid; i < nv * nv; i += nth)
-    sP[(i / nv) * ld_v + i % nv] = Pl[i];
-  const float* Al = Ag + lane * m * nv;
-  for (int i = tid; i < m * nv; i += nth) sA[(i / nv) * ld_v + i % nv] = Al[i];
+    sP[(i / nv) * ld_v + i % nv] = fs_load(Pl + i);
+  const OP* Al = Ag + lane * m * nv;
+  for (int i = tid; i < m * nv; i += nth)
+    sA[(i / nv) * ld_v + i % nv] = fs_load(Al + i);
 
   const bool is_x = tid < nv;
   const bool is_row = tid >= nv && tid < d;
@@ -198,9 +221,9 @@ __device__ __forceinline__ void fused_solve_lane(
   }
 }
 
-#define FS_PARAMS                                                             \
-  const float *__restrict__ K2g, const float *__restrict__ Minvg,             \
-      const float *__restrict__ Ag, const float *__restrict__ Pg,             \
+#define FS_PARAMS(OP)                                                         \
+  const OP *__restrict__ K2g, const OP *__restrict__ Minvg,                   \
+      const OP *__restrict__ Ag, const OP *__restrict__ Pg,                   \
       const float *__restrict__ qg, const float *__restrict__ rhog,           \
       const float *__restrict__ lbg, const float *__restrict__ ubg,           \
       const float *__restrict__ shiftg, const float *__restrict__ x0g,        \
@@ -216,24 +239,35 @@ __device__ __forceinline__ void fused_solve_lane(
       yo, zo, res, effo, nv, m, n_box, iters, check_every, tol, has_shift,   \
       alpha, one_minus_alpha, soc
 
-__global__ void fused_solve_kernel(FS_PARAMS) {
-  fused_solve_lane<false>(FS_ARGS);
+// Four kernels with distinct names (none a substring of another), so a
+// trace tells the forms and storage types apart.
+__global__ void fused_solve_kernel(FS_PARAMS(float)) {
+  fused_solve_lane<false, float>(FS_ARGS);
 }
 
-__global__ void fused_solve_early_kernel(FS_PARAMS) {
-  fused_solve_lane<true>(FS_ARGS);
+__global__ void fused_solve_early_kernel(FS_PARAMS(float)) {
+  fused_solve_lane<true, float>(FS_ARGS);
+}
+
+__global__ void fused_solve_bf16_kernel(FS_PARAMS(__nv_bfloat16)) {
+  fused_solve_lane<false, __nv_bfloat16>(FS_ARGS);
+}
+
+__global__ void fused_solve_early_bf16_kernel(FS_PARAMS(__nv_bfloat16)) {
+  fused_solve_lane<true, __nv_bfloat16>(FS_ARGS);
 }
 
 // check_every > 0 selects the early-exit kernel (then tol > 0 and eff must
-// be given; active may be null). Returns a cudaError_t.
+// be given; active may be null); bf16 != 0 says K2, Minv, A and P are
+// bfloat16 (else float32). Returns a cudaError_t.
 extern "C" int fused_solve_launch(
-    const float* K2, const float* Minv, const float* A, const float* P,
+    const void* K2, const void* Minv, const void* A, const void* P,
     const float* q, const float* rho, const float* lb, const float* ub,
     const float* shift, const float* x0, const float* y0, const float* z0,
     const float* active, float* xo, float* yo, float* zo, float* res,
     int* eff, int B, int nv, int m, int n_box, int iters, int check_every,
-    float tol, int has_shift, float alpha, float one_minus_alpha, SocDims soc,
-    int device, cudaStream_t stream) {
+    float tol, int has_shift, int bf16, float alpha, float one_minus_alpha,
+    SocDims soc, int device, cudaStream_t stream) {
   const bool early = check_every > 0;
   if (B < 0 || iters < 0 || !soc_layout_ok(nv, m, n_box, soc) ||
       (early && (!(tol > 0.f) || eff == nullptr)) ||
@@ -245,8 +279,11 @@ extern "C" int fused_solve_launch(
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = fs_smem_floats(nv, m) * sizeof(float);
-  const void* fn = early ? (const void*)fused_solve_early_kernel
-                         : (const void*)fused_solve_kernel;
+  const void* fn =
+      bf16 ? (early ? (const void*)fused_solve_early_bf16_kernel
+                    : (const void*)fused_solve_bf16_kernel)
+           : (early ? (const void*)fused_solve_early_kernel
+                    : (const void*)fused_solve_kernel);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -254,16 +291,35 @@ extern "C" int fused_solve_launch(
   }
   const int d = nv + m;
   const int threads = ((d + 31) / 32) * 32;
-  if (early)
-    fused_solve_early_kernel<<<B, threads, smem, stream>>>(
-        K2, Minv, A, P, q, rho, lb, ub, shift, x0, y0, z0, active, xo, yo, zo,
-        res, eff, nv, m, n_box, iters, check_every, tol, has_shift, alpha,
-        one_minus_alpha, soc);
+  if (!early) {
+    eff = nullptr;
+    check_every = 0;
+    tol = 0.f;
+  }
+  const __nv_bfloat16* K2h = static_cast<const __nv_bfloat16*>(K2);
+  const __nv_bfloat16* Minvh = static_cast<const __nv_bfloat16*>(Minv);
+  const __nv_bfloat16* Ah = static_cast<const __nv_bfloat16*>(A);
+  const __nv_bfloat16* Ph = static_cast<const __nv_bfloat16*>(P);
+  const float* K2f = static_cast<const float*>(K2);
+  const float* Minvf = static_cast<const float*>(Minv);
+  const float* Af = static_cast<const float*>(A);
+  const float* Pf = static_cast<const float*>(P);
+#define FS_TAIL                                                              \
+  q, rho, lb, ub, shift, x0, y0, z0, active, xo, yo, zo, res, eff, nv, m,    \
+      n_box, iters, check_every, tol, has_shift, alpha, one_minus_alpha, soc
+  if (bf16 && early)
+    fused_solve_early_bf16_kernel<<<B, threads, smem, stream>>>(
+        K2h, Minvh, Ah, Ph, FS_TAIL);
+  else if (bf16)
+    fused_solve_bf16_kernel<<<B, threads, smem, stream>>>(K2h, Minvh, Ah, Ph,
+                                                          FS_TAIL);
+  else if (early)
+    fused_solve_early_kernel<<<B, threads, smem, stream>>>(K2f, Minvf, Af, Pf,
+                                                           FS_TAIL);
   else
-    fused_solve_kernel<<<B, threads, smem, stream>>>(
-        K2, Minv, A, P, q, rho, lb, ub, shift, x0, y0, z0, nullptr, xo, yo,
-        zo, res, nullptr, nv, m, n_box, iters, 0, 0.f, has_shift, alpha,
-        one_minus_alpha, soc);
+    fused_solve_kernel<<<B, threads, smem, stream>>>(K2f, Minvf, Af, Pf,
+                                                     FS_TAIL);
+#undef FS_TAIL
   return (int)cudaGetLastError();
 }
 

@@ -2,11 +2,12 @@
 
 Counterpart of the JAX package's bench workloads (``bench.py`` ``build``,
 ``make_mpc_step``, ``_scenario_batch`` and ``_substeps``): each MPC step of
-every scenario runs the per-agent vision-cone environment queries, a
-distributed controller -- consensus ADMM over Schur-reduced agent QPs
-(``"cadmm"``, the headline) or dual decomposition (``"dd"``) -- and ten
-1 kHz low-level SO(3) control + physics substeps. All ``S`` scenarios
-advance together; state leaves carry the leading scenario axis.
+every scenario runs the environment queries, a controller -- consensus ADMM
+(``"cadmm"``, the headline; per-agent vision cones), dual decomposition
+(``"dd"``) or the centralized QP (``"centralized"``, the forest query
+around the payload) -- and ten 1 kHz low-level SO(3) control + physics
+substeps. All ``S`` scenarios advance together; state leaves carry the
+leading scenario axis.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ N_AGENTS = 8
 N_SCENARIOS = 256
 # The JAX bench's inner-iteration knees (bench.py:257-263): C-ADMM 20, DD 40.
 INNER_ITERS = {"cadmm": 20, "dd": 40}
+CONTROLLERS = ("cadmm", "dd", "centralized")
+# The centralized controller's solver budget in the JAX bench (bench.py:319).
+CENTRALIZED_SOLVER_ITERS = 120
 
 
 def substeps(params, ll, state, f_des, n_sub: int = 10, dt: float = 1e-3):
@@ -40,18 +44,22 @@ def make_mpc_step(controller: str, n: int, max_iter: int = 20,
                   inner_iters: int | None = None,
                   pad_operators: bool | None = None, socp_fused: str = "auto",
                   inner_tol: float = 0.0, effort: str = "auto",
-                  device="cuda"):
+                  socp_precision: str = "auto", tau_incr: float = 1.0,
+                  inner_iters_warm: int = 0, device="cuda"):
     """``(mpc_step(css, states) -> (css, states, stats), cs0, state0)`` for
     the bench set-up: ``rqp_setup(n)``, forest seed 0, PD low level,
-    ``acc_des = ((0.3, 0, 0), 0)``, ``controller`` ``"cadmm"`` or ``"dd"``
-    with the JAX bench's defaults (``inner_iters`` 20 and 40). ``cs0``/
-    ``state0`` are one scenario's (no scenario axis); ``mpc_step`` takes
-    and returns batched ones."""
-    if controller not in INNER_ITERS:
-        raise NotImplementedError(
-            f"controller={controller!r}: 'cadmm' and 'dd' are ported (the "
-            "centralized controller is ROADMAP Queue 1 item 6)"
-        )
+    ``acc_des = ((0.3, 0, 0), 0)``, ``controller`` ``"cadmm"``, ``"dd"``
+    (the JAX bench's ``inner_iters`` 20 and 40; the solver knobs apply to
+    these two, ``tau_incr`` and ``inner_iters_warm`` to C-ADMM only) or
+    ``"centralized"`` (``solver_iters=120``). ``cs0``/``state0`` are one
+    scenario's (no scenario axis); ``mpc_step`` takes and returns batched
+    ones."""
+    if controller not in CONTROLLERS:
+        raise ValueError(
+            f"controller={controller!r}: expected one of {CONTROLLERS}")
+    cadmm_kw = dict(tau_incr=tau_incr, inner_iters_warm=inner_iters_warm)
+    if controller != "cadmm" and (tau_incr != 1.0 or inner_iters_warm):
+        raise ValueError(f"{cadmm_kw} are C-ADMM options, not {controller}'s")
     dev = resolve_device(device)
     params, col, state0 = setup.rqp_setup(n, device=dev)
     forest = forest_mod.make_forest(seed=0, device=dev)
@@ -60,6 +68,23 @@ def make_mpc_step(controller: str, n: int, max_iter: int = 20,
     dvl_des = torch.zeros(3, dtype=torch.float32, device=dev)
     dvl_des[0] = 0.3
     acc_des = (dvl_des, torch.zeros(3, dtype=torch.float32, device=dev))
+    if controller == "centralized":
+        cfg = centralized.make_config(
+            params, col.collision_radius, col.max_deceleration,
+            solver_iters=CENTRALIZED_SOLVER_ITERS)
+        cs0 = centralized.init_ctrl_state(params, cfg, f_eq)
+
+        def central_step(css, states):
+            with phases.scope(phases.CBF_ROWS):
+                env_cbf = forest_mod.collision_cbf_rows(
+                    forest, states.xl, states.vl, col.collision_radius,
+                    col.max_deceleration, cfg.vision_radius, cfg.dist_eps,
+                    cfg.alpha_env_cbf, cfg.n_env_cbfs)
+            f_des, css, stats = centralized.control(
+                params, cfg, f_eq, css, states, acc_des, env_cbf)
+            return css, substeps(params, ll, states, f_des), stats
+
+        return central_step, cs0, state0
     mod = cadmm if controller == "cadmm" else dd
     cfg = mod.make_config(
         params, col.collision_radius, col.max_deceleration,
@@ -67,7 +92,8 @@ def make_mpc_step(controller: str, n: int, max_iter: int = 20,
         inner_iters=(inner_iters if inner_iters is not None
                      else INNER_ITERS[controller]),
         pad_operators=pad_operators, socp_fused=socp_fused,
-        inner_tol=inner_tol, effort=effort, device=dev,
+        inner_tol=inner_tol, effort=effort, socp_precision=socp_precision,
+        device=dev, **(cadmm_kw if controller == "cadmm" else {}),
     )
     if controller == "cadmm":
         cs0 = cadmm.init_cadmm_state(params, cfg, f_eq)
@@ -126,15 +152,18 @@ def build(n: int = N_AGENTS, n_scenarios: int = N_SCENARIOS,
           max_iter: int = 20, inner_iters: int | None = None,
           pad_operators: bool | None = None, device="cuda", *,
           controller: str = "cadmm", socp_fused: str = "auto",
-          inner_tol: float = 0.0, effort: str = "auto"):
+          inner_tol: float = 0.0, effort: str = "auto",
+          socp_precision: str = "auto", tau_incr: float = 1.0,
+          inner_iters_warm: int = 0):
     """A bench workload: ``(run(css, states, n_steps), css, states)`` with
     ``controller`` at ``n`` agents over ``n_scenarios`` seeded scenarios;
     the defaults are the headline (C-ADMM, fixed effort, whole-solve
-    kernel route)."""
+    kernel route, float32 operators)."""
     mpc_step, cs0, state0 = make_mpc_step(
         controller, n, max_iter=max_iter, inner_iters=inner_iters,
         pad_operators=pad_operators, socp_fused=socp_fused,
-        inner_tol=inner_tol, effort=effort, device=device,
+        inner_tol=inner_tol, effort=effort, socp_precision=socp_precision,
+        tau_incr=tau_incr, inner_iters_warm=inner_iters_warm, device=device,
     )
     states = scenario_batch(state0, n_scenarios)
     css = stack_scenarios(cs0, n_scenarios)

@@ -18,6 +18,13 @@ Counterparts of ``tpu_aerial_transport/ops/admm_kernel.py``:
   residuals are both at most ``tol`` (tested before the first chunk too;
   NaN counts as converged), or an ``active`` gate switches it off from the
   start; the return gains ``eff_iters`` (B,) int32.
+
+  With ``precision="bf16"`` the four operators K2, Minv, A and P are stored
+  in bfloat16 (each rounded on its own from float32, round-to-nearest-even
+  as ``jnp.astype`` rounds) and every use reads them upcast to float32:
+  the w2 build, the iterations and the exit residuals. Vectors, the
+  (x, y, z) carry and every sum stay float32 (``admm_kernel.py:541-546``
+  of the JAX package). It halves the operator bytes a launch reads.
 - :func:`admm_chunk_lanes` -- ``_admm_chunk_kernel``: ``iters`` iterations
   with ``K2`` and ``w2`` given; returns ``(x, y, z)`` and nothing else.
 
@@ -25,8 +32,7 @@ Layout is batch-first, ``(B lanes, rows...)``, with no lane padding. Each
 wrapper launches its kernel (``csrc/fused_solve.cu``, ``csrc/admm_chunk.cu``,
 built at first use by :mod:`ops._build`) for tensors on the card and runs
 its ``*_reference`` twin for tensors on the CPU; it never falls back from
-the one to the other. The bf16 form of the whole-solve kernel is not ported
-yet (ROADMAP Queue 2 item 1(c)).
+the one to the other.
 """
 
 from __future__ import annotations
@@ -38,8 +44,13 @@ import torch
 
 # Plain launch counters: each wrapper adds one where it launches its kernel,
 # and nowhere else. "fused_solve" counts the fixed-iteration form,
-# "fused_solve_early" the early-exit form of the same kernel source.
-LAUNCHES = {"fused_solve": 0, "fused_solve_early": 0, "admm_chunk": 0}
+# "fused_solve_early" the early-exit form of the same kernel source, and the
+# "_bf16" keys the same forms with bfloat16 operator storage.
+LAUNCHES = {"fused_solve": 0, "fused_solve_early": 0, "fused_solve_bf16": 0,
+            "fused_solve_early_bf16": 0, "admm_chunk": 0}
+
+# Operator storage of the whole-solve kernel, by precision name.
+STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 # The kernels' compile-time bounds (csrc/admm_common.cuh FS_MAX_*).
 MAX_SOC_BLOCKS = 16
@@ -55,11 +66,11 @@ class _SocDims(ctypes.Structure):
 
 
 # fused_solve_launch(13 input and 5 output pointers, B, nv, m, n_box, iters,
-# check_every, tol, has_shift, alpha, 1 - alpha, soc, device, stream)
+# check_every, tol, has_shift, bf16, alpha, 1 - alpha, soc, device, stream)
 # -> cudaError_t.
 _FUSED_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, _SocDims,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_float, _SocDims, ctypes.c_int, ctypes.c_void_p,
 ]
 # admm_chunk_launch(9 input and 3 output pointers, B, nv, m, n_box, iters,
 # has_shift, alpha, 1 - alpha, soc, device, stream) -> cudaError_t.
@@ -81,23 +92,24 @@ def _residual_flops(nv: int, m: int) -> int:
 
 
 def fused_solve_bytes_per_lane(nv: int, m: int, n_box: int, *,
-                               early: bool = False,
-                               gated_off: bool = False) -> int:
-    """float32 bytes one lane's solve must read and write at least once:
-    K2 ``(d, d)``, Minv and P ``(nv, nv)``, A ``(m, nv)``, q, rho, lb/ub,
-    shift and the (x, y, z) carry in; (x, y, z) and both residuals out. The
-    early-exit form also reads the gate and writes ``eff_iters``; a
-    gated-off lane iterates 0 times and needs neither K2 nor Minv."""
+                               early: bool = False, gated_off: bool = False,
+                               precision: str = "f32") -> int:
+    """Bytes one lane's solve must read and write at least once: K2
+    ``(d, d)``, Minv and P ``(nv, nv)``, A ``(m, nv)`` (4 bytes an entry, 2
+    under ``precision="bf16"``), then float32 q, rho, lb/ub, shift and the
+    (x, y, z) carry in; (x, y, z) and both residuals out. The early-exit
+    form also reads the gate and writes ``eff_iters``; a gated-off lane
+    iterates 0 times and needs neither K2 nor Minv."""
     d = nv + m
     mats = d * d + 2 * nv * nv + m * nv
     if gated_off:
         mats -= d * d + nv * nv
-    reads = mats + nv + m + 2 * n_box + m + (nv + 2 * m)
+    reads = nv + m + 2 * n_box + m + (nv + 2 * m)
     writes = (nv + 2 * m) + 2
     if early:
         reads += 1
         writes += 1
-    return 4 * (reads + writes)
+    return STORAGE[precision].itemsize * mats + 4 * (reads + writes)
 
 
 def fused_solve_flops_per_lane(nv: int, m: int, iters: int,
@@ -153,17 +165,44 @@ def _early(check_every: int, tol: float) -> bool:
     return bool(check_every) and tol > 0.0
 
 
+def _check_precision(precision: str, ops) -> None:
+    """``precision`` is a storage name, and the four operators share one
+    dtype: float32, or bfloat16 under ``precision="bf16"``."""
+    if precision not in STORAGE:
+        raise ValueError(
+            f"precision={precision!r}: expected one of {tuple(STORAGE)}")
+    dtypes = {t.dtype for t in ops}
+    if len(dtypes) != 1:
+        raise TypeError("K2, Minv, A and P must share one dtype, got "
+                        f"{sorted(map(str, dtypes))}")
+    (dt,) = dtypes
+    if dt != torch.float32 and dt != STORAGE[precision]:
+        raise TypeError(
+            f"operators of dtype {dt} with precision={precision!r}: expected "
+            f"float32 or {STORAGE[precision]}")
+
+
+def store_operators(ops, precision: str):
+    """The operators in their storage type: each float32 one rounded on
+    its own to bfloat16 under ``precision="bf16"`` (round to nearest even,
+    as ``jnp.astype`` rounds); already-stored ones pass through."""
+    return tuple(t.to(STORAGE[precision]) for t in ops)
+
+
 def fused_solve_lanes_reference(
     x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift=None, active=None,
     *, nv: int, n_box: int, soc_dims: Sequence[int], iters: int,
     alpha: float, check_every: int = 0, tol: float = 0.0,
+    precision: str = "f32",
 ):
     """Plain PyTorch version of the kernel, on any device: batched tensor ops
     in the kernel's order of operations (``ops.socp._admm_step``) and Python
     loops. Returns ``(x, y, z, prim_res, dual_res)``, and ``eff_iters`` last
     in the early-exit form, whose loop is ``ops.socp._masked_chunk_loop``:
     the JAX kernel's masked loop (``admm_kernel.py:442-491``) over the whole
-    batch, every lane frozen by a select once it stops."""
+    batch, every lane frozen by a select once it stops. Under
+    ``precision="bf16"`` the operators are rounded to bfloat16 (if they are
+    not already) and every use reads them upcast to ``x``'s dtype."""
     from tpu_aerial_transport_torch.ops import socp
 
     early = _early(check_every, tol)
@@ -173,6 +212,10 @@ def fused_solve_lanes_reference(
             "tol > 0): a fixed-iteration kernel cannot express a "
             "0-effective-iteration pass-through"
         )
+    if precision != "f32":
+        _check_precision(precision, (K2, Minv, A, P))
+        K2, Minv, A, P = (t.to(x.dtype) for t in
+                          store_operators((K2, Minv, A, P), precision))
     wq = _mv(Minv, q)
     w2 = torch.cat([wq, _mv(A, wq)], dim=-1)
     step_kw = dict(nv=nv, n_box=n_box, soc_dims=tuple(soc_dims), alpha=alpha)
@@ -221,13 +264,13 @@ def admm_chunk_lanes_reference(
     return carry
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, dtype=torch.float32):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
@@ -290,11 +333,15 @@ def fused_solve_lanes(
     x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift=None, active=None,
     *, nv: int, n_box: int, soc_dims: Sequence[int], iters: int,
     alpha: float, check_every: int = 0, tol: float = 0.0,
+    precision: str = "f32",
 ):
     """Whole batched solves, batch-first ``(B, rows...)``; returns
     ``(x, y, z, prim_res, dual_res)``, plus ``eff_iters`` ((B,) int32) in
     the early-exit form (``check_every > 0`` and ``tol > 0``), which also
     takes the ``active`` gate ((B,) bool or float; > 0 is on).
+    ``precision="bf16"`` stores K2, Minv, A and P in bfloat16: pass them
+    rounded already (``store_operators``, once per operator build) or in
+    float32 (rounded here, each call). A mix of dtypes raises.
 
     CPU tensors run :func:`fused_solve_lanes_reference`. CUDA tensors launch
     the kernel on the current stream (no synchronisation) or raise: on a
@@ -307,14 +354,16 @@ def fused_solve_lanes(
             "tol > 0): a fixed-iteration kernel cannot express a "
             "0-effective-iteration pass-through"
         )
+    _check_precision(precision, (K2, Minv, A, P))
     if x.device.type == "cpu":
         return fused_solve_lanes_reference(
             x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift, active, nv=nv,
             n_box=n_box, soc_dims=soc_dims, iters=iters, alpha=alpha,
-            check_every=check_every, tol=tol,
+            check_every=check_every, tol=tol, precision=precision,
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_solve_lanes: unsupported device {x.device}")
+    K2, Minv, A, P = store_operators((K2, Minv, A, P), precision)
     soc_dims = tuple(int(k) for k in soc_dims)
     B = x.shape[0]
     m = rho.shape[-1]
@@ -323,10 +372,14 @@ def fused_solve_lanes(
                   fused_solve_smem_bytes(nv, m))
     dev = x.device
     for name, t, shape in (
-        ("x", x, (B, nv)), ("y", y, (B, m)), ("z", z, (B, m)),
         ("K2", K2, (B, d, d)), ("Minv", Minv, (B, nv, nv)),
-        ("A", A, (B, m, nv)), ("P", P, (B, nv, nv)), ("q", q, (B, nv)),
-        ("rho", rho, (B, m)), ("lb", lb, (B, n_box)), ("ub", ub, (B, n_box)),
+        ("A", A, (B, m, nv)), ("P", P, (B, nv, nv)),
+    ):
+        _check(name, t, shape, dev, STORAGE[precision])
+    for name, t, shape in (
+        ("x", x, (B, nv)), ("y", y, (B, m)), ("z", z, (B, m)),
+        ("q", q, (B, nv)), ("rho", rho, (B, m)), ("lb", lb, (B, n_box)),
+        ("ub", ub, (B, n_box)),
     ):
         _check(name, t, shape, dev)
     if shift is not None:
@@ -353,14 +406,15 @@ def fused_solve_lanes(
         _ptr(xo), _ptr(yo), _ptr(zo), _ptr(res), _ptr(eff),
         B, nv, m, n_box, iters, int(check_every) if early else 0,
         float(tol) if early else 0.0, 1 if shift is not None else 0,
-        float(alpha), float(1 - alpha), _soc_struct(soc_dims), dev.index,
-        stream,
+        1 if precision == "bf16" else 0, float(alpha), float(1 - alpha),
+        _soc_struct(soc_dims), dev.index, stream,
     )
     _raise_on(err, "fused_solve")
+    suffix = "" if precision == "f32" else "_" + precision
     if early:
-        LAUNCHES["fused_solve_early"] += 1
+        LAUNCHES["fused_solve_early" + suffix] += 1
         return xo, yo, zo, res[:, 0], res[:, 1], eff
-    LAUNCHES["fused_solve"] += 1
+    LAUNCHES["fused_solve" + suffix] += 1
     return xo, yo, zo, res[:, 0], res[:, 1]
 
 

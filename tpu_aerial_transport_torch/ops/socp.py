@@ -23,8 +23,12 @@ package's ``fused`` modes of the same names):
   one, under :func:`_masked_chunk_loop`).
 
 Each call is the hand-written CUDA kernel for tensors on the card and its
-plain PyTorch version for tensors on the CPU. bf16 operator storage raises
-``NotImplementedError`` (ROADMAP Queue 2 item 1(c)).
+plain PyTorch version for tensors on the CPU.
+
+``precision="bf16"`` stores the operators K2, Minv, A and P of route
+``"kernel"`` in bfloat16 (the kernel's bf16 form; :func:`resolve_precision`).
+On route ``"pallas"`` it is inert, as in the JAX package: the solve runs in
+float32.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ ROUTES = ("kernel", "pallas")
 # The consensus-level solver-effort vocabulary (controllers' ``effort=``
 # knob; see :func:`resolve_effort`).
 EFFORTS = ("fixed", "adaptive")
+# Operator storage of route "kernel" (controllers' ``socp_precision=``; see
+# :func:`resolve_precision`): float32, or bfloat16 storage with float32 sums.
+PRECISIONS = ("f32", "bf16")
 
 # Operator edges are padded to multiples of this when pad_operators is on
 # (the JAX package's f32 sublane tile; on the card it keeps rows aligned).
@@ -313,6 +320,47 @@ def resolve_effort(effort: str | None = "auto") -> str:
     return effort
 
 
+def resolve_precision(precision: str | None = "auto") -> str:
+    """Resolve the operator storage precision at config build time (the
+    JAX package's ``resolve_precision``): ``"auto"`` (or None) reads
+    ``TPU_AERIAL_PRECISION`` (``f32`` | ``bf16`` | ``auto``/unset) and
+    otherwise stays ``"f32"``; explicit values pass through validated;
+    anything else is a ValueError. ``"bf16"`` acts on route ``"kernel"``
+    only."""
+    if precision is None:
+        precision = "auto"
+    if precision == "auto":
+        env = os.environ.get("TPU_AERIAL_PRECISION", "").strip().lower()
+        if env in PRECISIONS:
+            return env
+        if env not in ("", "auto"):
+            raise ValueError(
+                f"TPU_AERIAL_PRECISION={env!r}: expected one of "
+                f"{PRECISIONS} or 'auto'"
+            )
+        return "f32"
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision={precision!r}: expected one of {PRECISIONS} or "
+            "'auto'"
+        )
+    return precision
+
+
+def stored_operators(op: KKTOp, A: torch.Tensor, P: torch.Tensor,
+                     precision: str, route: str):
+    """``(op, A, P)`` in the storage ``solve_socp(precision=, fused=route)``
+    hands the kernel: under ``"bf16"`` on route ``"kernel"``, K2, Minv, A
+    and P each rounded to bfloat16 (``MinvAT`` dropped: the kernel does
+    not read it); otherwise unchanged. A controller calls this once per
+    operator build, so the consensus iterations do not round them again."""
+    if precision == "f32" or route != "kernel":
+        return op, A, P
+    K2, Minv, A, P = admm_kernel.store_operators((op.K2, op.Minv, A, P),
+                                                 precision)
+    return KKTOp(Minv=Minv, MinvAT=None, K2=K2), A, P
+
+
 def resolve_route(fused: str) -> str:
     """``"auto"`` -> ``"kernel"``; a route of :data:`ROUTES` passes through;
     anything else (the JAX package's ``"scan"``/``"interpret"`` modes
@@ -366,15 +414,19 @@ def solve_socp(
     ``iters`` (see :func:`_masked_chunk_loop`). ``active`` ((...) bool, the
     consensus-level adaptive-effort gate; tolerance-chunked path only)
     makes a lane a 0-effective-iteration pass-through of its warm start.
-    ``fused`` names the route (see the module docstring). With
-    ``report_iters`` the return is ``(solution, eff_iters)``, the (...)
-    int32 iterations each lane applied."""
-    if precision != "f32":
-        raise NotImplementedError(
-            f"precision={precision!r}: bf16 operator storage is not ported "
-            "yet (ROADMAP Queue 2 item 1(c))"
-        )
+    ``fused`` names the route (see the module docstring). ``precision``
+    (``"f32"`` or ``"bf16"``) is the operators' storage on route
+    ``"kernel"`` and inert on ``"pallas"``; under ``"bf16"``, ``op``, ``A``
+    and ``P`` may come already rounded (:func:`stored_operators`) or in
+    float32 (rounded here). With ``report_iters`` the return is
+    ``(solution, eff_iters)``, the (...) int32 iterations each lane
+    applied."""
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision={precision!r}: expected one of {PRECISIONS}")
     route = resolve_route(fused)
+    if route != "kernel":
+        precision = "f32"  # inert off the whole-solve kernel.
     tol_path = bool(check_every) and tol > 0
     if active is not None and not tol_path:
         raise ValueError(
@@ -385,10 +437,14 @@ def solve_socp(
     m, nv = A.shape[-2:]
     assert m == n_box + sum(soc_dims)
     batch = A.shape[:-2]
-    dtype, device = P.dtype, P.device
+    dtype, device = q.dtype, q.device
 
     rho_vec = make_rho_vec(m, n_box, lb, ub, rho)
     if op is None:
+        if P.dtype != dtype or A.dtype != dtype:
+            raise ValueError(
+                "solve_socp builds the KKT operator from float32 P and A; "
+                "pass op= with operators stored in another type")
         op = kkt_operator(P, A, rho_vec, sigma)
     if warm is None:
         x0 = torch.zeros(batch + (nv,), dtype=dtype, device=device)
@@ -414,10 +470,10 @@ def solve_socp(
             if tol_path:
                 x, y, z, prim, dual, eff = admm_kernel.fused_solve_lanes(
                     *args, gate, check_every=check_every, tol=tol,
-                    **solve_kw)
+                    precision=precision, **solve_kw)
             else:
                 x, y, z, prim, dual = admm_kernel.fused_solve_lanes(
-                    *args, **solve_kw)
+                    *args, precision=precision, **solve_kw)
                 eff = None
     else:
         # The chunked route: w2 and the residuals in plain tensor ops, the
