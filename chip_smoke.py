@@ -43,7 +43,32 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
 9. drive the chunked route (``socp_fused="pallas"``), fixed and adaptive,
    for a few steps each: the chunk kernel must have launched exactly once
    per chunk run (counted from each solve's effective iterations); hold it
-   against its plain version on captured inputs and time it.
+   against its plain version on captured inputs and time it;
+10-12. the bf16 headline, bf16 DD and the bf16 kernel forms against their
+   plain version;
+13. the entry step and the centralized rollout;
+14. C-ADMM at n = 3 (the full QP), with ``tau_incr=1.5`` and with
+   ``inner_iters_warm=10``;
+15. agent-sharded C-ADMM (n = 8, one agent a shard, 8 shards on the card,
+   ``max_iter=20``, inner 20; the JAX bench's ``cadmm_n8_sharded``) at 256
+   scenarios with ``consensus_impl="pallas_ring"``: one warm-up and
+   ``TIMED_STEPS`` timed steps, one whole-solve launch and two ring-sum
+   launches per consensus iteration run, finite states; then the three
+   exchange impls in turns, ``CHUNK_STEPS`` steps each;
+16. agent-sharded DD (``dd_n16_sharded``: n = 16 over 8 shards, inner 40)
+   likewise, five ring-sum launches per dual-ascent iteration; then with
+   ``effort="adaptive"`` for ``CHUNK_STEPS`` steps: one early-exit launch
+   an iteration, five ring sums an iteration and one a step (the
+   inner-iteration total), its first step against the CPU;
+17. the exchange A/B at the JAX sweep's shape: C-ADMM and DD at n = 64
+   over 8 shards, one scenario, ``max_iter=8``, each impl in turns;
+18. the ring-sum kernel against its plain version (bitwise) and the float64
+   sum, on the payloads captured from 15-17 and random ones at d in {2, 3,
+   4, 8}, ragged; timed at the phase-15 and n = 64 payloads beside the
+   plain version and one PyTorch sum; one sharded step profiled;
+19. the first sharded step of 15 and 16 against the CPU (which runs the
+   kernel's plain version) on 8 scenarios, and against the single program
+   on the card.
 
 The kernel bar is 1e-4 x max(1, |ref|) for every output, or twice the
 plain version's own float32 rounding (its distance from the same plain
@@ -73,7 +98,8 @@ OWN_KERNELS = {"fused_solve_kernel": "fused_solve",
                "fused_solve_early_kernel": "fused_solve_early",
                "fused_solve_bf16_kernel": "fused_solve_bf16",
                "fused_solve_early_bf16_kernel": "fused_solve_early_bf16",
-               "admm_chunk_kernel": "admm_chunk"}
+               "admm_chunk_kernel": "admm_chunk",
+               "ring_sum_kernel": "ring_sum"}
 
 N_AGENTS, N_SCENARIOS, TIMED_STEPS = 8, 256, 10
 # Steps of each chunked-route arm (fixed and adaptive), after a warm-up.
@@ -104,6 +130,27 @@ EFF_EQUAL_SHARE = 0.99
 # larger -- an output may differ from it by up to this many times its
 # distance from the same plain version run in float64.
 ROUNDING_FACTOR = 2.0
+# Phases 15-19, the agent-sharded paths: d = 8 shards on the card (the
+# JAX package's one-agent-a-device mesh for C-ADMM at n = 8), configured
+# as the JAX bench's multichip configs (bench.py:2526-2543) at the
+# headline's 256 scenarios and its exchange A/B cells at n = 64
+# (bench.py:1196-1264).
+SHARDS = 8
+SHARDED = {"cadmm_n8_sharded": ("cadmm", 8, dict(inner_iters=20)),
+           "dd_n16_sharded": ("dd", 16, dict(inner_iters=40))}
+EXCHANGE_AB = {"cadmm_n64": ("cadmm", 64, dict(max_iter=8, inner_iters=20)),
+               "dd_n64": ("dd", 64, dict(max_iter=8, inner_iters=40))}
+# Ring-sum launches per consensus (C-ADMM) or dual-ascent (DD) iteration
+# with fixed effort: C-ADMM sums the consensus mean and the solve-success
+# count, DD the two price sums, the two violation sums and the count.
+RING_SUMS = {"cadmm": 2, "dd": 5}
+# The sharded step against the single program on the card: the bar of the
+# JAX package's own ring-vs-allreduce parity (tests/test_ring.py:172) on
+# the scenarios whose iteration counts agree, which must be this share.
+SHARDED_FORCE_BAR = 2e-3
+SHARDED_EQUAL_SHARE = 0.99
+# The ring sum against the float64 sum: float32 rounding of d <= 8 adds.
+RING_SUM_RTOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -186,9 +233,19 @@ def capturing(module, name: str, store: list, when=lambda kw: True):
 
 def zero_launches() -> None:
     from tpu_aerial_transport_torch.ops import admm_kernel
+    from tpu_aerial_transport_torch.parallel import ring
 
-    for k in admm_kernel.LAUNCHES:
-        admm_kernel.LAUNCHES[k] = 0
+    for counts in (admm_kernel.LAUNCHES, ring.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter, by kernel."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+    from tpu_aerial_transport_torch.parallel import ring
+
+    return {**admm_kernel.LAUNCHES, **ring.LAUNCHES}
 
 
 def applied_forces(css):
@@ -278,8 +335,6 @@ def timed_steps(mpc_step, css, states, n_steps):
     the last step's stats)``."""
     import torch
 
-    from tpu_aerial_transport_torch.ops import admm_kernel
-
     iters, inner = [], []
     zero_launches()
     torch.cuda.synchronize()
@@ -290,7 +345,7 @@ def timed_steps(mpc_step, css, states, n_steps):
         inner.append(stats.inner_iters)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(admm_kernel.LAUNCHES)
+    launches = launch_counts()
     inner = torch.stack(inner) if inner[0].numel() else None
     return css, states, torch.stack(iters), inner, elapsed, launches, stats
 
@@ -314,11 +369,18 @@ def check_states(css, states, what):
 def check_launches(launches, kernel, expected, what):
     """``kernel`` launched exactly ``expected`` (> 0) times in the run and
     no other kernel launched."""
-    if launches[kernel] <= 0:
-        fail(f"{what} never launched the {kernel} kernel")
-    if launches[kernel] != expected:
-        fail(f"{what}: {kernel} launches {launches[kernel]} != {expected}")
-    others = {k: v for k, v in launches.items() if k != kernel and v}
+    check_launch_counts(launches, {kernel: expected}, what)
+
+
+def check_launch_counts(launches, expected: dict, what):
+    """Each kernel of ``expected`` launched exactly that many (> 0) times
+    in the run, and no other kernel launched."""
+    for kernel, n in expected.items():
+        if launches[kernel] <= 0:
+            fail(f"{what} never launched the {kernel} kernel")
+        if launches[kernel] != n:
+            fail(f"{what}: {kernel} launches {launches[kernel]} != {n}")
+    others = {k: v for k, v in launches.items() if k not in expected and v}
     if others:
         fail(f"{what} launched other kernels too: {others}")
 
@@ -697,7 +759,7 @@ def centralized_phases(card, report):
         cs, st, stats = step_e(cs, st, acc)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(admm_kernel.LAUNCHES)
+    launches = launch_counts()
     check_launches(launches, "fused_solve_early", TIMED_STEPS,
                    "the entry step")
     check_states(cs, st, "the entry step")
@@ -828,6 +890,262 @@ def cadmm_option_phases(card, report):
     return total
 
 
+@contextlib.contextmanager
+def capturing_shapes(module, name: str, store: dict):
+    """Record a clone of the first argument of ``module.<name>`` for each
+    distinct shape it is called with."""
+    fn = getattr(module, name)
+
+    def wrapper(x, *args, **kw):
+        store.setdefault(tuple(x.shape), x.clone())
+        return fn(x, *args, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def impl_turns(what, controller, n, n_scenarios, kw, card):
+    """The three exchange impls in turns (allreduce, ring, pallas_ring,
+    then back), ``CHUNK_STEPS`` MPC steps each from the seeded batch:
+    ``{impl: [rate, rate]}`` in scenario-MPC-steps/s."""
+    from tpu_aerial_transport_torch.parallel import ring
+
+    runs = {impl: workload(controller, n, n_scenarios, shards=SHARDS,
+                           consensus_impl=impl, effort="fixed", **kw)
+            for impl in ring.IMPLS}
+    rates = {impl: [] for impl in ring.IMPLS}
+    for impl in ring.IMPLS + ring.IMPLS[::-1]:
+        step, css0, st0 = runs[impl]
+        step(css0, st0)  # warm-up.
+        secs = timed_steps(step, css0, st0, CHUNK_STEPS)[4]
+        rates[impl].append(n_scenarios * CHUNK_STEPS / secs)
+    print(f"{what}: the exchange impls in turns (allreduce, ring, "
+          f"pallas_ring, pallas_ring, ring, allreduce), {CHUNK_STEPS} MPC "
+          f"steps each, in {'scenario-' if n_scenarios > 1 else ''}"
+          f"MPC-steps/s: " + "; ".join(
+              f"{impl} {r[0]:.2f} and {r[1]:.2f}" for impl, r in rates.items())
+          + f" | {card}", flush=True)
+    return rates
+
+
+def sharded_vs_single(what, controller, n, first, kw, card):
+    """The first sharded pallas_ring step on the card against the single
+    program's on the same seeded batch: forces within SHARDED_FORCE_BAR on
+    the scenarios whose iteration counts agree, counts equal on at least
+    SHARDED_EQUAL_SHARE of the scenarios."""
+    step, css0, st0 = workload(controller, n, first[1].xl.shape[0],
+                               effort="fixed", **kw)
+    single = step(css0, st0)
+    same = first[2].iters == single[2].iters
+    share = float(same.float().mean())
+    diff = (forces_of(first[0]) - forces_of(single[0])).abs().flatten(1)
+    f_err = float(diff[same].max()) if bool(same.any()) else float("nan")
+    ok = share >= SHARDED_EQUAL_SHARE and f_err <= SHARDED_FORCE_BAR
+    print(f"{what} sharded (pallas_ring) vs single program on the card, "
+          f"first MPC step of {same.numel()} scenarios: iteration counts "
+          f"equal in {share * 100:.2f}% (bar {SHARDED_EQUAL_SHARE * 100:.0f}"
+          f"%), max|force err| on those {f_err:.3e} N (bar "
+          f"{SHARDED_FORCE_BAR}) " + ("ok" if ok else "FAIL") + f" | {card}",
+          flush=True)
+    if not ok:
+        fail(f"{what}: the sharded step disagrees with the single program")
+    return {"iters_equal_share": share, "force_err": f_err}
+
+
+def sharded_phases(card, report):
+    """Phases 15-19: the agent-sharded C-ADMM and DD paths through the
+    ring-sum kernel, the exchange A/B at n = 64, the kernel against its
+    plain version, and the card against the CPU. Returns the kernel's row
+    of the kernels line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_aerial_transport_torch.parallel import ring
+
+    ring_inputs, paths, runs_of = {}, {}, {}
+    # 15-16. Sharded C-ADMM (n = 8) and DD (n = 16) at 256 scenarios with
+    # the kernel ring, then the three impls in turns.
+    for key, (ctrl, n, kw) in SHARDED.items():
+        kw = dict(kw, max_iter=20)
+        step, css0, st0 = workload(ctrl, n, N_SCENARIOS, shards=SHARDS,
+                                   consensus_impl="pallas_ring",
+                                   effort="fixed", **kw)
+        with capturing_shapes(ring, "ring_sum_shards", ring_inputs):
+            first = step(css0, st0)
+        torch.cuda.synchronize()
+        runs_of[key] = (step, css0, st0)
+        css, st, iters, _, secs, launches, _ = timed_steps(
+            step, css0, st0, TIMED_STEPS)
+        runs = int(iters.max(dim=1).values.sum())
+        check_launch_counts(launches, {"fused_solve": runs,
+                                       "ring_sum": RING_SUMS[ctrl] * runs},
+                            key)
+        check_states(css, st, key)
+        rate = N_SCENARIOS * TIMED_STEPS / secs
+        print(f"{key}: {N_SCENARIOS} scenarios x n = {n}, {SHARDS} shards "
+              f"on the card, pallas_ring, {TIMED_STEPS} MPC steps in "
+              f"{secs:.4f} s = {rate:.2f} scenario-MPC-steps/s | iterations"
+              f"/step mean {float(iters.float().mean()):.3f} max "
+              f"{int(iters.max())} | launches {launches} = iterations run "
+              f"{runs}, ring sums {RING_SUMS[ctrl]} an iteration | {card}",
+              flush=True)
+        paths[key] = {
+            "scenario_mpc_steps_per_s": rate, "seconds": secs,
+            "iters_mean": float(iters.float().mean()),
+            "iterations_run": runs, "launches": launches,
+            "rates_in_turns": impl_turns(key, ctrl, n, N_SCENARIOS, kw,
+                                         card),
+            "first": first, "kw": kw,
+        }
+    # 16, adaptive: sharded DD with effort="adaptive" (the early-exit kernel
+    # under sharding, and the inner-iteration total exchanged once a step).
+    key, (ctrl, n, kw) = "dd_n16_sharded_adaptive", SHARDED["dd_n16_sharded"]
+    kw = dict(kw, max_iter=20, effort="adaptive")
+    step, css0, st0 = workload(ctrl, n, N_SCENARIOS, shards=SHARDS,
+                               consensus_impl="pallas_ring", **kw)
+    first = step(css0, st0)
+    torch.cuda.synchronize()
+    css, st, iters, inner, secs, launches, _ = timed_steps(
+        step, css0, st0, CHUNK_STEPS)
+    runs = int(iters.max(dim=1).values.sum())
+    check_launch_counts(launches, {
+        "fused_solve_early": runs,
+        "ring_sum": RING_SUMS[ctrl] * runs + CHUNK_STEPS}, key)
+    check_states(css, st, key)
+    if inner is None or not bool((inner > 0).all()):
+        fail(f"{key} reported no inner iterations")
+    print(f"{key}: {N_SCENARIOS} scenarios x n = {n}, {SHARDS} shards, "
+          f"pallas_ring, effort adaptive, {CHUNK_STEPS} MPC steps in "
+          f"{secs:.4f} s = {N_SCENARIOS * CHUNK_STEPS / secs:.2f} "
+          f"scenario-MPC-steps/s | launches {launches} = iterations run "
+          f"{runs}, ring sums {RING_SUMS[ctrl]} an iteration + 1 a step | "
+          f"{card}", flush=True)
+    paths[key] = {
+        "scenario_mpc_steps_per_s": N_SCENARIOS * CHUNK_STEPS / secs,
+        "iterations_run": runs, "launches": launches,
+        "card_vs_cpu": card_vs_cpu(f"{key} (pallas_ring)", ctrl, n, first,
+                                   card, shards=SHARDS,
+                                   consensus_impl="pallas_ring", **kw),
+    }
+    # 17. The exchange A/B at the JAX sweep's shape: n = 64 over 8 shards,
+    # one scenario; the kernel ring's launches are checked too.
+    ab = {}
+    for key, (ctrl, n, kw) in EXCHANGE_AB.items():
+        step, css0, st0 = workload(ctrl, n, 1, shards=SHARDS,
+                                   consensus_impl="pallas_ring",
+                                   effort="fixed", **kw)
+        with capturing_shapes(ring, "ring_sum_shards", ring_inputs):
+            step(css0, st0)
+        _, _, iters, _, _, launches, _ = timed_steps(step, css0, st0,
+                                                     CHUNK_STEPS)
+        runs = int(iters.sum())
+        check_launch_counts(launches, {"fused_solve": runs,
+                                       "ring_sum": RING_SUMS[ctrl] * runs},
+                            key)
+        ab[key] = {"launches": launches, "iterations_run": runs,
+                   "mpc_steps_per_s": impl_turns(key, ctrl, n, 1, kw, card)}
+
+    # 18. The kernel against its plain version: the payloads captured from
+    # phases 15-17, d in {2, 3, 4, 8} and ragged payloads.
+    gen = torch.Generator().manual_seed(0)
+    cases = {f"captured_{d}x{P}": x for (d, P), x in sorted(
+        ring_inputs.items())}
+    for d, P in ((2, 1025), (3, 1025), (4, 1025), (8, 1025), (8, 6147)):
+        cases[f"random_{d}x{P}"] = (10.0 * torch.randn(
+            d, P, generator=gen)).cuda()
+    checks, worst = {}, 0.0
+    for case, x in cases.items():
+        got = ring.ring_sum_shards(x)
+        ref = ring.ring_sum_shards_reference(x)
+        exact = x.double().sum(dim=0, keepdim=True)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        f64 = float((got.double() - exact).abs().max())
+        scale = max(1.0, float(exact.abs().max()))
+        ok = (torch.equal(got, ref) and f64 <= RING_SUM_RTOL * scale
+              and bool(torch.isfinite(got).all()))
+        worst = max(worst, err)
+        print(f"ring kernel check {case}: bitwise equal to the plain version"
+              f" {torch.equal(got, ref)} (max|err| {err:.3e}), max|err| vs "
+              f"float64 {f64:.3e} (bar {RING_SUM_RTOL} x {scale:.3g}) "
+              + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+        checks[case] = {"max_abs_err": err, "vs_float64": f64, "ok": ok}
+        if not ok:
+            fail(f"the ring kernel disagrees with its plain version on {case}")
+    timing = {}
+    for d, P in ((SHARDS, N_SCENARIOS * 8 * 3), (SHARDS, 64 * 3)):
+        x = ring_inputs.get((d, P))
+        if x is None:
+            fail(f"no ({d}, {P}) ring payload captured from the paths")
+        b_bytes = ring.ring_sum_bytes(d, P)
+        b_flops = ring.ring_sum_flops(d, P)
+        b_ms, b_by = bound(b_bytes, b_flops)
+        k_ms = cuda_ms(lambda: ring.ring_sum_shards(x), 200)
+        p_ms = cuda_ms(lambda: ring.ring_sum_shards_reference(x), 50)
+        l_ms = cuda_ms(lambda: x.sum(0, keepdim=True).expand_as(x), 200)
+        print(f"ring_sum timing ({d}, {P}) float32: kernel {k_ms:.4f} "
+              f"ms/launch, plain PyTorch {p_ms:.4f} ms, library call "
+              f"x.sum(0).expand_as(x) {l_ms:.4f} ms (all CUDA graphs), bound "
+              f"{b_ms:.6f} ms by {b_by} ({b_bytes} B, {b_flops} adds) | "
+              f"{card}", flush=True)
+        timing[f"{d}x{P}"] = {"kernel_ms": k_ms, "plain_ms": p_ms,
+                              "library_ms": l_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "bytes": b_bytes,
+                              "flops": b_flops}
+    # One sharded C-ADMM step profiled.
+    step, css0, st0 = runs_of["cadmm_n8_sharded"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(css0, st0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ph = phase_breakdown(prof)
+    ring_us = per_launch_us(prof, "ring_sum_kernel")
+    print(f"profile of one sharded C-ADMM step (pallas_ring): wall "
+          f"{wall * 1e3:.2f} ms (profiler on), device busy "
+          f"{ph['kernels_us'] / 1e3:.2f} ms = "
+          f"{100 * ph['kernels_us'] / 1e3 / (wall * 1e3):.1f}% | {card}",
+          flush=True)
+    for name in sorted(ph["host_us"], key=lambda p: -ph["host_us"][p]):
+        print(f"  tat.{name}: host {ph['host_us'][name] / 1e3:.3f} ms, "
+              f"device {ph['device_us'].get(name, 0.0) / 1e3:.3f} ms")
+    ring_dev_ms = ph["device_us"].get("ring_sum", 0.0) / 1e3
+    print(f"  ring_sum_kernel device {ring_dev_ms:.3f} ms in the step, "
+          + ("not found in the trace" if ring_us is None
+             else f"{ring_us / 1e3:.4f} ms/launch"), flush=True)
+
+    # 19. The card against the CPU (which runs the kernel's plain version)
+    # and against the single program, for both sharded paths.
+    for key, (ctrl, n, _) in SHARDED.items():
+        path = paths[key]
+        first, kw = path.pop("first"), path.pop("kw")
+        path["card_vs_cpu"] = card_vs_cpu(
+            f"{key} (pallas_ring)", ctrl, n, first, card, shards=SHARDS,
+            consensus_impl="pallas_ring", effort="fixed", **kw)
+        path["vs_single_program"] = sharded_vs_single(key, ctrl, n, first,
+                                                      kw, card)
+    report["sharded"] = {
+        "paths": paths, "exchange_ab_n64": ab, "ring_checks": checks,
+        "ring_timing": timing,
+        "profile": {"wall_ms": wall * 1e3, "phases": ph,
+                    "ring_sum_kernel_us_per_launch": ring_us},
+    }
+    main_t = timing[f"{SHARDS}x{N_SCENARIOS * 8 * 3}"]
+    return {
+        "name": "ring_sum_kernel", "route": "cuda",
+        "source": f"{PKG}/csrc/ring_sum.cu",
+        "replaces": "tpu_aerial_transport/parallel/ring.py:273",
+        "launches": paths["cadmm_n8_sharded"]["launches"]["ring_sum"],
+        "max_abs_err": worst, "ms": main_t["kernel_ms"],
+        "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
+        "bound_by": main_t["bound_by"], "library_ms": main_t["library_ms"],
+    }
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: the {PKG} package is not beside this script",
@@ -844,6 +1162,7 @@ def main() -> int:
     from tpu_aerial_transport_torch.harness import rollout
     from tpu_aerial_transport_torch.ops import _build, admm_kernel, socp
 
+    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} | {card} | torch {torch.__version__} "
@@ -884,14 +1203,13 @@ def main() -> int:
     torch.cuda.synchronize()
     first_step = (css1, states1, iters1)
 
-    for k in admm_kernel.LAUNCHES:
-        admm_kernel.LAUNCHES[k] = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     css, states, iters = run(css0, states0, TIMED_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(admm_kernel.LAUNCHES)
+    launches = launch_counts()
     consensus_iters = int(iters.max(dim=1).values.sum())
     if launches["fused_solve"] <= 0:
         fail("the main path never launched the fused_solve kernel")
@@ -1340,6 +1658,8 @@ def main() -> int:
     bf16_rows = bf16_phases(card, report, lanes)
     central_launches, central_err = centralized_phases(card, report)
     option_launches = cadmm_option_phases(card, report)
+    # 15-19. The agent-sharded paths and the ring-sum kernel.
+    ring_row = sharded_phases(card, report)
 
     kernels = [{
         "name": "fused_solve_kernel", "route": "cuda",
@@ -1364,7 +1684,7 @@ def main() -> int:
         "launches": chunk_launches, "max_abs_err": c_err, "ms": c_ms,
         "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
         "library_ms": None,
-    }] + bf16_rows
+    }] + bf16_rows + [ring_row]
     report["kernels"] = kernels
     report["launches_elsewhere"] = {
         "fused_solve_early_centralized": central_launches,
@@ -1374,8 +1694,11 @@ def main() -> int:
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(
         HERE, "build", "chip_smoke.json")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    total_s = time.perf_counter() - t_start
+    report["total_s"] = total_s
     with open(path, "w") as f:
         json.dump(report, f, indent=1, default=str)
+    print(f"total: {total_s:.1f} s, the build included | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

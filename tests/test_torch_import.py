@@ -12,10 +12,11 @@ import torch
 
 import tpu_aerial_transport_torch
 from tpu_aerial_transport_torch import entry
-from tpu_aerial_transport_torch.control import cadmm, dd, lowlevel
+from tpu_aerial_transport_torch.control import cadmm, dd, lowlevel, types
 from tpu_aerial_transport_torch.envs import forest, spatial
 from tpu_aerial_transport_torch.harness import rollout, setup
 from tpu_aerial_transport_torch.ops import admm_kernel, socp
+from tpu_aerial_transport_torch.parallel import ring
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tpu_aerial_transport_torch")
@@ -77,8 +78,9 @@ def test_source_scan_covers_the_slice():
     including the shared kernel header."""
     rel = {os.path.relpath(p, REPO) for p in _sources()}
     for f in ("control/centralized.py", "control/dd.py", "csrc/admm_chunk.cu",
-              "csrc/admm_common.cuh", "csrc/fused_solve.cu", "entry.py",
-              "ops/admm_kernel.py", "ops/socp.py"):
+              "csrc/admm_common.cuh", "csrc/fused_solve.cu",
+              "csrc/ring_sum.cu", "entry.py", "ops/admm_kernel.py",
+              "ops/socp.py", "parallel/mesh.py", "parallel/ring.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
@@ -110,6 +112,18 @@ def test_entry_point_default_device_is_the_card():
         tpu_aerial_transport_torch.resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry.entry()
+
+
+def test_inactive_env_cbf_defaults_to_the_card():
+    """The no-environment CBF rows are built on the card unless the caller
+    asks for the CPU."""
+    if torch.cuda.is_available():
+        assert types.inactive_env_cbf(3, 5.0, 0.1, 1.5).lhs.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        types.inactive_env_cbf(3, 5.0, 0.1, 1.5)
+    cbf = types.inactive_env_cbf(3, 5.0, 0.1, 1.5, device="cpu")
+    assert cbf.lhs.shape == (3, 3) and not cbf.lhs.is_cuda
 
 
 def _cfg(**kw):
@@ -180,10 +194,10 @@ def test_resolve_effort_and_route(monkeypatch):
 
 
 def test_left_out_call_paths_raise():
-    """The four paths still left out (the SM law, the bucketed query,
-    health=, axis_name=) raise NotImplementedError naming their ROADMAP
-    item; n = 3 C-ADMM, bf16 solves and the centralized rollout, ported
-    since, run; junk option values are ValueErrors."""
+    """The three paths still left out (the SM law, the bucketed query,
+    health=) raise NotImplementedError naming their ROADMAP item; n = 3
+    C-ADMM, bf16 solves, the centralized rollout and agent sharding,
+    ported since, run; junk option values are ValueErrors."""
     params, col, state = setup.rqp_setup(4, device="cpu")
     params3 = setup.rqp_setup(3, device="cpu")[0]
     cfg3 = cadmm.make_config(params3, col.collision_radius,
@@ -204,7 +218,14 @@ def test_left_out_call_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cadmm.control(params, cfg, None, None, state, None, health=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dd.control(params, None, None, None, state, None, axis_name="agent")
+        dd.control(params, None, None, None, state, None, health=object())
+    # Agent sharding is ported: the shard count must divide n.
+    dd_cfg = dd.make_config(params, col.collision_radius,
+                            col.max_deceleration, device="cpu")
+    dd_cs = rollout.stack_scenarios(dd.init_dd_state(params, dd_cfg), 1)
+    with pytest.raises(ValueError, match="divide"):
+        dd.control(params, dd_cfg, dd_cs.f[0], dd_cs,
+                   rollout.stack_scenarios(state, 1), None, shards=3)
     step, cs0, st0 = rollout.make_mpc_step("centralized", 4, device="cpu")
     _, st1, stats = step(rollout.stack_scenarios(cs0, 2),
                          rollout.stack_scenarios(st0, 2))
@@ -241,6 +262,8 @@ def test_kernel_wrapper_refuses_other_devices():
             x, x, x, x, x, x, x, x, x, nv=4, n_box=4, soc_dims=(), iters=1,
             alpha=1.6,
         )
+    with pytest.raises(ValueError, match="unsupported device"):
+        ring.ring_sum_shards(x)
 
 
 def test_active_gate_needs_the_tolerance_path():

@@ -44,9 +44,20 @@ scenario's iteration is computed, and a scenario whose predicate was false
 keeps its carry (``torch.where`` on every carry leaf). The ``any`` test is
 one host synchronisation per consensus iteration.
 
-Not ported yet (each raises ``NotImplementedError``): ``health=``,
-``axis_name=`` and ``env_query="bucketed"`` (ROADMAP Queue 1 items 10, 11,
-13).
+Agent sharding (``shards=d``; ``parallel.mesh`` and ``harness.rollout``
+build the step): the agents form d contiguous blocks of ``n / d``, the
+shards of the JAX package's ``shard_map``, written out as an explicit axis
+on one card. The per-agent work stays one batched program over all ``S x n``
+lanes; only the cross-agent reductions change: each is a reduction over a
+block, then an exchange over the shard axis through
+``parallel.ring.consensus_exchange`` by ``cfg.consensus_impl``. Each shard
+keeps its own copy of an exchanged sum inside the step (under
+``"pallas_ring"`` the copies may differ in their last bits) and its agents
+read that copy; the carried ``f_mean`` is shard 0's, as the JAX package's
+replicated ``out_specs`` gives. With ``shards=1`` no exchange runs.
+
+Not ported yet (each raises ``NotImplementedError``): ``health=`` and
+``env_query="bucketed"`` (ROADMAP Queue 1 items 10 and 11).
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ from tpu_aerial_transport_torch.harness.bucketing import bucket_dim
 from tpu_aerial_transport_torch.models.rqp import GRAVITY, RQPParams, RQPState
 from tpu_aerial_transport_torch.obs import phases
 from tpu_aerial_transport_torch.ops import lie, socp
+from tpu_aerial_transport_torch.parallel import ring
 
 
 @dataclass(frozen=True)
@@ -136,6 +148,10 @@ class RQPCADMMConfig:
     # Pad every agent QP edge to a multiple of socp.SUBLANE_TILE (exact).
     pad_operators: bool = True
     env_query: str = "dense"
+    # The cross-shard exchange of an agent-sharded step, resolved
+    # (parallel/ring.py resolve_consensus); single-program steps never
+    # exchange.
+    consensus_impl: str = "allreduce"
 
 
 def _cos32(x: float) -> torch.Tensor:
@@ -191,6 +207,7 @@ def make_config(
     pad_operators: bool | None = None,
     effort: str = "auto",
     env_query: str = "auto",
+    consensus_impl: str = "auto",
     device="cuda",
 ) -> RQPCADMMConfig:
     """Controller config for the C-ADMM path on ``device``.
@@ -199,9 +216,11 @@ def make_config(
     (the JAX package's backend default); ``socp_fused="auto"`` resolves to
     the ``"kernel"`` route (``ops.socp.resolve_route``), ``effort="auto"``
     and ``socp_precision="auto"`` as ``ops.socp.resolve_effort`` and
-    ``resolve_precision`` say. Constants the JAX package computes with
-    ``jnp`` in float32 (``sec_max_f_ang``, ``cos_max_p_ang``) are computed
-    in float32 here too. ``tau_incr < 1`` is a ValueError."""
+    ``resolve_precision`` say, and ``consensus_impl="auto"`` as
+    ``parallel.ring.resolve_consensus`` says. Constants the JAX package
+    computes with ``jnp`` in float32 (``sec_max_f_ang``,
+    ``cos_max_p_ang``) are computed in float32 here too. ``tau_incr < 1``
+    is a ValueError."""
     base = make_base_config(
         params, collision_radius, max_deceleration, n_env_cbfs=n_env_cbfs,
         max_iter=max_iter, inner_iters=inner_iters, res_tol=res_tol,
@@ -209,7 +228,8 @@ def make_config(
         socp_precision=socp_precision, inner_tol=inner_tol,
         inner_check_every=inner_check_every,
         solve_retry_iters=solve_retry_iters, pad_operators=pad_operators,
-        effort=effort, env_query=env_query, device=device,
+        effort=effort, env_query=env_query, consensus_impl=consensus_impl,
+        device=device,
     )
     cfg = dataclasses.replace(
         base, tau_incr=tau_incr, rho_max=rho_max,
@@ -239,6 +259,7 @@ def make_base_config(
     pad_operators: bool | None = None,
     effort: str = "auto",
     env_query: str = "auto",
+    consensus_impl: str = "auto",
     device="cuda",
 ) -> RQPCADMMConfig:
     """The constants C-ADMM and DD share (DD's ``base``), without C-ADMM's
@@ -285,6 +306,7 @@ def make_base_config(
         pad_operators=(dev.type == "cuda") if pad_operators is None
         else bool(pad_operators),
         env_query=spatial_mod.resolve_env_query(env_query),
+        consensus_impl=ring.resolve_consensus(consensus_impl, dev),
     )
 
 
@@ -806,6 +828,95 @@ def agent_env_cbfs_for(params: RQPParams, cfg: RQPCADMMConfig,
     return cbf.replace(collision=cbf.collision | (norm == 0))
 
 
+def check_shards(n: int, shards: int) -> None:
+    """ValueError unless ``shards`` is a shard count that divides the ``n``
+    agents."""
+    if shards < 1 or n % shards:
+        raise ValueError(
+            f"shards={shards}: n = {n} agents do not divide into that many "
+            "shards")
+
+
+class _AgentBlocks:
+    """The agents of one control step as ``d`` contiguous blocks of
+    ``n_local``, one block a shard (d = 1 and no exchange for a
+    single-program step), and the cross-agent reductions over them: a
+    reduction over each block, then an exchange over the shard axis
+    (JAX ``cadmm.py:1062-1086``). Per-agent tensors are ``(S, n, ...)``;
+    per-shard copies are ``(S, d, ...)``."""
+
+    def __init__(self, n: int, shards: int, impl: str):
+        check_shards(n, shards)
+        self.sharded = shards > 1
+        self.d = shards
+        self.n_local = n // self.d
+        self.impl = impl
+
+    def blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """``(S, n, ...) -> (S, d, n_local, ...)``."""
+        return x.unflatten(1, (self.d, self.n_local))
+
+    def exchange(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """Per-shard values ``(S, d, ...)`` -> what each shard receives, in
+        the same layout; the shard axis goes to the front for the
+        exchange and back after it."""
+        out = ring.consensus_exchange(
+            x.movedim(1, 0).contiguous(), axis_size=self.d, op=op,
+            impl=self.impl)
+        return out.movedim(0, 1)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``(S, n, ...) -> (S, d, ...)``: each shard's copy of the sum
+        over every agent."""
+        if not self.sharded:
+            return torch.sum(x, dim=1, keepdim=True)
+        return self.exchange(torch.sum(self.blocks(x), dim=2), "sum")
+
+    def per_agent(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-shard copies ``(S, d, ...)`` as each agent reads its shard's
+        copy, broadcasting against ``(S, n, ...)``."""
+        if self.d == 1:
+            return x
+        return torch.repeat_interleave(x, self.n_local, dim=1)
+
+    def _extreme(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        fn = torch.amax if op == "max" else torch.amin
+        if not self.sharded:
+            return fn(x.flatten(1), dim=1)
+        # Exact under every impl: every shard receives the same value.
+        return self.exchange(fn(self.blocks(x).flatten(2), dim=2), op)[:, 0]
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """``(S, n, ...) -> (S,)``: the largest entry over every agent."""
+        return self._extreme(x, "max")
+
+    def min(self, x: torch.Tensor) -> torch.Tensor:
+        """``(S, n, ...) -> (S,)``: the smallest entry over every agent."""
+        return self._extreme(x, "min")
+
+    def count(self, eff: torch.Tensor) -> torch.Tensor:
+        """Per-agent int32 counts ``(S, n)`` -> each shard's block total
+        ``(S, d)``."""
+        return torch.sum(self.blocks(eff), dim=2, dtype=torch.int32)
+
+    def total(self, counts: torch.Tensor) -> torch.Tensor:
+        """Block totals ``(S, d)`` -> the whole fleet's ``(S,)``, exchanged
+        once as float32 (exact far past any realistic count; JAX
+        ``cadmm.py:1488-1495``)."""
+        if self.sharded:
+            counts = self.exchange(counts.to(torch.float32), "sum").to(
+                torch.int32)
+        return counts[:, 0]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-agent blocks ``(S, n, ...)`` -> ``(d, S, n, ...)``: each
+        shard's gathered copy of every agent's block."""
+        out = ring.consensus_gather(
+            self.blocks(x).movedim(1, 0).contiguous(), axis_size=self.d,
+            impl=self.impl)  # (d, d, S, n_local, ...): [receiver, source].
+        return out.movedim(1, 2).flatten(2, 3)
+
+
 def _where(pred: torch.Tensor, new, old):
     """Per-scenario select ``pred (S,)`` over a tensor or a NamedTuple."""
     if isinstance(new, tuple):
@@ -822,7 +933,7 @@ def control(
     state: RQPState,
     acc_des,
     forest: forest_mod.Forest | None = None,
-    axis_name: str | None = None,
+    shards: int = 1,
     plan: SchurPlan | None = None,
     health=None,
 ):
@@ -831,14 +942,15 @@ def control(
     ``state`` carry the leading scenario axis; ``f_eq``, ``acc_des``,
     ``forest`` and ``plan`` are shared. Pass ``plan=make_plan(...)`` to
     build the elimination cores once outside a rollout (None for the full
-    QP)."""
-    if axis_name is not None:
-        raise _missing("agent-sharded control (axis_name=)", "Queue 1 item 13")
+    QP). ``shards=d`` shards the agents into d blocks (see the module
+    docstring; ``parallel.mesh.cadmm_control_sharded``); the state stays
+    the global one."""
     if health is not None:
         raise _missing("fault-aware control (health=)", "Queue 1 item 11")
     n = params.n
     dtype, dev = state.xl.dtype, state.xl.device
     S = admm_state.f.shape[0]
+    blocks = _AgentBlocks(n, shards, cfg.consensus_impl)
     agent_ids = torch.arange(n, device=dev)
 
     with phases.scope(phases.CBF_ROWS):
@@ -909,7 +1021,8 @@ def control(
         sols, eff)``, ``eff`` the (S, n) int32 effective inner iterations
         under adaptive effort, else None."""
         pk, (P, q0, A, lb, ub, shift), op = stack[min(k, n_rho - 1)]
-        delta = lam - rhos[min(k, n_rho - 1)] * f_mean[:, None]
+        # Each agent reads its own shard's copy of the mean.
+        delta = lam - rhos[min(k, n_rho - 1)] * blocks.per_agent(f_mean)
         if use_reduced:
             dperm = torch.gather(
                 delta, 2, pk.perm[None, :, :, None].expand(S, n, n, 3)
@@ -988,10 +1101,11 @@ def control(
             for a, b in zip(sols, warm)
         ))
         with phases.scope(phases.CONSENSUS):
-            f_mean_new = torch.sum(f_new, dim=1) / n
-            res_new = torch.amax(
-                torch.abs(f_new - f_mean_new[:, None]).flatten(1), dim=1
-            )
+            # Each shard's copy of the mean (S, d, n, 3); the residual is
+            # exact, so it is the same on every shard.
+            f_mean_new = blocks.sum(f_new) / n
+            spread = f_new - blocks.per_agent(f_mean_new)
+            res_new = blocks.max(torch.abs(spread))
         err_buf = torch.where(steps[None] == it[:, None], res_new[:, None],
                               err_buf)
         it = it + 1
@@ -1002,23 +1116,26 @@ def control(
             do_dual = (res_new >= cfg.res_tol) & (it <= cfg.max_iter)
             lam_new = torch.where(
                 do_dual[:, None, None, None],
-                lam + rhos[min(k + 1, n_rho - 1)]
-                * (f_new - f_mean_new[:, None]), lam,
+                lam + rhos[min(k + 1, n_rho - 1)] * spread, lam,
             )
-        ok_last = torch.sum(ok_flat.to(dtype), dim=1) / n
+        # A sum of 0/1 flags: exact, the same on every shard.
+        ok_last = blocks.sum(ok_flat.to(dtype))[:, 0] / n
         okf = torch.minimum(okf, ok_last)
         fail_count = torch.where(ok_last < 1.0, fail_count + 1,
                                  torch.zeros_like(fail_count))
         out = (f_new, lam_new, f_mean_new, sols, it, res_new, err_buf, okf,
                ok_last, fail_count)
         if adaptive:
-            # Effective inner iterations spent this consensus iteration.
-            out = out + (carry[10] + torch.sum(eff, dim=1,
-                                               dtype=torch.int32),)
+            # Effective inner iterations spent this consensus iteration,
+            # by shard.
+            out = out + (carry[10] + blocks.count(eff),)
         return out
 
     carry = (
-        admm_state.f, admm_state.lam, admm_state.f_mean, admm_state.warm,
+        # Every shard starts from the carried (replicated) mean.
+        admm_state.f, admm_state.lam,
+        admm_state.f_mean[:, None].expand(S, blocks.d, n, 3),
+        admm_state.warm,
         torch.zeros((S,), dtype=torch.int32, device=dev),
         torch.full((S,), math.inf, dtype=dtype, device=dev),
         torch.full((S, cfg.max_iter + 1), math.nan, dtype=dtype, device=dev),
@@ -1027,8 +1144,9 @@ def control(
         torch.zeros((S,), dtype=torch.int32, device=dev),
     )
     if adaptive:
-        # The inner-iteration total, frozen with the carry.
-        carry = carry + (torch.zeros((S,), dtype=torch.int32, device=dev),)
+        # The inner-iteration totals by shard, frozen with the carry.
+        carry = carry + (torch.zeros((S, blocks.d), dtype=torch.int32,
+                                     device=dev),)
     # The vmapped while_loop, written out: every scenario iterates while any
     # scenario's predicate holds; a scenario whose predicate is false keeps
     # its carry. One host synchronisation per consensus iteration.
@@ -1043,15 +1161,16 @@ def control(
     f, lam, f_mean, warm, iters, res, err_buf, ok_frac, _, _ = carry[:10]
 
     f_app = f[:, agent_ids, agent_ids, :]
-    new_state = CADMMState(f=f, lam=lam, f_mean=f_mean, warm=warm)
+    # The carried mean is shard 0's copy.
+    new_state = CADMMState(f=f, lam=lam, f_mean=f_mean[:, 0], warm=warm)
     stats = SolverStats(
         iters=iters,
         solve_res=res,
-        collision=torch.amax(env_cbfs.collision.to(torch.int32), dim=1) > 0,
-        min_env_dist=torch.amin(env_cbfs.min_dist, dim=1),
+        collision=blocks.max(env_cbfs.collision.to(torch.int32)) > 0,
+        min_env_dist=blocks.min(env_cbfs.min_dist),
         err_seq=err_buf,
         ok_frac=ok_frac,
-        inner_iters=(carry[10] if adaptive else
+        inner_iters=(blocks.total(carry[10]) if adaptive else
                      torch.zeros((S, 0), dtype=torch.int32, device=dev)),
     )
     return f_app, new_state, stats

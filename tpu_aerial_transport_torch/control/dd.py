@@ -26,8 +26,16 @@ reaches) and each scenario's solves are gated by its own continue predicate.
 The quasi-Newton ascent is biased by tolerance-missed primal optima, so a
 looser inner tolerance is opt-in through ``inner_tol``.
 
-Not ported yet (each raises ``NotImplementedError``): ``health=`` and
-``axis_name=`` (ROADMAP Queue 1 items 11 and 13).
+Agent sharding (``shards=d``; ``parallel.mesh`` and ``harness.rollout``
+build the step) follows ``control.cadmm``: the price sums, the violation
+sums, the residual max and the solve-success count become a reduction over
+each block of agents, then an exchange over the shard axis (JAX
+``dd.py:517-554``); each shard's agents read their shard's copy of a sum.
+The dual gradient is gathered (``consensus_gather``), and each shard takes
+its own rows of the 6n quasi-Newton step from its gathered copy.
+
+Not ported yet (raises ``NotImplementedError``): ``health=`` (ROADMAP
+Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -89,6 +97,7 @@ def make_config(
     pad_operators: bool | None = None,
     effort: str = "auto",
     env_query: str = "auto",
+    consensus_impl: str = "auto",
     device="cuda",
 ) -> RQPDDConfig:
     """DD config on ``device``; the knobs resolve as in
@@ -100,7 +109,8 @@ def make_config(
         socp_fused=socp_fused, socp_precision=socp_precision,
         inner_tol=inner_tol, inner_check_every=inner_check_every,
         solve_retry_iters=solve_retry_iters, pad_operators=pad_operators,
-        effort=effort, env_query=env_query, device=device,
+        effort=effort, env_query=env_query, consensus_impl=consensus_impl,
+        device=device,
     )
     return RQPDDConfig(base=base, prim_inf_tol=prim_inf_tol)
 
@@ -410,7 +420,7 @@ def control(
     state: RQPState,
     acc_des,
     forest: forest_mod.Forest | None = None,
-    axis_name: str | None = None,
+    shards: int = 1,
     plan: DDPlan | None = None,
     health=None,
 ):
@@ -418,10 +428,8 @@ def control(
     DDState, SolverStats)``. ``dd_state`` and ``state`` carry the leading
     scenario axis; ``f_eq`` (n, 3), ``acc_des``, ``forest`` and ``plan``
     are shared. Pass ``plan=make_dd_plan(...)`` to build the quasi-Newton
-    cores once outside a rollout."""
-    if axis_name is not None:
-        raise cadmm._missing("agent-sharded control (axis_name=)",
-                             "Queue 1 item 13")
+    cores once outside a rollout. ``shards=d`` shards the agents into d
+    blocks (the module docstring; ``parallel.mesh.dd_control_sharded``)."""
     if health is not None:
         raise cadmm._missing("fault-aware control (health=)",
                              "Queue 1 item 11")
@@ -429,6 +437,7 @@ def control(
     base = cfg.base
     dtype, dev = state.xl.dtype, state.xl.device
     S = dd_state.f.shape[0]
+    blocks = cadmm._AgentBlocks(n, shards, base.consensus_impl)
     agent_ids = torch.arange(n, device=dev)
 
     with phases.scope(phases.CBF_ROWS):
@@ -488,10 +497,10 @@ def control(
          fail_count) = carry[:12]
         # Price assembly: the sums of the other agents' duals.
         with phases.scope(phases.CONSENSUS):
-            sum_lF = torch.sum(lam_F, dim=1)
-            sum_lM = torch.sum(lam_M, dim=1)
-            c_f = (-(sum_lF[:, None] - lam_F)
-                   + _mv(Rl_hat, sum_lM[:, None] - lam_M))
+            # Each agent reads its own shard's copy of the sums.
+            sum_lF = blocks.per_agent(blocks.sum(lam_F))
+            sum_lM = blocks.per_agent(blocks.sum(lam_M))
+            c_f = -(sum_lF - lam_F) + _mv(Rl_hat, sum_lM - lam_M)
             q = q0.clone()
             q[..., 9:12] += c_f
             q[..., 12:15] += lam_F
@@ -523,13 +532,13 @@ def control(
         # Primal infeasibility: the consensus violations.
         with phases.scope(phases.CONSENSUS):
             moments = _mv(G, f_new)
-            sum_f = torch.sum(f_new, dim=1)
-            sum_m = torch.sum(moments, dim=1)
-            err_F = F_new - (sum_f[:, None] - f_new)
-            err_M = M_new - (sum_m[:, None] - moments)
-            err_new = torch.maximum(
-                torch.amax(torch.abs(err_F).flatten(1), dim=1),
-                torch.amax(torch.abs(err_M).flatten(1), dim=1))
+            sum_f = blocks.per_agent(blocks.sum(f_new))
+            sum_m = blocks.per_agent(blocks.sum(moments))
+            err_F = F_new - (sum_f - f_new)
+            err_M = M_new - (sum_m - moments)
+            # Exact: the same on every shard.
+            err_new = blocks.max(torch.maximum(torch.abs(err_F),
+                                               torch.abs(err_M)))
         err_buf = torch.where(steps[None] == it[:, None], err_new[:, None],
                               err_buf)
         it = it + 1
@@ -537,22 +546,31 @@ def control(
         # when converged or past the cap. The F-violations rotate into the
         # payload frame of the precomputed basis and the F-step back.
         with phases.scope(phases.DUAL_UPDATE):
-            dual_grad = torch.cat([err_F @ Rl, err_M], dim=-1).reshape(S, -1)
-            step = _mv(qn_inv, dual_grad).reshape(S, n, 6)
+            viol = torch.cat([err_F @ Rl, err_M], dim=-1)  # (S, n, 6)
+            if blocks.sharded:
+                # Each shard's gathered copy of the whole dual gradient
+                # (exact, so the same on every shard) against its own rows
+                # of the quasi-Newton inverse.
+                grad = blocks.gather(viol).flatten(2)  # (d, S, 6n)
+                rows = qn_inv.reshape(blocks.d, 6 * blocks.n_local, 6 * n)
+                step = _mv(rows[:, None], grad).movedim(0, 1).reshape(
+                    S, n, 6)
+            else:
+                step = _mv(qn_inv, viol.reshape(S, -1)).reshape(S, n, 6)
             do_dual = ((err_new >= cfg.prim_inf_tol)
                        & (it <= base.max_iter))[:, None, None]
             lam_F_new = torch.where(do_dual, lam_F + step[..., :3] @ RlT,
                                     lam_F)
             lam_M_new = torch.where(do_dual, lam_M + step[..., 3:], lam_M)
-        ok_last = torch.sum(ok.to(dtype), dim=1) / n
+        # A sum of 0/1 flags: exact, the same on every shard.
+        ok_last = blocks.sum(ok.to(dtype))[:, 0] / n
         okf = torch.minimum(okf, ok_last)
         fail_count = torch.where(ok_last < 1.0, fail_count + 1,
                                  torch.zeros_like(fail_count))
         new = (f_new, F_new, M_new, lam_F_new, lam_M_new, warm_new, it,
                err_new, err_buf, okf, ok_last, fail_count)
         if adaptive:
-            new = new + (carry[12] + torch.sum(eff, dim=1,
-                                               dtype=torch.int32),)
+            new = new + (carry[12] + blocks.count(eff),)
         return new
 
     carry = (
@@ -566,7 +584,9 @@ def control(
         torch.zeros((S,), dtype=torch.int32, device=dev),
     )
     if adaptive:
-        carry = carry + (torch.zeros((S,), dtype=torch.int32, device=dev),)
+        # The inner-iteration totals by shard.
+        carry = carry + (torch.zeros((S, blocks.d), dtype=torch.int32,
+                                     device=dev),)
     # The vmapped while_loop, written out (see control.cadmm).
     while True:
         active = continue_pred(carry[6], carry[7], carry[10], carry[11])
@@ -581,11 +601,11 @@ def control(
     stats = SolverStats(
         iters=iters,
         solve_res=err,
-        collision=torch.amax(env_cbfs.collision.to(torch.int32), dim=1) > 0,
-        min_env_dist=torch.amin(env_cbfs.min_dist, dim=1),
+        collision=blocks.max(env_cbfs.collision.to(torch.int32)) > 0,
+        min_env_dist=blocks.min(env_cbfs.min_dist),
         err_seq=err_buf,
         ok_frac=ok_frac,
-        inner_iters=(carry[12] if adaptive else
+        inner_iters=(blocks.total(carry[12]) if adaptive else
                      torch.zeros((S, 0), dtype=torch.int32, device=dev)),
     )
     return f, new_state, stats

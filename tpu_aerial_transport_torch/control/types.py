@@ -11,6 +11,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from tpu_aerial_transport_torch import resolve_device
 
 @dataclass(frozen=True)
 class SolverStats:
@@ -47,9 +48,11 @@ class EnvCBF:
 
 
 def inactive_env_cbf(n_rows: int, vision_radius: float, dist_eps: float,
-                     alpha: float, device="cpu",
+                     alpha: float, device="cuda",
                      dtype=torch.float32) -> EnvCBF:
-    """The no-environment default."""
+    """The no-environment default, on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     return EnvCBF(
         lhs=torch.zeros((n_rows, 3), dtype=dtype, device=device),
         rhs=torch.full((n_rows,), -alpha * (vision_radius - dist_eps),

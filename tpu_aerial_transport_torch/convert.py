@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from tpu_aerial_transport_torch import resolve_device
-from tpu_aerial_transport_torch.control import cadmm, centralized
+from tpu_aerial_transport_torch.control import cadmm, centralized, dd
 from tpu_aerial_transport_torch.envs import forest as forest_mod
 from tpu_aerial_transport_torch.models import rqp
 from tpu_aerial_transport_torch.ops import socp
@@ -61,11 +61,24 @@ def cadmm_state(src, device="cuda") -> cadmm.CADMMState:
     """``f``, ``lam``, ``f_mean`` and the ``warm`` solution, in whichever
     layout the source has: ``(n, nv_p)``/``(n, m_p)`` warm starts of the
     Schur-reduced or of the full agent QP alike (the JAX package's ``held``
-    snapshot belongs to the unported fault path)."""
+    snapshot belongs to the unported fault path). An agent-sharded step
+    takes and returns the same global state."""
     dev = resolve_device(device)
     return cadmm.CADMMState(
         f=_tensor(_get(src, "f"), dev), lam=_tensor(_get(src, "lam"), dev),
         f_mean=_tensor(_get(src, "f_mean"), dev),
+        warm=socp_solution(_get(src, "warm"), dev),
+    )
+
+
+def dd_state(src, device="cuda") -> dd.DDState:
+    """``f``, ``F``, ``M``, ``lam_F``, ``lam_M`` and the ``warm`` solution
+    (the JAX package's ``held_*`` snapshots belong to the unported fault
+    path). An agent-sharded step takes and returns the same global state."""
+    dev = resolve_device(device)
+    return dd.DDState(
+        **{k: _tensor(_get(src, k), dev)
+           for k in ("f", "F", "M", "lam_F", "lam_M")},
         warm=socp_solution(_get(src, "warm"), dev),
     )
 

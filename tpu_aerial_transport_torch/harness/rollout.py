@@ -7,7 +7,9 @@ every scenario runs the environment queries, a controller -- consensus ADMM
 (``"dd"``) or the centralized QP (``"centralized"``, the forest query
 around the payload) -- and ten 1 kHz low-level SO(3) control + physics
 substeps. All ``S`` scenarios advance together; state leaves carry the
-leading scenario axis.
+leading scenario axis. With ``shards > 1`` C-ADMM and DD run agent-sharded
+(``parallel.mesh``): the agents split into that many blocks on one card,
+their consensus reductions exchanged by ``consensus_impl``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from tpu_aerial_transport_torch.envs import forest as forest_mod
 from tpu_aerial_transport_torch.harness import setup
 from tpu_aerial_transport_torch.models import rqp
 from tpu_aerial_transport_torch.obs import phases
+from tpu_aerial_transport_torch.parallel import mesh as mesh_mod
 
 N_AGENTS = 8
 N_SCENARIOS = 256
@@ -45,21 +48,34 @@ def make_mpc_step(controller: str, n: int, max_iter: int = 20,
                   pad_operators: bool | None = None, socp_fused: str = "auto",
                   inner_tol: float = 0.0, effort: str = "auto",
                   socp_precision: str = "auto", tau_incr: float = 1.0,
-                  inner_iters_warm: int = 0, device="cuda"):
+                  inner_iters_warm: int = 0, shards: int = 1,
+                  consensus_impl: str = "auto", device="cuda"):
     """``(mpc_step(css, states) -> (css, states, stats), cs0, state0)`` for
     the bench set-up: ``rqp_setup(n)``, forest seed 0, PD low level,
     ``acc_des = ((0.3, 0, 0), 0)``, ``controller`` ``"cadmm"``, ``"dd"``
     (the JAX bench's ``inner_iters`` 20 and 40; the solver knobs apply to
     these two, ``tau_incr`` and ``inner_iters_warm`` to C-ADMM only) or
-    ``"centralized"`` (``solver_iters=120``). ``cs0``/``state0`` are one
-    scenario's (no scenario axis); ``mpc_step`` takes and returns batched
-    ones."""
+    ``"centralized"`` (``solver_iters=120``). ``shards > 1`` runs C-ADMM or
+    DD agent-sharded over that many blocks (``n % shards == 0``), the
+    exchanges by ``consensus_impl`` (``parallel.ring.resolve_consensus``);
+    ``shards=1`` is the single program, which takes no ``consensus_impl``
+    but ``"auto"``. ``cs0``/``state0`` are one scenario's (no scenario
+    axis); ``mpc_step`` takes and returns batched ones."""
     if controller not in CONTROLLERS:
         raise ValueError(
             f"controller={controller!r}: expected one of {CONTROLLERS}")
     cadmm_kw = dict(tau_incr=tau_incr, inner_iters_warm=inner_iters_warm)
     if controller != "cadmm" and (tau_incr != 1.0 or inner_iters_warm):
         raise ValueError(f"{cadmm_kw} are C-ADMM options, not {controller}'s")
+    if controller == "centralized" and (shards != 1
+                                        or consensus_impl != "auto"):
+        raise ValueError("the centralized controller has no agents to "
+                         f"shard (shards={shards}, "
+                         f"consensus_impl={consensus_impl!r})")
+    cadmm.check_shards(n, shards)
+    if shards == 1 and consensus_impl != "auto":
+        raise ValueError(f"consensus_impl={consensus_impl!r} needs shards > "
+                         "1: a single program makes no exchange")
     dev = resolve_device(device)
     params, col, state0 = setup.rqp_setup(n, device=dev)
     forest = forest_mod.make_forest(seed=0, device=dev)
@@ -93,7 +109,8 @@ def make_mpc_step(controller: str, n: int, max_iter: int = 20,
                      else INNER_ITERS[controller]),
         pad_operators=pad_operators, socp_fused=socp_fused,
         inner_tol=inner_tol, effort=effort, socp_precision=socp_precision,
-        device=dev, **(cadmm_kw if controller == "cadmm" else {}),
+        consensus_impl=consensus_impl, device=dev,
+        **(cadmm_kw if controller == "cadmm" else {}),
     )
     if controller == "cadmm":
         cs0 = cadmm.init_cadmm_state(params, cfg, f_eq)
@@ -102,10 +119,15 @@ def make_mpc_step(controller: str, n: int, max_iter: int = 20,
         cs0 = dd.init_dd_state(params, cfg, f_eq)
         plan = dd.make_dd_plan(params, cfg)
 
+    def control(css, states, acc_des):
+        return mod.control(params, cfg, f_eq, css, states, acc_des, forest,
+                           shards=shards, plan=plan)
+
+    if shards > 1:
+        control = mesh_mod.sharded_step(control, n, shards)
+
     def mpc_step(css, states):
-        f_app, css, stats = mod.control(
-            params, cfg, f_eq, css, states, acc_des, forest, plan=plan
-        )
+        f_app, css, stats = control(css, states, acc_des)
         return css, substeps(params, ll, states, f_app), stats
 
     return mpc_step, cs0, state0
@@ -154,16 +176,19 @@ def build(n: int = N_AGENTS, n_scenarios: int = N_SCENARIOS,
           controller: str = "cadmm", socp_fused: str = "auto",
           inner_tol: float = 0.0, effort: str = "auto",
           socp_precision: str = "auto", tau_incr: float = 1.0,
-          inner_iters_warm: int = 0):
+          inner_iters_warm: int = 0, shards: int = 1,
+          consensus_impl: str = "auto"):
     """A bench workload: ``(run(css, states, n_steps), css, states)`` with
     ``controller`` at ``n`` agents over ``n_scenarios`` seeded scenarios;
     the defaults are the headline (C-ADMM, fixed effort, whole-solve
-    kernel route, float32 operators)."""
+    kernel route, float32 operators, one program). ``shards`` and
+    ``consensus_impl`` shard the agents (:func:`make_mpc_step`)."""
     mpc_step, cs0, state0 = make_mpc_step(
         controller, n, max_iter=max_iter, inner_iters=inner_iters,
         pad_operators=pad_operators, socp_fused=socp_fused,
         inner_tol=inner_tol, effort=effort, socp_precision=socp_precision,
-        tau_incr=tau_incr, inner_iters_warm=inner_iters_warm, device=device,
+        tau_incr=tau_incr, inner_iters_warm=inner_iters_warm, shards=shards,
+        consensus_impl=consensus_impl, device=device,
     )
     states = scenario_batch(state0, n_scenarios)
     css = stack_scenarios(cs0, n_scenarios)

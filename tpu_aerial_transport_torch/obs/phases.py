@@ -20,9 +20,12 @@ ENV_QUERY = "env_query"        # the environment distance sweep itself.
 LOCAL_SOLVE = "local_solve"    # per-agent conic QP solves (inner ADMM).
 FUSED_SOLVE = "fused_solve"    # the whole-solve ADMM kernel launch.
 CONSENSUS = "consensus"        # consensus mean / residual.
+# Cross-shard exchange of the agent-sharded controllers (parallel/ring.py).
+CONSENSUS_EXCHANGE = "consensus_exchange"
 DUAL_UPDATE = "dual_update"    # dual ascent step.
 DYNAMICS = "dynamics"          # low-level control + physics substeps.
 PAD = "pad"                    # tile pad of operators.
+SHARDED_STEP = "sharded_step"  # an agent-sharded step's plumbing.
 
 
 def scope(phase: str) -> torch.profiler.record_function:

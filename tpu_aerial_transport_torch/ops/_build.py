@@ -26,7 +26,7 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-KERNELS = ("fused_solve", "admm_chunk")
+KERNELS = ("fused_solve", "admm_chunk", "ring_sum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -127,3 +127,22 @@ def error_string(err: int, name: str = "fused_solve") -> str:
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(err).decode()
+
+
+def bind(name: str, argtypes):
+    """Library ``name``'s ``<name>_launch`` with its argument types set
+    (pointers and the stream as ``c_void_p``) and a ``cudaError_t`` result."""
+    fn = getattr(load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise with the runtime's text when a launch returned an error."""
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: {error_string(err, name)} "
+            f"(cudaError {err})"
+        )

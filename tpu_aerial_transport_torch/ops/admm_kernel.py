@@ -42,6 +42,8 @@ from typing import Sequence
 
 import torch
 
+from tpu_aerial_transport_torch.ops import _build
+
 # Plain launch counters: each wrapper adds one where it launches its kernel,
 # and nowhere else. "fused_solve" counts the fixed-iteration form,
 # "fused_solve_early" the early-exit form of the same kernel source, and the
@@ -309,26 +311,6 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _bind(name: str, argtypes):
-    from tpu_aerial_transport_torch.ops import _build
-
-    fn = getattr(_build.load(name), f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        from tpu_aerial_transport_torch.ops import _build
-
-        raise RuntimeError(
-            f"{name} kernel launch failed: {_build.error_string(err, name)} "
-            f"(cudaError {err})"
-        )
-
-
 def fused_solve_lanes(
     x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift=None, active=None,
     *, nv: int, n_box: int, soc_dims: Sequence[int], iters: int,
@@ -392,7 +374,7 @@ def fused_solve_lanes(
                 f"expected ({B},) on {dev}")
         gate = active.to(torch.float32).contiguous()
 
-    fn = _bind("fused_solve", _FUSED_ARGTYPES)
+    fn = _build.bind("fused_solve", _FUSED_ARGTYPES)
     xo = torch.empty((B, nv), dtype=torch.float32, device=dev)
     yo = torch.empty((B, m), dtype=torch.float32, device=dev)
     zo = torch.empty((B, m), dtype=torch.float32, device=dev)
@@ -409,7 +391,7 @@ def fused_solve_lanes(
         1 if precision == "bf16" else 0, float(alpha), float(1 - alpha),
         _soc_struct(soc_dims), dev.index, stream,
     )
-    _raise_on(err, "fused_solve")
+    _build.raise_on(err, "fused_solve")
     suffix = "" if precision == "f32" else "_" + precision
     if early:
         LAUNCHES["fused_solve_early" + suffix] += 1
@@ -451,7 +433,7 @@ def admm_chunk_lanes(
     ):
         _check(name, t, shape, dev)
 
-    fn = _bind("admm_chunk", _CHUNK_ARGTYPES)
+    fn = _build.bind("admm_chunk", _CHUNK_ARGTYPES)
     xo = torch.empty((B, nv), dtype=torch.float32, device=dev)
     yo = torch.empty((B, m), dtype=torch.float32, device=dev)
     zo = torch.empty((B, m), dtype=torch.float32, device=dev)
@@ -462,6 +444,6 @@ def admm_chunk_lanes(
         B, nv, m, n_box, iters, 1, float(alpha), float(1 - alpha),
         _soc_struct(soc_dims), dev.index, stream,
     )
-    _raise_on(err, "admm_chunk")
+    _build.raise_on(err, "admm_chunk")
     LAUNCHES["admm_chunk"] += 1
     return xo, yo, zo
