@@ -46,7 +46,11 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    against its plain version on captured inputs and time it;
 10-12. the bf16 headline, bf16 DD and the bf16 kernel forms against their
    plain version;
-13. the entry step and the centralized rollout;
+13. the entry step and the centralized rollout, the shared-memory body's
+   early form at their d = 67 and 79; then C-ADMM with the full agent QP at
+   n = 8 (``reduced_qp=False``, d = 72) fixed, bf16 fixed and bf16 adaptive:
+   the shared-memory body's other three forms on a path, checked and
+   timed;
 14. C-ADMM at n = 3 (the full QP), with ``tau_incr=1.5`` and with
    ``inner_iters_warm=10``;
 15. agent-sharded C-ADMM (n = 8, one agent a shard, 8 shards on the card,
@@ -64,11 +68,21 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    over 8 shards, one scenario, ``max_iter=8``, each impl in turns;
 18. the ring-sum kernel against its plain version (bitwise) and the float64
    sum, on the payloads captured from 15-17 and random ones at d in {2, 3,
-   4, 8}, ragged; timed at the phase-15 and n = 64 payloads beside the
-   plain version and one PyTorch sum; one sharded step profiled;
+   4, 8, 16, 32 (the cap)}, ragged; timed at the phase-15 and n = 64
+   payloads beside the plain version and one PyTorch sum; one sharded step
+   profiled;
 19. the first sharded step of 15 and 16 against the CPU (which runs the
    kernel's plain version) on 8 scenarios, and against the single program
    on the card.
+
+The whole-solve kernel has two bodies, chosen from the QP's shape alone:
+one warp per lane (``warp_solve_*kernel``) for every agent QP (nv and m at
+most 32), one block per lane (``fused_solve_*kernel``) for the centralized
+QPs and C-ADMM's full QP at n = 8. Every timed whole-
+solve and ring-sum line carries the kernel's bound, its earlier time from
+PERF.md (``EARLIER_MS``), the other body's time on the same inputs in turns
+where there is one, registers, spill bytes and resident lanes an SM; each
+timed path checks by kernel name which body ran.
 
 The kernel bar is 1e-4 x max(1, |ref|) for every output, or twice the
 plain version's own float32 rounding (its distance from the same plain
@@ -98,8 +112,20 @@ OWN_KERNELS = {"fused_solve_kernel": "fused_solve",
                "fused_solve_early_kernel": "fused_solve_early",
                "fused_solve_bf16_kernel": "fused_solve_bf16",
                "fused_solve_early_bf16_kernel": "fused_solve_early_bf16",
+               "warp_solve_kernel": "fused_solve",
+               "warp_solve_early_kernel": "fused_solve_early",
+               "warp_solve_bf16_kernel": "fused_solve_bf16",
+               "warp_solve_early_bf16_kernel": "fused_solve_early_bf16",
                "admm_chunk_kernel": "admm_chunk",
                "ring_sum_kernel": "ring_sum"}
+# Each kernel's earlier time at the shapes timed here, from PERF.md's kernel
+# table (NVIDIA H100 80GB HBM3, 700.00 W): the one-block-a-lane body at the
+# agent QPs (chip run 3, PR 3) and the cluster ring (chip run 2, PR 4). The
+# shared-memory body's shapes (m > 32 or nv > 32) had no timed row.
+EARLIER_MS = {"warp_solve_kernel": 0.0623, "warp_solve_early_kernel": 0.0656,
+              "warp_solve_bf16_kernel": 0.0705,
+              "warp_solve_early_bf16_kernel": 0.1598,
+              "ring_sum_kernel": 0.0060}
 
 N_AGENTS, N_SCENARIOS, TIMED_STEPS = 8, 256, 10
 # Steps of each chunked-route arm (fixed and adaptive), after a warm-up.
@@ -235,9 +261,24 @@ def zero_launches() -> None:
     from tpu_aerial_transport_torch.ops import admm_kernel
     from tpu_aerial_transport_torch.parallel import ring
 
-    for counts in (admm_kernel.LAUNCHES, ring.LAUNCHES):
+    for counts in (admm_kernel.LAUNCHES, ring.LAUNCHES,
+                   admm_kernel.KERNEL_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def check_body(launches, form, name, what) -> int:
+    """In the run just counted (``launches``, every counter zeroed before
+    it), every launch of whole-solve form ``form`` went to entry point
+    ``name`` and no other whole-solve entry point launched: which body ran,
+    by kernel name. Returns the count."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    by_name = {k: v for k, v in admm_kernel.KERNEL_LAUNCHES.items() if v}
+    if by_name != {name: launches[form]}:
+        fail(f"{what}: {launches[form]} {form} launches ran as {by_name}, "
+             f"expected all {name}")
+    return launches[form]
 
 
 def launch_counts() -> dict:
@@ -262,6 +303,109 @@ def bound(bytes_, flops):
     t_bytes = bytes_ / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per entry function of ``nvcc -Xptxas -v``'s output: registers a
+    thread and spill bytes (stores + loads)."""
+    import re
+
+    funcs, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = {"registers": 0, "spill_bytes": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            funcs[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            funcs[cur]["registers"] = int(m.group(1))
+    return funcs
+
+
+def entry_name(args, kw) -> str:
+    """The whole-solve entry point a call with these captured inputs
+    takes: the body from d, the form and the storage."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    geo = admm_kernel.fused_solve_geometry(kw["nv"], args[8].shape[-1])
+    early = admm_kernel._early(kw.get("check_every", 0), kw.get("tol", 0.0))
+    return admm_kernel.KERNEL_NAMES[geo.body, early,
+                                    kw.get("precision", "f32")]
+
+
+def kernel_timing(what, args, kw, bound_ms, card, reps=100) -> dict:
+    """The whole-solve kernel on one captured case, timed (CUDA graph)
+    beside its bound and its earlier time (EARLIER_MS); at an agent QP in
+    turns with the shared-memory body on the same inputs (warp, shared,
+    shared, warp); and what the build made of it (registers, spill bytes,
+    resident lanes an SM from the occupancy calculator), whose launch
+    shape must be the wrapper's."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    nv, m = kw["nv"], args[8].shape[-1]
+    early = admm_kernel._early(kw.get("check_every", 0), kw.get("tol", 0.0))
+    geo = admm_kernel.fused_solve_geometry(nv, m)
+    info = admm_kernel.fused_solve_info(
+        nv, m, early=early, precision=kw.get("precision", "f32"))
+    if (info["lanes_per_block"], info["threads"],
+            info["smem_bytes"]) != tuple(geo[1:]):
+        fail(f"{what}: the library launches {info}, the wrapper's geometry "
+             f"is {geo}")
+
+    def run(body):
+        return cuda_ms(lambda: admm_kernel.fused_solve_lanes(
+            *args, **kw, body=body), reps)
+
+    turns = {}
+    bodies = (("warp", "shared", "shared", "warp") if geo.body == "warp"
+              else ("shared",))
+    for body in bodies:
+        turns.setdefault(body, []).append(run(body))
+    ms = sum(turns[geo.body]) / len(turns[geo.body])
+    earlier = EARLIER_MS.get(info["name"])
+    other = (f"; in turns with the shared-memory body on the same inputs: "
+             f"warp {turns['warp'][0]:.4f} and {turns['warp'][1]:.4f}, "
+             f"shared {turns['shared'][0]:.4f} and {turns['shared'][1]:.4f}"
+             if geo.body == "warp" else "")
+    print(f"{info['name']} ({what}, B={args[0].shape[0]}, d={nv + m}): "
+          f"{ms:.4f} ms/launch (CUDA graph){other}; bound {bound_ms:.4f} ms "
+          f"({ms / bound_ms:.1f}x); earlier "
+          + (f"{earlier:.4f} ms (PERF.md)" if earlier else "not recorded")
+          + f" | {info['registers']} registers, {info['local_bytes']} B "
+          f"local (spills), {info['lanes_per_sm']} lanes resident an SM "
+          f"({info['lanes_per_block']} a block, {info['smem_bytes']} B "
+          f"shared a block) | {card}", flush=True)
+    return {"ms": ms, "turns_ms": turns, "bound_ms": bound_ms,
+            "earlier_ms": earlier, **info}
+
+
+def solve_row(timing, launches, err, plain_ms, bound_by) -> dict:
+    """A whole-solve entry point's row of the kernels line."""
+    return {
+        "name": timing["name"], "route": "cuda",
+        "source": f"{PKG}/csrc/fused_solve.cu",
+        "replaces": "tpu_aerial_transport/ops/admm_kernel.py:283",
+        "launches": launches, "max_abs_err": err, "ms": timing["ms"],
+        "plain_ms": plain_ms, "bound_ms": timing["bound_ms"],
+        "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def own_in_trace(prof) -> dict:
+    """Launches of each of the port's kernels in a trace, by name."""
+    found = {}
+    for e in prof.key_averages():
+        for name in OWN_KERNELS:
+            if name in e.key:
+                found[name] = found.get(name, 0) + int(e.count)
+    return found
 
 
 def per_launch_us(prof, kernel: str):
@@ -593,6 +737,10 @@ def bf16_phases(card, report, lanes):
         step_b, css0, st0, TIMED_STEPS)
     runs_b = int(iters_b.max(dim=1).values.sum())
     check_launches(launches_b, "fused_solve_bf16", runs_b, "the bf16 headline")
+    if not b_args:
+        fail("no bf16 call captured in the bf16 headline's warm-up step")
+    check_body(launches_b, "fused_solve_bf16", entry_name(*b_args[0]),
+               "the bf16 headline")
     check_states(css_b, st_b, "the bf16 headline")
     # In turns: bf16 (above), f32, bf16, f32.
     *_, secs_f, _, stats_f = timed_steps(step_f, css0, st0, TIMED_STEPS)
@@ -638,6 +786,10 @@ def bf16_phases(card, report, lanes):
         step_d, css0_d, st0_d, TIMED_STEPS)
     runs_d = int(iters_d.max(dim=1).values.sum())
     check_launches(launches_d, "fused_solve_early_bf16", runs_d, "bf16 DD")
+    if not d_args:
+        fail("no bf16 call captured in bf16 DD's warm-up step")
+    check_body(launches_d, "fused_solve_early_bf16", entry_name(*d_args[0]),
+               "bf16 DD")
     check_states(css_d, st_d, "bf16 DD")
     print(f"bf16 DD: {N_SCENARIOS}x{N_AGENTS} forest, effort adaptive, "
           f"{TIMED_STEPS} MPC steps in {secs_d:.4f} s = {rate(secs_d):.2f} "
@@ -679,7 +831,9 @@ def bf16_phases(card, report, lanes):
     b_flops = B * admm_kernel.fused_solve_flops_per_lane(nv, m, k["iters"],
                                                          soc)
     b_bound, b_by = bound(b_bytes, b_flops)
-    b_ms = cuda_ms(lambda: admm_kernel.fused_solve_lanes(*a, **k), 100)
+    b_timing = kernel_timing("the bf16 headline's first consensus iteration",
+                             a, k, b_bound, card)
+    b_ms = b_timing["ms"]
     b_plain = cuda_ms(
         lambda: admm_kernel.fused_solve_lanes_reference(*a, **k), 5)
     f32_args = [t.float() if t is not None and t.dtype == torch.bfloat16
@@ -697,7 +851,9 @@ def bf16_phases(card, report, lanes):
     eff = admm_kernel.fused_solve_lanes(*ea, **ek)[5]
     e_bytes, e_flops = early_exit_bound(ea, ek, eff)
     e_bound, e_by = bound(e_bytes, e_flops)
-    e_ms = cuda_ms(lambda: admm_kernel.fused_solve_lanes(*ea, **ek), 100)
+    e_timing = kernel_timing("bf16 DD's first dual-ascent iteration", ea, ek,
+                             e_bound, card)
+    e_ms = e_timing["ms"]
     ea32 = [t.float() if t is not None and t.dtype == torch.bfloat16
             else t for t in ea]
     ek32 = dict(ek, precision="f32")
@@ -715,33 +871,27 @@ def bf16_phases(card, report, lanes):
     report["fused_solve_bf16"] = {
         "kernel_ms": b_ms, "f32_kernel_ms_same_inputs": f_ms,
         "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
-        "bytes": b_bytes, "flops": b_flops}
+        "bytes": b_bytes, "flops": b_flops, "timing": b_timing}
     report["fused_solve_early_bf16"] = {
         "kernel_ms": e_ms, "f32_kernel_ms_same_inputs": fe_ms,
         "plain_ms": e_plain, "bound_ms": e_bound,
-        "bound_by": e_by, "bytes": e_bytes, "flops": e_flops}
-    source = f"{PKG}/csrc/fused_solve.cu"
-    replaces = "tpu_aerial_transport/ops/admm_kernel.py:283"
-    return [{
-        "name": "fused_solve_bf16_kernel", "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches_b["fused_solve_bf16"],
-        "max_abs_err": err_b, "ms": b_ms, "plain_ms": b_plain,
-        "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
-    }, {
-        "name": "fused_solve_early_bf16_kernel", "route": "cuda",
-        "source": source, "replaces": replaces,
-        "launches": launches_d["fused_solve_early_bf16"],
-        "max_abs_err": err_e, "ms": e_ms, "plain_ms": e_plain,
-        "bound_ms": e_bound, "bound_by": e_by, "library_ms": None,
-    }]
+        "bound_by": e_by, "bytes": e_bytes, "flops": e_flops,
+        "timing": e_timing}
+    return [
+        solve_row(b_timing, launches_b["fused_solve_bf16"], err_b, b_plain,
+                  b_by),
+        solve_row(e_timing, launches_d["fused_solve_early_bf16"], err_e,
+                  e_plain, e_by),
+    ]
 
 
 def centralized_phases(card, report):
-    """Phase 13: the entry step (n = 3) and the centralized rollout (n = 4),
-    each one early-exit launch a step, against the CPU; one entry period
-    profiled; the kernel against its plain version at d = 67 and d = 79
-    (256 lanes each). Returns the entry run's launches and the largest
-    kernel error."""
+    """Phase 13, the shared-memory body: the entry step (n = 3) and the
+    centralized rollout (n = 4), each one early-exit launch a step, against
+    the CPU; one entry period profiled; the kernel against its plain version
+    at d = 67 and d = 79 (256 lanes each) and timed there; then its other
+    three forms on C-ADMM with the full agent QP at n = 8 (d = 72). Returns
+    the four shared-memory entry points' rows of the kernels line."""
     import torch
 
     from tpu_aerial_transport_torch import entry
@@ -750,7 +900,9 @@ def centralized_phases(card, report):
     from torch.profiler import ProfilerActivity, profile
 
     step_e, (cs0, st0, acc) = entry.entry()
-    step_e(cs0, st0, acc)  # warm-up.
+    entry_args = []
+    with capturing(admm_kernel, "fused_solve_lanes", entry_args):
+        step_e(cs0, st0, acc)  # warm-up.
     cs, st = cs0, st0
     zero_launches()
     torch.cuda.synchronize()
@@ -762,6 +914,8 @@ def centralized_phases(card, report):
     launches = launch_counts()
     check_launches(launches, "fused_solve_early", TIMED_STEPS,
                    "the entry step")
+    entry_kernel = entry_name(*entry_args[0])
+    check_body(launches, "fused_solve_early", entry_kernel, "the entry step")
     check_states(cs, st, "the entry step")
     print(f"entry step (n = 3, centralized, d = 67): {TIMED_STEPS} MPC "
           f"periods in {secs:.4f} s = {TIMED_STEPS / secs:.2f} periods/s | "
@@ -779,8 +933,8 @@ def centralized_phases(card, report):
     for name in sorted(ph["host_us"], key=lambda p: -ph["host_us"][p]):
         print(f"  tat.{name}: host {ph['host_us'][name] / 1e3:.3f} ms, "
               f"device {ph['device_us'].get(name, 0.0) / 1e3:.3f} ms")
-    early_us = per_launch_us(prof, "fused_solve_early_kernel")
-    print("  fused_solve_early_kernel in the entry period: "
+    early_us = per_launch_us(prof, entry_kernel)
+    print(f"  {entry_kernel} in the entry period: "
           + ("not found in the trace" if early_us is None
              else f"{early_us / 1e3:.4f} ms/launch"), flush=True)
     step_c, (cs_c, st_c, acc_c) = entry.entry(device="cpu")
@@ -822,6 +976,8 @@ def centralized_phases(card, report):
             step_n, css0, st0_n, CHUNK_STEPS)
         check_launches(launches_n, "fused_solve_early", CHUNK_STEPS,
                        "the centralized rollout")
+        check_body(launches_n, "fused_solve_early", entry_name(*args[0]),
+                   "the centralized rollout")
         check_states(css, st_n, "the centralized rollout")
         ok_frac = float(stats_n.ok_frac.mean())
         print(f"centralized rollout: {N_SCENARIOS} scenarios x n = {n} "
@@ -846,7 +1002,94 @@ def centralized_phases(card, report):
     f_checks, err_f = check_fixed_forms(
         [(c + "_fixed", *fixed_form(a, k)) for c, a, k in cases], card)
     report["centralized_kernel_checks"] = {**e_checks, **f_checks}
-    return launches["fused_solve_early"], max(err_e, err_f)
+    timings = {}
+    for case, a, k in [("the entry's solve", *entry_args[0])] + cases:
+        eff = admm_kernel.fused_solve_lanes(*a, **k)[5]
+        timings[case] = kernel_timing(
+            case, a, k, bound(*early_exit_bound(a, k, eff))[0], card)
+    ea, ek = entry_args[0]
+    e_eff = admm_kernel.fused_solve_lanes(*ea, **ek)[5]
+    e_by = bound(*early_exit_bound(ea, ek, e_eff))[1]
+    e_plain = event_ms(
+        lambda: admm_kernel.fused_solve_lanes_reference(*ea, **ek), 5)
+    report["centralized_timing"] = timings
+    rows = [solve_row(timings["the entry's solve"],
+                      launches["fused_solve_early"], max(err_e, err_f),
+                      e_plain, e_by)]
+    return rows + full_qp_phase(card, report)
+
+
+def full_qp_phase(card, report):
+    """Phase 13, the shared-memory body's other forms on a path: C-ADMM at
+    256 x 8 with the full agent QP (``reduced_qp=False``: nv = 33 padded to
+    40, d = 72 > 64), fixed effort, bf16 fixed and bf16 adaptive: one
+    warm-up and CHUNK_STEPS steps each, one launch a consensus iteration,
+    all of the shared-memory entry point; the kernel against its plain
+    version on the warm-up's inputs (early-exit counts equal in
+    EFF_EQUAL_SHARE of the lanes, as at the centralized solves) and timed.
+    Returns the three entry points' rows of the kernels line."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    rows, report["full_qp_n8"] = [], {}
+    for form, kw in (("fused_solve", dict(effort="fixed")),
+                     ("fused_solve_bf16", dict(effort="fixed",
+                                               socp_precision="bf16")),
+                     ("fused_solve_early_bf16", dict(
+                         effort="adaptive", socp_precision="bf16"))):
+        step, css0, st0 = workload("cadmm", N_AGENTS, N_SCENARIOS,
+                                   reduced_qp=False, pad_operators=True,
+                                   **kw)
+        args = []
+        with capturing(admm_kernel, "fused_solve_lanes", args):
+            step(css0, st0)
+        torch.cuda.synchronize()
+        css, st, iters, _, secs, launches, _ = timed_steps(
+            step, css0, st0, CHUNK_STEPS)
+        runs = int(iters.max(dim=1).values.sum())
+        what = f"full-QP C-ADMM n = 8 ({form})"
+        check_launches(launches, form, runs, what)
+        a, k = args[0]
+        name = entry_name(a, k)
+        if not name.startswith("fused_solve"):
+            fail(f"{what} took {name}, not the shared-memory body")
+        check_body(launches, form, name, what)
+        check_states(css, st, what)
+        print(f"{what}: {N_SCENARIOS}x{N_AGENTS}, d = "
+              f"{k['nv'] + a[8].shape[-1]}, {CHUNK_STEPS} MPC steps in "
+              f"{secs:.4f} s = {N_SCENARIOS * CHUNK_STEPS / secs:.2f} "
+              f"scenario-MPC-steps/s | consensus iters/step mean "
+              f"{float(iters.float().mean()):.3f} max {int(iters.max())} | "
+              f"launches {launches} = consensus iterations run {runs}, all "
+              f"{name} | {card}", flush=True)
+        B = a[0].shape[0]
+        if admm_kernel._early(k.get("check_every", 0), k.get("tol", 0.0)):
+            checks, err = check_early_exit([(form + "_full_qp", a, k)], card,
+                                           chunks_apart=None)
+            eff = admm_kernel.fused_solve_lanes(*a, **k)[5]
+            bytes_, flops = early_exit_bound(a, k, eff)
+            plain = event_ms(
+                lambda: admm_kernel.fused_solve_lanes_reference(*a, **k), 5)
+        else:
+            checks, err = check_fixed_forms([(form + "_full_qp", a, k)],
+                                            card)
+            nv, m = k["nv"], a[8].shape[-1]
+            bytes_ = B * admm_kernel.fused_solve_bytes_per_lane(
+                nv, m, k["n_box"], precision=k.get("precision", "f32"))
+            flops = B * admm_kernel.fused_solve_flops_per_lane(
+                nv, m, k["iters"], tuple(k["soc_dims"]))
+            plain = cuda_ms(
+                lambda: admm_kernel.fused_solve_lanes_reference(*a, **k), 5)
+        b_ms, b_by = bound(bytes_, flops)
+        timing = kernel_timing(f"{what}'s first consensus iteration", a, k,
+                               b_ms, card)
+        rows.append(solve_row(timing, launches[form], err, plain, b_by))
+        report["full_qp_n8"][form] = {
+            "scenario_mpc_steps_per_s": N_SCENARIOS * CHUNK_STEPS / secs,
+            "launches": launches, "iterations_run": runs, "checks": checks,
+            "plain_ms": plain, "timing": timing}
+    return rows
 
 
 def cadmm_option_phases(card, report):
@@ -871,6 +1114,8 @@ def cadmm_option_phases(card, report):
             step, css0, st0, CHUNK_STEPS)
         runs = int(iters.max(dim=1).values.sum())
         check_launches(launches, "fused_solve", runs, f"C-ADMM {name}")
+        check_body(launches, "fused_solve", entry_name(*args[0]),
+                   f"C-ADMM {name}")
         check_states(css, st, f"C-ADMM {name}")
         total += launches["fused_solve"]
         a, k = args[0]
@@ -963,6 +1208,7 @@ def sharded_phases(card, report):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_aerial_transport_torch.ops import admm_kernel
     from tpu_aerial_transport_torch.parallel import ring
 
     ring_inputs, paths, runs_of = {}, {}, {}
@@ -973,7 +1219,9 @@ def sharded_phases(card, report):
         step, css0, st0 = workload(ctrl, n, N_SCENARIOS, shards=SHARDS,
                                    consensus_impl="pallas_ring",
                                    effort="fixed", **kw)
-        with capturing_shapes(ring, "ring_sum_shards", ring_inputs):
+        solve_args = []
+        with capturing_shapes(ring, "ring_sum_shards", ring_inputs), \
+                capturing(admm_kernel, "fused_solve_lanes", solve_args):
             first = step(css0, st0)
         torch.cuda.synchronize()
         runs_of[key] = (step, css0, st0)
@@ -983,6 +1231,7 @@ def sharded_phases(card, report):
         check_launch_counts(launches, {"fused_solve": runs,
                                        "ring_sum": RING_SUMS[ctrl] * runs},
                             key)
+        check_body(launches, "fused_solve", entry_name(*solve_args[0]), key)
         check_states(css, st, key)
         rate = N_SCENARIOS * TIMED_STEPS / secs
         print(f"{key}: {N_SCENARIOS} scenarios x n = {n}, {SHARDS} shards "
@@ -1006,7 +1255,9 @@ def sharded_phases(card, report):
     kw = dict(kw, max_iter=20, effort="adaptive")
     step, css0, st0 = workload(ctrl, n, N_SCENARIOS, shards=SHARDS,
                                consensus_impl="pallas_ring", **kw)
-    first = step(css0, st0)
+    solve_args = []
+    with capturing(admm_kernel, "fused_solve_lanes", solve_args):
+        first = step(css0, st0)
     torch.cuda.synchronize()
     css, st, iters, inner, secs, launches, _ = timed_steps(
         step, css0, st0, CHUNK_STEPS)
@@ -1014,6 +1265,7 @@ def sharded_phases(card, report):
     check_launch_counts(launches, {
         "fused_solve_early": runs,
         "ring_sum": RING_SUMS[ctrl] * runs + CHUNK_STEPS}, key)
+    check_body(launches, "fused_solve_early", entry_name(*solve_args[0]), key)
     check_states(css, st, key)
     if inner is None or not bool((inner > 0).all()):
         fail(f"{key} reported no inner iterations")
@@ -1049,11 +1301,13 @@ def sharded_phases(card, report):
                    "mpc_steps_per_s": impl_turns(key, ctrl, n, 1, kw, card)}
 
     # 18. The kernel against its plain version: the payloads captured from
-    # phases 15-17, d in {2, 3, 4, 8} and ragged payloads.
+    # phases 15-17, d in {2, 3, 4, 8, 16, 32 (the cap)} and ragged payloads.
     gen = torch.Generator().manual_seed(0)
     cases = {f"captured_{d}x{P}": x for (d, P), x in sorted(
         ring_inputs.items())}
-    for d, P in ((2, 1025), (3, 1025), (4, 1025), (8, 1025), (8, 6147)):
+    for d, P in ((2, 1025), (3, 1025), (4, 1025), (8, 1025), (8, 6147),
+                 (16, 1025), (16, 6144), (ring.MAX_SHARDS, 1025),
+                 (ring.MAX_SHARDS, 6147)):
         cases[f"random_{d}x{P}"] = (10.0 * torch.randn(
             d, P, generator=gen)).cuda()
     checks, worst = {}, 0.0
@@ -1086,15 +1340,21 @@ def sharded_phases(card, report):
         k_ms = cuda_ms(lambda: ring.ring_sum_shards(x), 200)
         p_ms = cuda_ms(lambda: ring.ring_sum_shards_reference(x), 50)
         l_ms = cuda_ms(lambda: x.sum(0, keepdim=True).expand_as(x), 200)
+        info = ring.ring_sum_info(d, P)
         print(f"ring_sum timing ({d}, {P}) float32: kernel {k_ms:.4f} "
-              f"ms/launch, plain PyTorch {p_ms:.4f} ms, library call "
-              f"x.sum(0).expand_as(x) {l_ms:.4f} ms (all CUDA graphs), bound "
-              f"{b_ms:.6f} ms by {b_by} ({b_bytes} B, {b_flops} adds) | "
-              f"{card}", flush=True)
+              f"ms/launch (earlier {EARLIER_MS['ring_sum_kernel']:.4f}, "
+              f"PERF.md), plain PyTorch {p_ms:.4f} ms, library call "
+              f"x.sum(0).expand_as(x) {l_ms:.4f} ms (all CUDA graphs; kernel"
+              f" / library {k_ms / l_ms:.2f}), bound {b_ms:.6f} ms by {b_by} "
+              f"({b_bytes} B, {b_flops} adds) | {info['registers']} "
+              f"registers, {info['local_bytes']} B local (spills), 16-byte "
+              f"form {info['vec16']} | {card}", flush=True)
         timing[f"{d}x{P}"] = {"kernel_ms": k_ms, "plain_ms": p_ms,
                               "library_ms": l_ms, "bound_ms": b_ms,
                               "bound_by": b_by, "bytes": b_bytes,
-                              "flops": b_flops}
+                              "flops": b_flops,
+                              "earlier_ms": EARLIER_MS["ring_sum_kernel"],
+                              **info}
     # One sharded C-ADMM step profiled.
     step, css0, st0 = runs_of["cadmm_n8_sharded"]
     with profile(activities=[ProfilerActivity.CPU,
@@ -1175,10 +1435,20 @@ def main() -> int:
     built = _build.build()
     build_s = time.perf_counter() - t0
     print(f"build: {sorted(built)} in {build_s:.2f} s", flush=True)
+    report["ptxas"] = {}
     for name, (_, log) in built.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+        funcs = ptxas_summary(log)
+        report["ptxas"][name] = funcs
+        worst = max(funcs.values(), key=lambda f: f["registers"])
+        spills = {f: v["spill_bytes"] for f, v in funcs.items()
+                  if v["spill_bytes"]}
+        print(f"  ptxas[{name}]: {len(funcs)} entry functions, at most "
+              f"{worst['registers']} registers, spills "
+              f"{spills if spills else 'none'}", flush=True)
+        if name != "ring_sum":
+            for f, v in funcs.items():
+                print(f"    {f}: {v['registers']} registers, "
+                      f"{v['spill_bytes']} B spilled", flush=True)
     report["build_s"] = build_s
 
     # 2. The main path, with the warm-up step's kernel inputs captured.
@@ -1216,6 +1486,10 @@ def main() -> int:
     if launches["fused_solve"] != consensus_iters:
         fail(f"fused_solve launches {launches['fused_solve']} != consensus "
              f"iterations run {consensus_iters}")
+    if not captured:
+        fail("no fused_solve call captured in the warm-up step")
+    main_name = entry_name(*captured[0])
+    check_body(launches, "fused_solve", main_name, "the main path")
     for f in ("R", "w", "xl", "vl", "Rl", "wl"):
         if not bool(torch.isfinite(getattr(states, f)).all()):
             fail(f"non-finite state field {f} after the timed steps")
@@ -1227,8 +1501,8 @@ def main() -> int:
           f"{TIMED_STEPS} MPC steps in {elapsed:.4f} s = {rate:.2f} "
           f"scenario-MPC-steps/s | consensus iters/step mean "
           f"{float(it.mean()):.3f} max {int(iters.max())} | launches "
-          f"{launches} = consensus iterations run {consensus_iters} | {card}",
-          flush=True)
+          f"{launches} = consensus iterations run {consensus_iters}, all "
+          f"{main_name} | {card}", flush=True)
     report["main_path"] = {
         "scenario_mpc_steps_per_s": rate, "seconds": elapsed,
         "timed_steps": TIMED_STEPS, "iters_mean": float(it.mean()),
@@ -1238,8 +1512,6 @@ def main() -> int:
     }
 
     # 3. Kernel against its plain version on the main path's inputs.
-    if not captured:
-        fail("no fused_solve call captured in the warm-up step")
     args, kw = captured[0]
     nv, n_box, soc = kw["nv"], kw["n_box"], tuple(kw["soc_dims"])
     m = args[8].shape[-1]
@@ -1298,7 +1570,29 @@ def main() -> int:
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    kernel_ms = cuda_ms(lambda: launch(*args, **kw), 100)
+    main_timing = kernel_timing("the headline", args, kw, bound_ms, card)
+    kernel_ms = main_timing["ms"]
+    # Where the headline solve's time goes: staging and the exit residuals
+    # (0 iterations) against the iterations, with one lane an SM (a lane's
+    # own latency) and with the whole batch.
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    split = {}
+    for B_s in (n_sm, B):
+        a_s = lanes(args, B_s)
+        for it in (0, iters_k):
+            split[(B_s, it)] = cuda_ms(
+                lambda: launch(*a_s, **dict(kw, iters=it)), 100)
+    per_it = {B_s: (split[B_s, iters_k] - split[B_s, 0]) / iters_k * 1e3
+              for B_s in (n_sm, B)}
+    print(f"{main_name} split (the headline's inputs, CUDA graphs): 0 and "
+          f"{iters_k} iterations at {n_sm} lanes (one an SM) "
+          f"{split[n_sm, 0]:.4f} and {split[n_sm, iters_k]:.4f} ms, at {B} "
+          f"lanes {split[B, 0]:.4f} and {split[B, iters_k]:.4f} ms: staging "
+          f"and exit residuals {split[B, 0]:.4f} ms, {per_it[B]:.3f} us an "
+          f"iteration ({per_it[n_sm]:.3f} us for a lane alone) | {card}",
+          flush=True)
+    main_timing["split_ms"] = {f"B{b}_iters{i}": v
+                               for (b, i), v in split.items()}
     plain_ms = cuda_ms(
         lambda: admm_kernel.fused_solve_lanes_reference(*args, **kw), 5)
     print(f"fused_solve timing (B={B}, d={nv + m}, iters={iters_k}): kernel "
@@ -1311,6 +1605,7 @@ def main() -> int:
     report["fused_solve"] = {
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "bytes": bytes_, "flops": flops,
+        "timing": main_timing,
     }
 
     # 4. Where one MPC step's time goes.
@@ -1323,7 +1618,8 @@ def main() -> int:
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
     phases = phase_breakdown(prof)
-    in_path_us = per_launch_us(prof, "fused_solve_kernel")
+    in_path_us = per_launch_us(prof, main_name)
+    in_trace = own_in_trace(prof)
     dev_total = phases["kernels_us"] or sum(phases["device_us"].values())
     print(f"profile of one MPC step: wall {step_s * 1e3:.2f} ms (profiler "
           f"on), device busy {dev_total / 1e3:.2f} ms = "
@@ -1333,11 +1629,16 @@ def main() -> int:
                      key=lambda p: -phases["device_us"][p]):
         print(f"  tat.{ph}: device {phases['device_us'][ph] / 1e3:.3f} ms, "
               f"host {phases['host_us'].get(ph, 0.0) / 1e3:.3f} ms")
-    print(f"  fused_solve_kernel in the main path: "
+    print(f"  {main_name} in the main path: "
           + ("not found in the trace" if in_path_us is None
-             else f"{in_path_us / 1e3:.4f} ms/launch"), flush=True)
+             else f"{in_path_us / 1e3:.4f} ms/launch")
+          + f"; the port's kernels in the trace by name: {in_trace}",
+          flush=True)
+    if in_trace and set(in_trace) != {main_name}:
+        fail(f"the main path's trace shows {in_trace}, not {main_name} alone")
     report["profile"] = {"wall_ms": step_s * 1e3, "phases": phases,
-                         "fused_solve_kernel_us_per_launch": in_path_us}
+                         "kernel_us_per_launch": in_path_us,
+                         "kernels_in_trace": in_trace}
 
     # 5. The card's first step against the CPU's plain path, 8 scenarios.
     n_cpu = 8
@@ -1401,6 +1702,11 @@ def main() -> int:
     runs_a = int(iters_a.max(dim=1).values.sum())
     check_launches(launches_a, "fused_solve_early", runs_a,
                    "the adaptive headline")
+    if not early_args or not early_args[0][1].get("check_every"):
+        fail("no early-exit call captured in the adaptive warm-up step")
+    early_name = entry_name(*early_args[0])
+    check_body(launches_a, "fused_solve_early", early_name,
+               "the adaptive headline")
     check_states(css_a, states_a, "the adaptive headline")
     if inner_a is None or not bool((inner_a.sum(dim=1) > 0).all()):
         fail("the adaptive headline reported no inner iterations")
@@ -1458,13 +1764,18 @@ def main() -> int:
                      key=lambda p: -phases_a["device_us"][p]):
         print(f"  tat.{ph}: device {phases_a['device_us'][ph] / 1e3:.3f} ms,"
               f" host {phases_a['host_us'].get(ph, 0.0) / 1e3:.3f} ms")
-    early_us = per_launch_us(prof, "fused_solve_early_kernel")
-    print(f"  fused_solve_early_kernel in the adaptive path: "
+    early_us = per_launch_us(prof, early_name)
+    in_trace = own_in_trace(prof)
+    print(f"  {early_name} in the adaptive path: "
           + ("not found in the trace" if early_us is None
-             else f"{early_us / 1e3:.4f} ms/launch"), flush=True)
+             else f"{early_us / 1e3:.4f} ms/launch")
+          + f"; the port's kernels in the trace by name: {in_trace}",
+          flush=True)
+    if in_trace and set(in_trace) != {early_name}:
+        fail(f"the adaptive trace shows {in_trace}, not {early_name} alone")
     report["adaptive_path"]["profile"] = {
         "wall_ms": step_s * 1e3, "phases": phases_a,
-        "fused_solve_early_kernel_us_per_launch": early_us}
+        "kernel_us_per_launch": early_us, "kernels_in_trace": in_trace}
 
     # 7. DD at 256 x 8, adaptive effort (its warm-up step gives phase 8
     # DD's d = 56 inputs).
@@ -1480,6 +1791,9 @@ def main() -> int:
         step_dd, css0_dd, states0, TIMED_STEPS)
     runs_d = int(iters_d.max(dim=1).values.sum())
     check_launches(launches_d, "fused_solve_early", runs_d, "DD")
+    if not dd_args:
+        fail("no early-exit call captured in DD's warm-up step")
+    check_body(launches_d, "fused_solve_early", entry_name(*dd_args[0]), "DD")
     check_states(css_d, states_d, "DD")
     rate_d = N_SCENARIOS * TIMED_STEPS / secs_d
     it_d = iters_d.to(torch.float32)
@@ -1539,8 +1853,14 @@ def main() -> int:
     got = admm_kernel.fused_solve_lanes(*e_args, **e_kw)
     e_bytes, e_flops = early_exit_bound(e_args, e_kw, got[5])
     e_bound, e_by = bound(e_bytes, e_flops)
-    e_ms = cuda_ms(lambda: admm_kernel.fused_solve_lanes(*e_args, **e_kw),
-                   100)
+    e_timing = kernel_timing("the adaptive headline's first consensus "
+                             "iteration", e_args, e_kw, e_bound, card)
+    e_ms = e_timing["ms"]
+    d_args, d_kw = dd_args[0]
+    d_eff = admm_kernel.fused_solve_lanes(*d_args, **d_kw)[5]
+    dd_timing = kernel_timing(
+        "DD's first dual-ascent iteration", d_args, d_kw,
+        bound(*early_exit_bound(d_args, d_kw, d_eff))[0], card)
     e_plain = event_ms(
         lambda: admm_kernel.fused_solve_lanes_reference(*e_args, **e_kw), 5)
     print(f"fused_solve early-exit timing (the adaptive headline's first "
@@ -1554,6 +1874,7 @@ def main() -> int:
     report["fused_solve_early"] = {
         "kernel_ms": e_ms, "plain_ms": e_plain, "bound_ms": e_bound,
         "bound_by": e_by, "bytes": e_bytes, "flops": e_flops,
+        "timing": e_timing, "dd_timing": dd_timing,
     }
 
     # 9. The chunked route, fixed and adaptive.
@@ -1656,40 +1977,28 @@ def main() -> int:
     # 10-12. bf16 storage; 13. the entry step and the centralized
     # controller; 14. C-ADMM's full QP, rho schedule and two-phase budget.
     bf16_rows = bf16_phases(card, report, lanes)
-    central_launches, central_err = centralized_phases(card, report)
+    central_rows = centralized_phases(card, report)
     option_launches = cadmm_option_phases(card, report)
     # 15-19. The agent-sharded paths and the ring-sum kernel.
     ring_row = sharded_phases(card, report)
 
-    kernels = [{
-        "name": "fused_solve_kernel", "route": "cuda",
-        "source": f"{PKG}/csrc/fused_solve.cu",
-        "replaces": "tpu_aerial_transport/ops/admm_kernel.py:283",
-        "launches": launches["fused_solve"],
-        "max_abs_err": max(max(c["max_abs_err"].values())
-                           for c in checks.values()),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-    }, {
-        "name": "fused_solve_early_kernel", "route": "cuda",
-        "source": f"{PKG}/csrc/fused_solve.cu",
-        "replaces": "tpu_aerial_transport/ops/admm_kernel.py:283",
-        "launches": launches_a["fused_solve_early"],
-        "max_abs_err": e_err, "ms": e_ms, "plain_ms": e_plain,
-        "bound_ms": e_bound, "bound_by": e_by, "library_ms": None,
-    }, {
+    kernels = [
+        solve_row(main_timing, launches["fused_solve"],
+                  max(max(c["max_abs_err"].values())
+                      for c in checks.values()), plain_ms, bound_by),
+        solve_row(e_timing, launches_a["fused_solve_early"], e_err, e_plain,
+                  e_by),
+    ] + bf16_rows + central_rows + [{
         "name": "admm_chunk_kernel", "route": "cuda",
         "source": f"{PKG}/csrc/admm_chunk.cu",
         "replaces": "tpu_aerial_transport/ops/admm_kernel.py:128",
         "launches": chunk_launches, "max_abs_err": c_err, "ms": c_ms,
         "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
         "library_ms": None,
-    }] + bf16_rows + [ring_row]
+    }, ring_row]
     report["kernels"] = kernels
     report["launches_elsewhere"] = {
-        "fused_solve_early_centralized": central_launches,
         "fused_solve_cadmm_options": option_launches,
-        "centralized_max_abs_err": central_err,
     }
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(
         HERE, "build", "chip_smoke.json")

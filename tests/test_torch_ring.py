@@ -226,11 +226,12 @@ def _numpy_ring_order(x):
     return out
 
 
-@pytest.mark.parametrize("d", [2, 3, 4, 8])
+@pytest.mark.parametrize("d", [2, 3, 4, 8, 16, 32])
 @pytest.mark.parametrize("P", [1, 18, 1025, 6147])
 def test_ring_sum_reference_order(d, P):
     """Bitwise equal to the TPU kernel's order in numpy float32, and within
-    float32 rounding of the float64 sum."""
+    float32 rounding of the float64 sum; d = 16 and the kernel's cap of 32
+    included."""
     x = 10.0 * _payload((P,), seed=d * 7919 + P, d=d)
     out = ring.ring_sum_shards_reference(torch.as_tensor(x)).numpy()
     np.testing.assert_array_equal(out, _numpy_ring_order(x))

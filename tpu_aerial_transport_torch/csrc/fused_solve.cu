@@ -6,28 +6,26 @@
 // storage types (float32, or bfloat16 for K2, Minv, A and P: the JAX
 // package's precision="bf16", ops/admm_kernel.py:541-546 and :574-579):
 //
-// - fixed-iteration (fused_solve_kernel): per lane
+// - fixed-iteration: per lane
 //     wq = Minv q,  w2 = [wq; A wq]
 //     repeat iters:  v = K2 [x; rho z - y] - w2;  x = v[:nv]
 //                    Ax_rel = alpha v[nv:] + (1 - alpha) z
 //                    z = Pi(Ax_rel + y / rho)      (translated box x SOC)
 //                    y = y + rho (Ax_rel - z)
 //     prim = max|A x - z|,  dual = max|P x + q + A^T y|
-// - early exit (fused_solve_early_kernel, check_every > 0 and tol > 0): the
-//   iterations run in chunks of check_every. The lane stops as soon as
-//   (prim > tol) | (dual > tol) is false at a chunk boundary -- the first
-//   test comes before any iteration, and a NaN residual compares false, so
-//   a non-finite lane stops too -- or after iters // check_every chunks,
-//   followed by one remainder chunk of iters % check_every if the lane is
-//   still above tol. An optional gate (active[lane] > 0) switches a lane
-//   off from the start: it runs 0 iterations and passes its warm start
-//   through. eff[lane] = chunks run x check_every (+ the remainder if it
-//   ran). Exit residuals are written for every lane, gated-off ones
-//   included.
+// - early exit (check_every > 0 and tol > 0): the iterations run in chunks
+//   of check_every. The lane stops as soon as (prim > tol) | (dual > tol)
+//   is false at a chunk boundary -- the first test comes before any
+//   iteration, and a NaN residual compares false, so a non-finite lane
+//   stops too -- or after iters // check_every chunks, followed by one
+//   remainder chunk of iters % check_every if the lane is still above tol.
+//   An optional gate (active[lane] > 0) switches a lane off from the start:
+//   it runs 0 iterations and passes its warm start through. eff[lane] =
+//   chunks run x check_every (+ the remainder if it ran). Exit residuals
+//   are written for every lane, gated-off ones included.
 //
-// bf16 storage (fused_solve_bf16_kernel, fused_solve_early_bf16_kernel): the
-// four operators arrive rounded to bfloat16 and are converted to float32
-// exactly (__bfloat162float) while they are staged into shared memory, so
+// bf16 storage: the four operators arrive rounded to bfloat16 and are
+// converted to float32 exactly (__bfloat162float) as they are staged, so
 // every use -- the w2 build (Minv, A), the iterations (K2) and the residuals
 // (A, P) -- reads the rounded operators in float32, as the JAX kernel
 // upcasts before every contraction (ops/admm_kernel.py:361-364). Vectors,
@@ -37,7 +35,8 @@
 // and applies the closed-form SOC projection (keep inside, zero in the polar
 // cone, radial shrink otherwise, with the nrm > 0 guard) to each block, all
 // after adding `shift` and before subtracting it again (has_shift = 0 adds
-// nothing).
+// nothing). Every row's K2 sum runs j = 0..d-1, one FMA a term, in both
+// bodies, so they do the same arithmetic.
 //
 // What bounds it: at the C-ADMM headline (2048 lanes, nv = 16, m = 32,
 // n_box = 24, d = 48, 20 iterations) one launch must read 14,472 B a lane,
@@ -45,26 +44,52 @@
 // operations a byte, far below the H100's float32 balance point (67 TFLOP/s
 // over 3.35 TB/s, 20 operations a byte), so it is bound by memory bandwidth
 // and by latency. The early-exit form does less work on the same bytes (a
-// converged lane stops), and a gated-off lane needs neither K2 nor Minv, so
-// its bound is lower still and still set by bytes. bf16 storage halves the
-// operator bytes (7,816 B a lane at the headline instead of 14,472 B). What
-// the design does
-// about that: each lane's operators (K2, Minv, A, P) are read from device
-// memory once per solve into shared memory and stay there across all
-// iterations, instead of once per iteration; a gated-off lane skips K2 and
-// Minv; the per-lane vectors live in registers.
+// converged lane stops), and a gated-off lane needs neither K2 nor Minv.
+// bf16 storage halves the operator bytes (7,816 B a lane at the headline).
 //
-// Design (simple and right first): one block per lane, one thread per row of
-// K2 (d rows, block rounded up to whole warps), so a lane that converges
-// simply stops iterating: the stop decision is reduced over the block and
-// read back from shared memory behind a barrier, so every thread of the
-// block takes it together and none leaves the barriers of an iteration.
-// SOC norms are summed by each row of the block in order; residuals are
-// reduced with warp shuffles and one pass over the warps.
+// Two bodies, chosen by the wrapper from the shape (nv, m) alone:
+//
+// - nv <= 32 and m <= 32 (every agent QP: C-ADMM d = 48, DD and the n = 3
+//   full QP d = 56): one warp per lane, WS_LANES lanes a block, no
+//   block-wide barrier. Lane thread t owns constraint row t and x row t.
+//   Constraint row t of K2 lives in the thread's registers (float32,
+//   loaded once with 16-byte loads, 8 values a load in bf16); the x rows
+//   live in the warp's shared memory with a row stride of an odd number of
+//   16-byte words, so the threads' 16-byte row reads hit distinct banks.
+//   Both rows run j = 0..d-1 (then 0 x 0 up to a whole 8-entry word). The
+//   iterate u = [x; rho z - y] goes through a per-warp buffer behind
+//   __syncwarp and is read as 16-byte broadcasts, one load serving both
+//   rows' FMAs; the SOC norms gather their block's values by warp
+//   shuffles, and every constraint row projects once, in one branch-free
+//   pass of the warp. Residuals and the early-exit decision are warp
+//   shuffles, so a converged lane's warp simply stops. A, P and K2's x rows are staged
+//   with no per-element division: float32 by asynchronous 16-byte copies
+//   (cp.async), all in flight at once; bfloat16 by 16-byte loads, four a
+//   thread in flight, converted on the way. Minv is read from device
+//   memory once, for the w2 build. Registers are capped at 128 a thread
+//   (__launch_bounds__) and a lane takes 7.3 KB of shared memory at d = 48
+//   and 12.1 KB at d = 56, so 16 lanes fit an SM and the headline's 2048
+//   lanes are resident at once. What is left (measured on an H100): the
+//   staging runs near the byte bound, and each iteration costs its serial
+//   chain (d dependent FMAs, the division by rho, the projection) and the
+//   shared-memory reads of the x rows and of u, 16 lanes an SM sharing one
+//   shared-memory pipe; holding the x rows in registers as well would
+//   need more than the 128 registers that keep 16 lanes an SM.
+// - otherwise (the centralized QPs: d = 67 at the entry, 79 at n = 4, up
+//   to 127; C-ADMM's full QP from n = 8): one block per lane, one thread
+//   per row of K2 (d rows, rounded up to whole warps), every operator
+//   staged once into shared memory with odd row strides; the stop decision
+//   is reduced over the block and read back behind a barrier, so every
+//   thread takes it together.
 
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 #include "admm_common.cuh"
+
+// ---------------------------------------------------------------------------
+// The shared-memory body: one block per lane (every other shape).
+// ---------------------------------------------------------------------------
 
 static __host__ __device__ size_t fs_smem_floats(int nv, int m) {
   const int d = nv + m;
@@ -221,6 +246,465 @@ __device__ __forceinline__ void fused_solve_lane(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The warp body: one warp per lane (nv <= 32 and m <= 32).
+// ---------------------------------------------------------------------------
+
+#define WS_LANES 4
+#define WS_THREADS (32 * WS_LANES)
+// The most x rows and the most constraint rows the warp body takes: one of
+// each a thread.
+#define WS_MAX_ROWS 32
+// Blocks an SM must be able to hold: caps registers at 65536 / (16 x 32) =
+// 128 a thread, so 16 lanes fit an SM.
+#define WS_MIN_BLOCKS (16 / WS_LANES)
+
+static __host__ __device__ __forceinline__ int ws_round4(int k) {
+  return (k + 3) & ~3;
+}
+
+// d rounded up to whole 8-entry words: the length of K2's rows in the
+// warp body (registers and shared memory), zero past d.
+static __host__ __device__ __forceinline__ int ws_round8(int k) {
+  return (k + 7) & ~7;
+}
+
+// A shared-memory row stride for k floats: whole 16-byte words, an odd
+// number of them.
+static __host__ __device__ __forceinline__ int ws_ld(int k) {
+  const int r = ws_round4(k);
+  return ((r >> 2) & 1) ? r : r + 4;
+}
+
+// One warp's shared memory, in floats: A (m x ldv), P (nv x ldv), K2's x
+// rows (nv x ld of round8(d)), u (round8(d)), y for the residuals (m).
+static __host__ __device__ size_t ws_smem_floats(int nv, int m) {
+  const int dr = ws_round8(nv + m);
+  return (size_t)(m + nv) * ws_ld(nv) + (size_t)nv * ws_ld(dr) + dr +
+         ws_round4(m);
+}
+
+// 16 bytes of operator entries from device memory as float32.
+__device__ __forceinline__ void ws_load16(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void ws_load16(const __nv_bfloat16* p, float* v) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // low half first: little-endian pairs.
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+template <typename OP>
+__device__ __forceinline__ bool ws_aligned(const OP* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 16 bytes from device memory into shared memory without passing through
+// registers; complete after cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copy a rows x cols row-major operator block into shared memory (float32,
+// row stride ld), by the warp's 32 threads, 16 bytes a copy where the rows
+// are whole 16-byte words (one entry a copy otherwise). float32 goes
+// asynchronously (cp.async), bfloat16 through registers, four copies a
+// thread in flight. Each thread steps its (row, column) by the warp's
+// stride instead of dividing per element.
+template <typename OP>
+__device__ __forceinline__ void ws_stage(float* __restrict__ dst, int ld,
+                                         const OP* __restrict__ src,
+                                         int rows, int cols, int t) {
+  constexpr int VW = 16 / sizeof(OP);
+  constexpr int U = 4;
+  if (rows <= 0) return;
+  const bool vec = cols % VW == 0 && ws_aligned(src);
+  const int step = vec ? VW : 1;
+  const int per_row = cols / step;
+  const int n = rows * per_row;
+  const int dr = 32 / per_row, dc = 32 - dr * per_row;
+  int row = t / per_row, col = t - row * per_row;
+  if constexpr (sizeof(OP) == 4) {
+    if (vec) {
+      for (int i = t; i < n; i += 32) {
+        cp_async16(dst + row * ld + col * VW, src + (size_t)i * VW);
+        row += dr;
+        col += dc;
+        if (col >= per_row) {
+          col -= per_row;
+          ++row;
+        }
+      }
+      return;
+    }
+  }
+  for (int i0 = t; i0 < n; i0 += 32 * U) {
+    float v[U][VW];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + 32 * u;
+      if (i < n) {
+        if (vec) ws_load16(src + (size_t)i * VW, v[u]);
+        else v[u][0] = fs_load(src + i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (i0 + 32 * u >= n) break;
+      float* o = dst + row * ld + col * step;
+      if (vec) {
+#pragma unroll
+        for (int e = 0; e < VW; e += 4)
+          *reinterpret_cast<float4*>(o + e) =
+              make_float4(v[u][e], v[u][e + 1], v[u][e + 2], v[u][e + 3]);
+      } else {
+        *o = v[u][0];
+      }
+      row += dr;
+      col += dc;
+      if (col >= per_row) {
+        col -= per_row;
+        ++row;
+      }
+    }
+  }
+}
+
+// One K2 row (d entries) into registers, zero past d.
+template <int DR, typename OP>
+__device__ __forceinline__ void ws_load_row(float (&k)[DR],
+                                            const OP* __restrict__ row,
+                                            int d, bool vec) {
+  constexpr int VW = 16 / sizeof(OP);
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < DR / VW; ++q) {
+      float v[VW];
+      if (q * VW < d) {
+        ws_load16(row + q * VW, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VW; ++e) v[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < VW; ++e) k[q * VW + e] = v[e];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < DR; ++j) k[j] = j < d ? fs_load(row + j) : 0.f;
+  }
+}
+
+// a / b rounded as `/` rounds, for b nonzero and not NaN. A zero
+// dividend takes its exact quotient (a zero with the sign of a x b)
+// instead of the division's slow path, which zeros are sent down: y = 0
+// on every inactive row.
+__device__ __forceinline__ float ws_div(float a, float b) {
+  const float q = (a == 0.f ? 1.f : a) / b;
+  return a == 0.f ? __int_as_float((__float_as_int(a) ^ __float_as_int(b)) &
+                                   0x80000000)
+                  : q;
+}
+
+// sqrtf(x) for x >= 0 or NaN; zero takes its exact root (itself) instead of
+// the square root's slow path. The branch-free projection takes a root on
+// every row, and a box row's sum of squares is 0.
+__device__ __forceinline__ float ws_sqrt(float x) {
+  const float r = sqrtf(x == 0.f ? 1.f : x);
+  return x == 0.f ? x : r;
+}
+
+// What lane thread t holds: x row t (when t < nv) and constraint row t
+// (when t < m), with the constraint row's constants.
+struct WsRows {
+  bool has_x, has_c;
+  float x, wx;             // x row.
+  float y, z, wc, ax_rel;  // constraint row (ax_rel within an iteration).
+  RowConst rc;
+};
+
+// acc = sum_{c < n} row[c] v[c], c ascending, one FMA a term; 16-byte
+// shared reads (both arrays hold whole 16-byte words past n).
+__device__ __forceinline__ float ws_dot(const float* row, const float* v,
+                                        int n) {
+  float acc = 0.f;
+  for (int c0 = 0; c0 < n; c0 += 4) {
+    const float4 a4 = *reinterpret_cast<const float4*>(row + c0);
+    const float4 v4 = *reinterpret_cast<const float4*>(v + c0);
+    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c0 + e < n) acc = fmaf(av[e], vv[e], acc);
+  }
+  return acc;
+}
+
+// One ADMM iteration of the lane (admm_iteration's order of operations):
+// one __syncwarp and the SOC shuffles, no block barrier. kc is constraint
+// row t of K2 (registers), kx x row t (shared memory; u itself for a
+// thread without an x row, whose sum is then unused). Both run
+// j = 0..DR-1, one FMA a term; the entries past d are 0 x 0, which adds
+// exactly nothing to a sum that starts at +0. The projection is computed
+// without a branch (both kinds, then a select), and a zero dividend or
+// radicand skips the division's and the square root's slow paths.
+template <int DR>
+__device__ __forceinline__ void ws_iteration(
+    const float (&kc)[DR], const float* kx, float* su, int t, int nv,
+    int n_box, int soc_max, int has_shift, float alpha,
+    float one_minus_alpha, WsRows& s) {
+  if (s.has_x) su[t] = s.x;
+  if (s.has_c) su[nv + t] = s.rc.rho * s.z - s.y;
+  __syncwarp();
+  float acc_c = 0.f, acc_x = 0.f;
+#pragma unroll
+  for (int q = 0; q < DR / 4; ++q) {
+    const float4 u4 = reinterpret_cast<const float4*>(su)[q];
+    const float4 x4 = reinterpret_cast<const float4*>(kx)[q];
+    const float uu[4] = {u4.x, u4.y, u4.z, u4.w};
+    const float xx[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_c = fmaf(kc[4 * q + e], uu[e], acc_c);
+      acc_x = fmaf(xx[e], uu[e], acc_x);
+    }
+  }
+  if (s.has_x) s.x = acc_x - s.wx;
+  float zs = 0.f;
+  if (s.has_c) {
+    const float v = acc_c - s.wc;
+    s.ax_rel = alpha * v + one_minus_alpha * s.z;
+    zs = s.ax_rel + ws_div(s.y, s.rc.rho);
+    if (has_shift) zs = zs + s.rc.sh;
+  }
+  // Each SOC row reads its block's head and the block's other rows by warp
+  // shuffles (constraint row r lives in thread r), in the order k = 1.. of
+  // the sum; every thread takes part in every shuffle. The shuffles also
+  // order this iteration's reads of u before the next iteration's writes:
+  // every thread's K2 sums are done before any thread passes them.
+  const RowConst& rc = s.rc;
+  const float tt = __shfl_sync(0xffffffffu, zs, rc.blk_off);
+  float ss = 0.f;
+  for (int k = 1; k < soc_max; ++k) {
+    const float vk = __shfl_sync(0xffffffffu, zs, (rc.blk_off + k) & 31);
+    if (k < rc.blk_d) ss += vk * vk;
+  }
+  if (!s.has_c) return;
+  // Both projections, without a branch: the box clip (max then min,
+  // NaN-propagating) and the closed-form SOC projection; the row's kind
+  // selects.
+  float zb = zs < rc.lb ? rc.lb : zs;
+  zb = zb > rc.ub ? rc.ub : zb;
+  const float nrm = ws_sqrt(ss);
+  const bool inside = nrm <= tt;
+  const bool polar = nrm <= -tt;
+  const float sv = 0.5f * (tt + nrm);
+  const bool pos = nrm > 0.f;
+  const float scale = pos ? ws_div(sv, pos ? nrm : 1.f) : 0.f;
+  const float zc = t == rc.blk_off ? (inside ? tt : (polar ? 0.f : sv))
+                                   : (inside ? zs
+                                             : (polar ? 0.f : scale * zs));
+  const float zp = t < n_box ? zb : zc;
+  const float z_new = has_shift ? zp - rc.sh : zp;
+  s.y = s.y + rc.rho * (s.ax_rel - z_new);
+  s.z = z_new;
+}
+
+// The lane's residuals, prim = max_r |A x - z|_r and dual = max_c |P x + q
+// + A^T y|_c, in block_residuals' order, reduced over the warp
+// (NaN-propagating); every thread gets both.
+__device__ __forceinline__ void ws_residuals(const float* sA,
+                                             const float* sP, int ldv,
+                                             float* su, float* sy, int t,
+                                             int nv, int m, const WsRows& s,
+                                             const float* __restrict__ ql,
+                                             float* prim, float* dual) {
+  __syncwarp();
+  if (s.has_x) su[t] = s.x;
+  if (s.has_c) sy[t] = s.y;
+  __syncwarp();
+  float pv = 0.f, dv = 0.f;
+  if (s.has_c) pv = fabsf(ws_dot(sA + t * ldv, su, nv) - s.z);
+  if (s.has_x) {
+    const float px = ws_dot(sP + t * ldv, su, nv);
+    float aty = 0.f;
+    for (int rr = 0; rr < m; ++rr) aty += sA[rr * ldv + t] * sy[rr];
+    dv = fabsf(px + ql[t] + aty);
+  }
+  *prim = warp_nan_max(pv);
+  *dual = warp_nan_max(dv);
+}
+
+// wq = Minv q for x row t, from device memory (row t of the lane's Minv,
+// j ascending); q is in su.
+template <typename OP>
+__device__ __forceinline__ float ws_minv_q(const OP* __restrict__ Minvl,
+                                           const float* su, int nv, int t,
+                                           bool vec) {
+  constexpr int VW = 16 / sizeof(OP);
+  const OP* row = Minvl + (size_t)t * nv;
+  float acc = 0.f;
+  if (vec) {
+    for (int j0 = 0; j0 < nv; j0 += VW) {
+      float v[VW];
+      ws_load16(row + j0, v);
+#pragma unroll
+      for (int e = 0; e < VW; ++e) acc += v[e] * su[j0 + e];
+    }
+  } else {
+    for (int j = 0; j < nv; ++j) acc += fs_load(row + j) * su[j];
+  }
+  return acc;
+}
+
+template <bool EARLY, typename OP, int DR>
+__device__ __forceinline__ void warp_solve_lane(
+    const OP* __restrict__ K2g, const OP* __restrict__ Minvg,
+    const OP* __restrict__ Ag, const OP* __restrict__ Pg,
+    const float* __restrict__ qg, const float* __restrict__ rhog,
+    const float* __restrict__ lbg, const float* __restrict__ ubg,
+    const float* __restrict__ shiftg, const float* __restrict__ x0g,
+    const float* __restrict__ y0g, const float* __restrict__ z0g,
+    const float* __restrict__ activeg, float* __restrict__ xo,
+    float* __restrict__ yo, float* __restrict__ zo, float* __restrict__ res,
+    int* __restrict__ effo, int nv, int m, int n_box, int iters,
+    int check_every, float tol, int has_shift, float alpha,
+    float one_minus_alpha, const SocDims& soc, int B) {
+  extern __shared__ float4 ws_smem4[];
+  const int t = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long lane = (long long)blockIdx.x * WS_LANES + warp;
+  if (lane >= B) return;  // the whole warp: no barrier is left waiting.
+  const int d = nv + m;
+  const int ldv = ws_ld(nv), ldx = ws_ld(DR);
+  float* sA = reinterpret_cast<float*>(ws_smem4) +
+              (size_t)warp * ws_smem_floats(nv, m);
+  float* sP = sA + m * ldv;
+  float* sKx = sP + nv * ldv;  // K2's x rows, zero past d.
+  float* su = sKx + nv * ldx;  // DR entries, zero past d.
+  float* sy = su + DR;
+
+  // A gated-off lane iterates 0 times: it needs neither K2 nor Minv.
+  const bool gate = !EARLY || activeg == nullptr || activeg[lane] > 0.f;
+  constexpr int VW = 16 / sizeof(OP);
+
+  WsRows s;
+  s.has_x = t < nv;
+  s.has_c = t < m;
+  s.x = s.wx = s.y = s.z = s.wc = s.ax_rel = 0.f;
+  s.rc = {1.f, 0.f, 0.f, 0.f, 0, 0};
+  const float* ql = qg + lane * nv;  // read where used: q is not carried.
+  if (s.has_x) s.x = x0g[lane * nv + t];
+  if (s.has_c) {
+    s.y = y0g[lane * m + t];
+    s.z = z0g[lane * m + t];
+    s.rc.rho = rhog[lane * m + t];
+    if (has_shift) s.rc.sh = shiftg[lane * m + t];
+    if (t < n_box) {
+      s.rc.lb = lbg[lane * n_box + t];
+      s.rc.ub = ubg[lane * n_box + t];
+    } else {
+      soc_block_of(t, n_box, soc, &s.rc.blk_off, &s.rc.blk_d);
+    }
+  }
+
+  int soc_max = 0;  // the largest SOC block: the shuffles a norm takes.
+  for (int b = 0; b < soc.n; ++b) soc_max = max(soc_max, soc.d[b]);
+
+  float kc[DR];
+  const OP* K2l = K2g + lane * d * d;
+  if (gate) {
+    const bool vec = d % VW == 0 && ws_aligned(K2g);
+    ws_load_row<DR>(kc, K2l + (size_t)(nv + t) * d, s.has_c ? d : 0, vec);
+    ws_stage(sKx, ldx, K2l, nv, d, t);
+    if (s.has_x)
+      for (int c = d; c < DR; ++c) sKx[t * ldx + c] = 0.f;
+  }
+  ws_stage(sA, ldv, Ag + lane * m * nv, m, nv, t);
+  ws_stage(sP, ldv, Pg + lane * nv * nv, nv, nv, t);
+  for (int i = d + t; i < DR; i += 32) su[i] = 0.f;
+  const float* kx = s.has_x ? sKx + t * ldx : su;
+  cp_async_wait_all();
+  __syncwarp();
+
+  int eff = 0;
+  if (gate) {
+    // qp-build tail: w2 = [Minv q; A (Minv q)].
+    if (s.has_x) su[t] = ql[t];
+    __syncwarp();
+    const bool mvec = nv % VW == 0 && ws_aligned(Minvg);
+    if (s.has_x) s.wx = ws_minv_q(Minvg + lane * nv * nv, su, nv, t, mvec);
+    __syncwarp();
+    if (s.has_x) su[t] = s.wx;
+    __syncwarp();
+    if (s.has_c) s.wc = ws_dot(sA + t * ldv, su, nv);
+    __syncwarp();
+
+    if (!EARLY) {
+      for (int it = 0; it < iters; ++it)
+        ws_iteration<DR>(kc, kx, su, t, nv, n_box, soc_max, has_shift,
+                         alpha, one_minus_alpha, s);
+    } else {
+      // Tolerance-chunked with the lane's own freeze: the masked loop of
+      // the reference (ops/admm_kernel.py:442-491) for one lane.
+      const int n_full = iters / check_every;
+      const int rem = iters % check_every;
+      float p, du;
+      ws_residuals(sA, sP, ldv, su, sy, t, nv, m, s, ql, &p, &du);
+      bool above = p > tol || du > tol;
+      int chunks = 0;
+      while (above && chunks < n_full) {
+        for (int it = 0; it < check_every; ++it)
+          ws_iteration<DR>(kc, kx, su, t, nv, n_box, soc_max, has_shift,
+                           alpha, one_minus_alpha, s);
+        ++chunks;
+        ws_residuals(sA, sP, ldv, su, sy, t, nv, m, s, ql, &p, &du);
+        above = p > tol || du > tol;
+      }
+      eff = chunks * check_every;
+      if (rem > 0 && above) {
+        for (int it = 0; it < rem; ++it)
+          ws_iteration<DR>(kc, kx, su, t, nv, n_box, soc_max, has_shift,
+                           alpha, one_minus_alpha, s);
+        eff += rem;
+      }
+    }
+  }
+
+  // Exit residuals: prim over the m rows, dual over the nv columns.
+  float p, du;
+  ws_residuals(sA, sP, ldv, su, sy, t, nv, m, s, ql, &p, &du);
+  if (t == 0) {
+    res[lane * 2] = p;
+    res[lane * 2 + 1] = du;
+    if (EARLY) effo[lane] = eff;
+  }
+  if (s.has_x) xo[lane * nv + t] = s.x;
+  if (s.has_c) {
+    yo[lane * m + t] = s.y;
+    zo[lane * m + t] = s.z;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Entry points and the launcher.
+// ---------------------------------------------------------------------------
+
 #define FS_PARAMS(OP)                                                         \
   const OP *__restrict__ K2g, const OP *__restrict__ Minvg,                   \
       const OP *__restrict__ Ag, const OP *__restrict__ Pg,                   \
@@ -233,14 +717,15 @@ __device__ __forceinline__ void fused_solve_lane(
       float *__restrict__ res,                                                \
       int *__restrict__ effo, int nv, int m, int n_box, int iters,            \
       int check_every, float tol, int has_shift, float alpha,                 \
-      float one_minus_alpha, SocDims soc
+      float one_minus_alpha, SocDims soc, int B
 #define FS_ARGS                                                             \
   K2g, Minvg, Ag, Pg, qg, rhog, lbg, ubg, shiftg, x0g, y0g, z0g, activeg, xo, \
       yo, zo, res, effo, nv, m, n_box, iters, check_every, tol, has_shift,   \
       alpha, one_minus_alpha, soc
 
-// Four kernels with distinct names (none a substring of another), so a
-// trace tells the forms and storage types apart.
+// Eight kernels with distinct names (none a substring of another), so a
+// trace tells the bodies, forms and storage types apart. The shared-memory
+// body's grid is one block a lane (B unused).
 __global__ void fused_solve_kernel(FS_PARAMS(float)) {
   fused_solve_lane<false, float>(FS_ARGS);
 }
@@ -257,70 +742,149 @@ __global__ void fused_solve_early_bf16_kernel(FS_PARAMS(__nv_bfloat16)) {
   fused_solve_lane<true, __nv_bfloat16>(FS_ARGS);
 }
 
-// check_every > 0 selects the early-exit kernel (then tol > 0 and eff must
+// The warp body, with K2's rows DR = d rounded up to 8 entries long.
+template <int DR>
+__global__ void __launch_bounds__(WS_THREADS, WS_MIN_BLOCKS)
+    warp_solve_kernel(FS_PARAMS(float)) {
+  warp_solve_lane<false, float, DR>(FS_ARGS, B);
+}
+
+template <int DR>
+__global__ void __launch_bounds__(WS_THREADS, WS_MIN_BLOCKS)
+    warp_solve_early_kernel(FS_PARAMS(float)) {
+  warp_solve_lane<true, float, DR>(FS_ARGS, B);
+}
+
+template <int DR>
+__global__ void __launch_bounds__(WS_THREADS, WS_MIN_BLOCKS)
+    warp_solve_bf16_kernel(FS_PARAMS(__nv_bfloat16)) {
+  warp_solve_lane<false, __nv_bfloat16, DR>(FS_ARGS, B);
+}
+
+template <int DR>
+__global__ void __launch_bounds__(WS_THREADS, WS_MIN_BLOCKS)
+    warp_solve_early_bf16_kernel(FS_PARAMS(__nv_bfloat16)) {
+  warp_solve_lane<true, __nv_bfloat16, DR>(FS_ARGS, B);
+}
+
+template <int DR>
+static const void* ws_fn(bool early, bool bf16) {
+  return bf16 ? (early ? (const void*)warp_solve_early_bf16_kernel<DR>
+                       : (const void*)warp_solve_bf16_kernel<DR>)
+              : (early ? (const void*)warp_solve_early_kernel<DR>
+                       : (const void*)warp_solve_kernel<DR>);
+}
+
+// The launch of body (0: shared memory, 1: warp) for (nv, m): kernel,
+// block, grid and dynamic shared memory. Null fn when the body does not
+// take d.
+struct FsLaunch {
+  const void* fn;
+  int lanes_per_block, threads;
+  size_t smem;
+};
+
+static FsLaunch fs_launch_of(int body, int nv, int m, bool early, bool bf16) {
+  const int d = nv + m;
+  FsLaunch l = {nullptr, 1, ((d + 31) / 32) * 32,
+                fs_smem_floats(nv, m) * sizeof(float)};
+  if (body == 0) {
+    l.fn = bf16 ? (early ? (const void*)fused_solve_early_bf16_kernel
+                         : (const void*)fused_solve_bf16_kernel)
+                : (early ? (const void*)fused_solve_early_kernel
+                         : (const void*)fused_solve_kernel);
+    return l;
+  }
+  if (body != 1 || nv > WS_MAX_ROWS || m > WS_MAX_ROWS) return l;
+  l.lanes_per_block = WS_LANES;
+  l.threads = WS_THREADS;
+  l.smem = WS_LANES * ws_smem_floats(nv, m) * sizeof(float);
+  switch (ws_round8(d) / 8) {
+    case 1: l.fn = ws_fn<8>(early, bf16); break;
+    case 2: l.fn = ws_fn<16>(early, bf16); break;
+    case 3: l.fn = ws_fn<24>(early, bf16); break;
+    case 4: l.fn = ws_fn<32>(early, bf16); break;
+    case 5: l.fn = ws_fn<40>(early, bf16); break;
+    case 6: l.fn = ws_fn<48>(early, bf16); break;
+    case 7: l.fn = ws_fn<56>(early, bf16); break;
+    default: l.fn = ws_fn<64>(early, bf16); break;
+  }
+  return l;
+}
+
+static cudaError_t fs_prepare(const FsLaunch& l) {
+  if (l.smem > 48 * 1024)
+    return cudaFuncSetAttribute(
+        l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  return cudaSuccess;
+}
+
+// check_every > 0 selects the early-exit form (then tol > 0 and eff must
 // be given; active may be null); bf16 != 0 says K2, Minv, A and P are
-// bfloat16 (else float32). Returns a cudaError_t.
+// bfloat16 (else float32); body 1 is the warp body (nv and m at most
+// WS_MAX_ROWS), 0 the shared-memory body. Returns a cudaError_t.
 extern "C" int fused_solve_launch(
     const void* K2, const void* Minv, const void* A, const void* P,
     const float* q, const float* rho, const float* lb, const float* ub,
     const float* shift, const float* x0, const float* y0, const float* z0,
     const float* active, float* xo, float* yo, float* zo, float* res,
     int* eff, int B, int nv, int m, int n_box, int iters, int check_every,
-    float tol, int has_shift, int bf16, float alpha, float one_minus_alpha,
-    SocDims soc, int device, cudaStream_t stream) {
+    float tol, int has_shift, int bf16, int body, float alpha,
+    float one_minus_alpha, SocDims soc, int device, cudaStream_t stream) {
   const bool early = check_every > 0;
   if (B < 0 || iters < 0 || !soc_layout_ok(nv, m, n_box, soc) ||
       (early && (!(tol > 0.f) || eff == nullptr)) ||
       (!early && active != nullptr))
     return (int)cudaErrorInvalidValue;
+  const FsLaunch l = fs_launch_of(body, nv, m, early, bf16 != 0);
+  if (l.fn == nullptr) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   // This library's runtime keeps its own current device: launch on the
   // tensors' device, whose stream the caller passes.
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = fs_smem_floats(nv, m) * sizeof(float);
-  const void* fn =
-      bf16 ? (early ? (const void*)fused_solve_early_bf16_kernel
-                    : (const void*)fused_solve_bf16_kernel)
-           : (early ? (const void*)fused_solve_early_kernel
-                    : (const void*)fused_solve_kernel);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int d = nv + m;
-  const int threads = ((d + 31) / 32) * 32;
+  e = fs_prepare(l);
+  if (e != cudaSuccess) return (int)e;
   if (!early) {
     eff = nullptr;
     check_every = 0;
     tol = 0.f;
   }
-  const __nv_bfloat16* K2h = static_cast<const __nv_bfloat16*>(K2);
-  const __nv_bfloat16* Minvh = static_cast<const __nv_bfloat16*>(Minv);
-  const __nv_bfloat16* Ah = static_cast<const __nv_bfloat16*>(A);
-  const __nv_bfloat16* Ph = static_cast<const __nv_bfloat16*>(P);
-  const float* K2f = static_cast<const float*>(K2);
-  const float* Minvf = static_cast<const float*>(Minv);
-  const float* Af = static_cast<const float*>(A);
-  const float* Pf = static_cast<const float*>(P);
-#define FS_TAIL                                                              \
-  q, rho, lb, ub, shift, x0, y0, z0, active, xo, yo, zo, res, eff, nv, m,    \
-      n_box, iters, check_every, tol, has_shift, alpha, one_minus_alpha, soc
-  if (bf16 && early)
-    fused_solve_early_bf16_kernel<<<B, threads, smem, stream>>>(
-        K2h, Minvh, Ah, Ph, FS_TAIL);
-  else if (bf16)
-    fused_solve_bf16_kernel<<<B, threads, smem, stream>>>(K2h, Minvh, Ah, Ph,
-                                                          FS_TAIL);
-  else if (early)
-    fused_solve_early_kernel<<<B, threads, smem, stream>>>(K2f, Minvf, Af, Pf,
-                                                           FS_TAIL);
-  else
-    fused_solve_kernel<<<B, threads, smem, stream>>>(K2f, Minvf, Af, Pf,
-                                                     FS_TAIL);
-#undef FS_TAIL
+  void* args[] = {&K2, &Minv, &A, &P, &q, &rho, &lb, &ub, &shift, &x0,
+                  &y0, &z0, &active, &xo, &yo, &zo, &res, &eff, &nv, &m,
+                  &n_box, &iters, &check_every, &tol, &has_shift, &alpha,
+                  &one_minus_alpha, &soc, &B};
+  const unsigned blocks =
+      (unsigned)((B + l.lanes_per_block - 1) / l.lanes_per_block);
+  e = cudaLaunchKernel(l.fn, dim3(blocks), dim3(l.threads), args, l.smem,
+                       stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// What a launch of body for (nv, m) is, for the report: out = {lanes a
+// block, threads a block, dynamic shared memory a block (bytes), registers
+// a thread, local memory a thread (bytes: spills), resident lanes an SM}.
+extern "C" int fused_solve_info(int nv, int m, int bf16, int early, int body,
+                                int device, int* out) {
+  const FsLaunch l = fs_launch_of(body, nv, m, early != 0, bf16 != 0);
+  if (l.fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = fs_prepare(l);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, l.fn);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.fn,
+                                                      l.threads, l.smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = l.lanes_per_block;
+  out[1] = l.threads;
+  out[2] = (int)l.smem;
+  out[3] = attr.numRegs;
+  out[4] = (int)attr.localSizeBytes;
+  out[5] = blocks * l.lanes_per_block;
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* fused_solve_error_string(int err) {

@@ -1,116 +1,104 @@
 // Ring all-reduce SUM over d shards held on one card, for Hopper (sm_90a):
-// a thread block cluster of d CTAs trades the payload around a ring
-// through distributed shared memory.
+// one plain launch, each thread summing its own columns in every shard's
+// ring order, with no cluster, no shared memory and no barrier.
 //
 // Replaces the TPU kernel parallel/ring.py _ring_sum_kernel of the JAX
 // package (tpu_aerial_transport), driven there by _pallas_ring_allreduce:
 // each of d TPU cores holds one shard's payload and passes it to its right
 // neighbour by remote DMA, d - 1 hops, adding what arrives. On one H100 the
-// d shards are the rows of a (d, P) float32 tensor (the port's explicit
-// shard axis), and the counterpart of d cores trading payloads is a cluster
-// of d CTAs trading them through each other's shared memory:
+// d shards are the rows of one contiguous (d, P) float32 tensor (the port's
+// explicit shard axis), so the DMA the hops hide has no wire to cross: the
+// d values a shard receives for one column are one strided read away.
 //
-//   - grid: tiles x d CTAs in clusters of d (cluster dimension set at run
-//     time through cudaLaunchKernelEx); a CTA's rank in its cluster is its
-//     shard r, the cluster index its payload tile of RS_TILE floats;
-//   - comm slots: d write-once slots of RS_TILE floats in dynamic shared
-//     memory (the TPU kernel's (d, R, 128) VMEM scratch); slot 0 takes the
-//     CTA's own tile;
-//   - neighbour barrier: one cluster barrier after staging slot 0, so every
-//     CTA's shared memory exists before any remote store (ring.py:293-301);
-//   - hop s = 0 .. d-2: store slot s into slot s+1 of CTA (r+1) % d (the
-//     remote copy), arrive on the cluster barrier (release), add slot s
-//     (s >= 1) into the accumulator while the neighbours' stores land (the
-//     TPU kernel's overlap, ring.py:315-318), wait on the barrier (acquire);
-//     after the last hop add slot d-1. Write-once slots mean no slot is
-//     overwritten while it is read, and no CTA touches a neighbour's shared
-//     memory after its last wait, so no closing barrier is needed.
+//   - grid: one thread per group of V columns (V = 4, one 16-byte load a
+//     row, when P is a multiple of 4, both tensors are 16-byte aligned and
+//     d <= RS_VEC_MAX_SHARDS; else V = 1); the ragged last block returns
+//     early for the groups past P;
+//   - the thread loads the d x V values of its columns once (row r is
+//     contiguous, so each row's loads are coalesced across the warp) into
+//     registers;
+//   - for each shard r it adds them in r's ring order, x_r + x_{r-1} + ...
+//     + x_{r-d+1} (indices mod d), left to right in float32, and writes
+//     row r of the output.
 //
-// Order: on shard r the sum is x_r + x_{r-1} + ... + x_{r-d+1} (indices mod
-// d), added left to right in float32, the TPU kernel's order; the kernel
-// only adds (nothing for an FMA to contract), so it agrees bit for bit with
-// its plain version (parallel/ring.py ring_sum_shards_reference). NaN
-// propagates. The ragged last tile is masked; no zero pad is needed.
+// Order: the TPU kernel's order, shard by shard; the kernel only adds
+// (nothing for an FMA to contract), so it agrees bit for bit with its plain
+// version (parallel/ring.py ring_sum_shards_reference). NaN propagates.
 //
 // What bounds it: it must read the d x P input and write the d x P output
-// once, 2 d P 4 bytes, and do (d - 1) d P float32 adds. At this path's
-// payloads (P of a few hundred to 6,144 floats, d <= 8: at most 0.4 MB) both
-// bounds are well under a microsecond, and the kernel is bound by latency:
-// one launch and d - 1 cluster barriers. Hiding that (fusing the exchange
-// into its producer, or a persistent kernel) is later work.
+// once, 2 d P 4 bytes, and do (d - 1) d P float32 adds; at this path's
+// payloads (P of a few hundred to 6,144 floats, d = 8: at most 0.4 MB) both
+// are well under a microsecond. What the design does about it: it reads
+// and writes exactly those bytes, and its only latency is one launch and
+// one load-add-store chain a thread, with nothing to wait for between
+// threads. The shard count is a template argument, so the d x V values and
+// every index stay in registers; RS_MAX_SHARDS is the most it is built for
+// (d x V <= 64 values a thread, far from a spill).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
+#include <stdint.h>
 
-#define RS_THREADS 256
-#define RS_PER_THREAD 4
-#define RS_TILE (RS_THREADS * RS_PER_THREAD)
-// The portable cluster size: the most CTAs a cluster may hold without
-// opting in to a non-portable size.
-#define RS_MAX_SHARDS 8
+#define RS_THREADS 128
+#define RS_MAX_SHARDS 32
+// The most shards that take the 16-byte (V = 4) form.
+#define RS_VEC_MAX_SHARDS 16
 
-__device__ __forceinline__ void cluster_arrive_release() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+template <int D, int V>
+__global__ void __launch_bounds__(RS_THREADS)
+ring_sum_kernel(const float* __restrict__ x, float* __restrict__ out,
+                long long P) {
+  const long long g = (long long)blockIdx.x * RS_THREADS + threadIdx.x;
+  if (g * V >= P) return;
+  float v[D][V];
+#pragma unroll
+  for (int r = 0; r < D; ++r) {
+    if constexpr (V == 4) {
+      const float4 q = reinterpret_cast<const float4*>(x + r * P)[g];
+      v[r][0] = q.x;
+      v[r][1] = q.y;
+      v[r][2] = q.z;
+      v[r][3] = q.w;
+    } else {
+      v[r][0] = x[r * P + g];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < D; ++r) {
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = v[r][e];
+#pragma unroll
+    for (int s = 1; s < D; ++s) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] += v[(r - s + D) % D][e];
+    }
+    if constexpr (V == 4) {
+      reinterpret_cast<float4*>(out + r * P)[g] =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
+      out[r * P + g] = acc[0];
+    }
+  }
 }
 
-__device__ __forceinline__ void cluster_wait_acquire() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+// The instantiation for d shards (V = 4 when vec), or null past the cap.
+template <int D>
+static const void* ring_sum_fn(int d, bool vec) {
+  if (d == D) {
+    if constexpr (D <= RS_VEC_MAX_SHARDS) {
+      if (vec) return (const void*)ring_sum_kernel<D, 4>;
+    }
+    return (const void*)ring_sum_kernel<D, 1>;
+  }
+  if constexpr (D < RS_MAX_SHARDS) return ring_sum_fn<D + 1>(d, vec);
+  return nullptr;
 }
 
-__global__ void ring_sum_kernel(const float* __restrict__ x,
-                                float* __restrict__ out, int d,
-                                long long P) {
-  extern __shared__ float slots[];  // d x RS_TILE
-  cg::cluster_group cluster = cg::this_cluster();
-  const int r = (int)cluster.block_rank();
-  const long long tile = blockIdx.x / d;
-  const int tid = threadIdx.x;
-  const float* row = x + (long long)r * P;
-
-  float acc[RS_PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < RS_PER_THREAD; ++j) {
-    const int k = tid + j * RS_THREADS;
-    const long long idx = tile * RS_TILE + k;
-    const float v = idx < P ? row[idx] : 0.f;
-    slots[k] = v;
-    acc[j] = v;
-  }
-  // Neighbour barrier: slot 0 staged, and every CTA of the cluster running
-  // (its shared memory exists) before the first remote store.
-  cluster.sync();
-
-  float* right = cluster.map_shared_rank(slots, (r + 1) % d);
-  for (int s = 0; s < d - 1; ++s) {
-    const float* mine = slots + s * RS_TILE;
-    float* theirs = right + (s + 1) * RS_TILE;
-#pragma unroll
-    for (int j = 0; j < RS_PER_THREAD; ++j) {
-      const int k = tid + j * RS_THREADS;
-      theirs[k] = mine[k];
-    }
-    cluster_arrive_release();
-    if (s > 0) {
-#pragma unroll
-      for (int j = 0; j < RS_PER_THREAD; ++j)
-        acc[j] += mine[tid + j * RS_THREADS];
-    }
-    cluster_wait_acquire();
-  }
-  if (d > 1) {
-    const float* last = slots + (d - 1) * RS_TILE;
-#pragma unroll
-    for (int j = 0; j < RS_PER_THREAD; ++j) acc[j] += last[tid + j * RS_THREADS];
-  }
-
-  float* orow = out + (long long)r * P;
-#pragma unroll
-  for (int j = 0; j < RS_PER_THREAD; ++j) {
-    const long long idx = tile * RS_TILE + tid + j * RS_THREADS;
-    if (idx < P) orow[idx] = acc[j];
-  }
+static bool ring_sum_vec(const float* x, const float* out, int d,
+                         long long P) {
+  return d <= RS_VEC_MAX_SHARDS && P % 4 == 0 &&
+         (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
 }
 
 extern "C" int ring_sum_launch(const float* x, float* out, int d, long long P,
@@ -119,24 +107,32 @@ extern "C" int ring_sum_launch(const float* x, float* out, int d, long long P,
   if (P == 0) return (int)cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const long long tiles = (P + RS_TILE - 1) / RS_TILE;
-  if (tiles * d > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(tiles * d), 1, 1);
-  cfg.blockDim = dim3(RS_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)d * RS_TILE * sizeof(float);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)d;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, ring_sum_kernel, x, out, d, P);
+  const bool vec = ring_sum_vec(x, out, d, P);
+  const long long groups = vec ? P / 4 : P;
+  const long long blocks = (groups + RS_THREADS - 1) / RS_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&x, (void*)&out, (void*)&P};
+  e = cudaLaunchKernel(ring_sum_fn<1>(d, vec), dim3((unsigned)blocks),
+                       dim3(RS_THREADS), args, 0, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// What the build made of the instantiation a (d, P) launch takes, for the
+// report: out = {registers a thread, local (spill) bytes a thread, 16-byte
+// form 0/1}. The alignment is taken as the allocator's (16 bytes).
+extern "C" int ring_sum_info(int d, long long P, int device, int* out) {
+  if (d < 1 || d > RS_MAX_SHARDS || P < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = ring_sum_vec(nullptr, nullptr, d, P);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, ring_sum_fn<1>(d, vec));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = vec ? 1 : 0;
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* ring_sum_error_string(int err) {

@@ -48,14 +48,17 @@ def make_mpc_step(controller: str, n: int, max_iter: int = 20,
                   pad_operators: bool | None = None, socp_fused: str = "auto",
                   inner_tol: float = 0.0, effort: str = "auto",
                   socp_precision: str = "auto", tau_incr: float = 1.0,
-                  inner_iters_warm: int = 0, shards: int = 1,
-                  consensus_impl: str = "auto", device="cuda"):
+                  inner_iters_warm: int = 0, reduced_qp: bool | None = None,
+                  shards: int = 1, consensus_impl: str = "auto",
+                  device="cuda"):
     """``(mpc_step(css, states) -> (css, states, stats), cs0, state0)`` for
     the bench set-up: ``rqp_setup(n)``, forest seed 0, PD low level,
     ``acc_des = ((0.3, 0, 0), 0)``, ``controller`` ``"cadmm"``, ``"dd"``
     (the JAX bench's ``inner_iters`` 20 and 40; the solver knobs apply to
     these two, ``tau_incr`` and ``inner_iters_warm`` to C-ADMM only) or
-    ``"centralized"`` (``solver_iters=120``). ``shards > 1`` runs C-ADMM or
+    ``"centralized"`` (``solver_iters=120``); ``reduced_qp`` is C-ADMM's
+    agent-QP formulation (None: Schur-reduced from n = 4, as the JAX
+    package picks). ``shards > 1`` runs C-ADMM or
     DD agent-sharded over that many blocks (``n % shards == 0``), the
     exchanges by ``consensus_impl`` (``parallel.ring.resolve_consensus``);
     ``shards=1`` is the single program, which takes no ``consensus_impl``
@@ -64,8 +67,10 @@ def make_mpc_step(controller: str, n: int, max_iter: int = 20,
     if controller not in CONTROLLERS:
         raise ValueError(
             f"controller={controller!r}: expected one of {CONTROLLERS}")
-    cadmm_kw = dict(tau_incr=tau_incr, inner_iters_warm=inner_iters_warm)
-    if controller != "cadmm" and (tau_incr != 1.0 or inner_iters_warm):
+    cadmm_kw = dict(tau_incr=tau_incr, inner_iters_warm=inner_iters_warm,
+                    reduced_qp=reduced_qp)
+    if controller != "cadmm" and (tau_incr != 1.0 or inner_iters_warm
+                                  or reduced_qp is not None):
         raise ValueError(f"{cadmm_kw} are C-ADMM options, not {controller}'s")
     if controller == "centralized" and (shards != 1
                                         or consensus_impl != "auto"):
@@ -176,8 +181,8 @@ def build(n: int = N_AGENTS, n_scenarios: int = N_SCENARIOS,
           controller: str = "cadmm", socp_fused: str = "auto",
           inner_tol: float = 0.0, effort: str = "auto",
           socp_precision: str = "auto", tau_incr: float = 1.0,
-          inner_iters_warm: int = 0, shards: int = 1,
-          consensus_impl: str = "auto"):
+          inner_iters_warm: int = 0, reduced_qp: bool | None = None,
+          shards: int = 1, consensus_impl: str = "auto"):
     """A bench workload: ``(run(css, states, n_steps), css, states)`` with
     ``controller`` at ``n`` agents over ``n_scenarios`` seeded scenarios;
     the defaults are the headline (C-ADMM, fixed effort, whole-solve
@@ -187,8 +192,9 @@ def build(n: int = N_AGENTS, n_scenarios: int = N_SCENARIOS,
         controller, n, max_iter=max_iter, inner_iters=inner_iters,
         pad_operators=pad_operators, socp_fused=socp_fused,
         inner_tol=inner_tol, effort=effort, socp_precision=socp_precision,
-        tau_incr=tau_incr, inner_iters_warm=inner_iters_warm, shards=shards,
-        consensus_impl=consensus_impl, device=device,
+        tau_incr=tau_incr, inner_iters_warm=inner_iters_warm,
+        reduced_qp=reduced_qp, shards=shards, consensus_impl=consensus_impl,
+        device=device,
     )
     states = scenario_batch(state0, n_scenarios)
     css = stack_scenarios(cs0, n_scenarios)

@@ -129,10 +129,11 @@ def error_string(err: int, name: str = "fused_solve") -> str:
     return fn(err).decode()
 
 
-def bind(name: str, argtypes):
-    """Library ``name``'s ``<name>_launch`` with its argument types set
-    (pointers and the stream as ``c_void_p``) and a ``cudaError_t`` result."""
-    fn = getattr(load(name), f"{name}_launch")
+def bind(name: str, argtypes, entry: str = "launch"):
+    """Library ``name``'s ``<name>_<entry>`` (the launcher, or another C
+    entry such as ``info``) with its argument types set (pointers and the
+    stream as ``c_void_p``) and a ``cudaError_t`` result."""
+    fn = getattr(load(name), f"{name}_{entry}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

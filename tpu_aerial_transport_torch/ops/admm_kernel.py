@@ -33,12 +33,19 @@ wrapper launches its kernel (``csrc/fused_solve.cu``, ``csrc/admm_chunk.cu``,
 built at first use by :mod:`ops._build`) for tensors on the card and runs
 its ``*_reference`` twin for tensors on the CPU; it never falls back from
 the one to the other.
+
+The whole-solve kernel has two bodies, chosen from the shape ``(nv, m)``
+alone (:func:`fused_solve_geometry`): ``nv`` and ``m`` at most
+``WARP_MAX_ROWS`` (every agent QP) runs one warp per lane, each thread
+holding one constraint row of K2 in registers (``warp_solve_*kernel``);
+other shapes (the centralized QPs) one block per lane with every operator
+in shared memory (``fused_solve_*kernel``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -51,6 +58,20 @@ from tpu_aerial_transport_torch.ops import _build
 LAUNCHES = {"fused_solve": 0, "fused_solve_early": 0, "fused_solve_bf16": 0,
             "fused_solve_early_bf16": 0, "admm_chunk": 0}
 
+# The whole-solve kernel's entry points by (body, form, storage), their
+# names as a trace shows them (none a substring of another), and a launch
+# counter for each, added to beside LAUNCHES.
+BODIES = ("shared", "warp")
+KERNEL_NAMES = {
+    (body, early, precision):
+        f"{'warp' if body == 'warp' else 'fused'}_solve"
+        f"{'_early' if early else ''}"
+        f"{'_bf16' if precision == 'bf16' else ''}_kernel"
+    for body in BODIES for early in (False, True)
+    for precision in ("f32", "bf16")
+}
+KERNEL_LAUNCHES = {name: 0 for name in KERNEL_NAMES.values()}
+
 # Operator storage of the whole-solve kernel, by precision name.
 STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -59,6 +80,10 @@ MAX_SOC_BLOCKS = 16
 MAX_DIM = 256
 # Shared memory a block may opt in to on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
+# The warp body (csrc/fused_solve.cu WS_MAX_ROWS, WS_LANES): the most x
+# rows and constraint rows it takes, and lanes (warps) a block.
+WARP_MAX_ROWS = 32
+WARP_LANES_PER_BLOCK = 4
 
 
 class _SocDims(ctypes.Structure):
@@ -68,12 +93,14 @@ class _SocDims(ctypes.Structure):
 
 
 # fused_solve_launch(13 input and 5 output pointers, B, nv, m, n_box, iters,
-# check_every, tol, has_shift, bf16, alpha, 1 - alpha, soc, device, stream)
-# -> cudaError_t.
+# check_every, tol, has_shift, bf16, body, alpha, 1 - alpha, soc, device,
+# stream) -> cudaError_t.
 _FUSED_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_float, _SocDims, ctypes.c_int, ctypes.c_void_p,
 ]
+# fused_solve_info(nv, m, bf16, early, body, device, int out[6]).
+_INFO_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # admm_chunk_launch(9 input and 3 output pointers, B, nv, m, n_box, iters,
 # has_shift, alpha, 1 - alpha, soc, device, stream) -> cudaError_t.
 _CHUNK_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
@@ -127,11 +154,86 @@ def fused_solve_flops_per_lane(nv: int, m: int, iters: int,
 
 
 def fused_solve_smem_bytes(nv: int, m: int) -> int:
-    """Dynamic shared memory of one block (one lane): K2, Minv, P, A with
-    row strides padded to odd word counts, two d-vectors and the reduction
-    scratch (csrc/fused_solve.cu fs_smem_floats)."""
+    """Dynamic shared memory of one block (one lane) of the shared-memory
+    body: K2, Minv, P, A with row strides padded to odd word counts, two
+    d-vectors and the reduction scratch (csrc/fused_solve.cu
+    fs_smem_floats)."""
     d = nv + m
     return 4 * (d * (d | 1) + (2 * nv + m) * (nv | 1) + 2 * d + 66)
+
+
+def _round_up(k: int, w: int) -> int:
+    return -(-k // w) * w
+
+
+def _ld16(k: int) -> int:
+    """A shared-memory row stride for k floats: whole 16-byte words, an
+    odd number of them (csrc/fused_solve.cu ws_ld)."""
+    r = _round_up(k, 4)
+    return r if (r // 4) % 2 else r + 4
+
+
+def warp_smem_bytes(nv: int, m: int) -> int:
+    """Shared memory of one lane (warp) of the warp body: A and P with an
+    odd-word row stride, K2's x rows and u at d rounded up to 8 entries,
+    and y for the residuals (csrc/fused_solve.cu ws_smem_floats)."""
+    dr = _round_up(nv + m, 8)
+    return 4 * ((m + nv) * _ld16(nv) + nv * _ld16(dr) + dr
+                + _round_up(m, 4))
+
+
+class Geometry(NamedTuple):
+    """How the whole-solve kernel launches for one (nv, m)."""
+
+    body: str  # "warp" or "shared".
+    lanes_per_block: int
+    threads: int  # a block.
+    smem_bytes: int  # dynamic shared memory a block.
+
+
+def fused_solve_geometry(nv: int, m: int, body: str | None = None
+                         ) -> Geometry:
+    """The body and launch shape for ``(nv, m)``. ``body=None`` decides
+    from the shape alone, as the wrapper does: one warp per lane,
+    ``WARP_LANES_PER_BLOCK`` lanes a block, when ``nv`` and ``m`` are both
+    at most ``WARP_MAX_ROWS`` (then ``d <= 64``); else one block of ``d``
+    threads (whole warps) per lane."""
+    d = nv + m
+    fits = nv <= WARP_MAX_ROWS and m <= WARP_MAX_ROWS
+    if body is None:
+        body = "warp" if fits else "shared"
+    if body not in BODIES or (body == "warp" and not fits):
+        raise ValueError(f"body={body!r} for nv={nv}, m={m}: expected one "
+                         f"of {BODIES}, 'warp' only for nv and m at most "
+                         f"{WARP_MAX_ROWS}")
+    if body == "warp":
+        return Geometry("warp", WARP_LANES_PER_BLOCK,
+                        32 * WARP_LANES_PER_BLOCK,
+                        WARP_LANES_PER_BLOCK * warp_smem_bytes(nv, m))
+    return Geometry("shared", 1, -(-d // 32) * 32,
+                    fused_solve_smem_bytes(nv, m))
+
+
+def fused_solve_info(nv: int, m: int, *, early: bool = False,
+                     precision: str = "f32", body: str | None = None,
+                     device=None) -> dict:
+    """What the build made of the entry point a launch at ``(nv, m)``
+    takes (``body`` as in :func:`fused_solve_geometry`), from the library
+    itself: its name, lanes and threads a block, dynamic shared memory a
+    block, registers and local memory (spill bytes) a thread, and resident
+    lanes an SM (the occupancy calculator)."""
+    geo = fused_solve_geometry(nv, m, body)
+    fn = _build.bind("fused_solve", _INFO_ARGTYPES, "info")
+    index = torch.device("cuda" if device is None else device).index
+    index = torch.cuda.current_device() if index is None else index
+    out = (ctypes.c_int * 6)()
+    err = fn(nv, m, int(precision == "bf16"), int(early),
+             BODIES.index(geo.body), index, out)
+    _build.raise_on(err, "fused_solve")
+    return {"name": KERNEL_NAMES[geo.body, early, precision],
+            "lanes_per_block": out[0], "threads": out[1],
+            "smem_bytes": out[2], "registers": out[3],
+            "local_bytes": out[4], "lanes_per_sm": out[5]}
 
 
 def admm_chunk_bytes_per_lane(nv: int, m: int, n_box: int) -> int:
@@ -315,7 +417,7 @@ def fused_solve_lanes(
     x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift=None, active=None,
     *, nv: int, n_box: int, soc_dims: Sequence[int], iters: int,
     alpha: float, check_every: int = 0, tol: float = 0.0,
-    precision: str = "f32",
+    precision: str = "f32", body: str | None = None,
 ):
     """Whole batched solves, batch-first ``(B, rows...)``; returns
     ``(x, y, z, prim_res, dual_res)``, plus ``eff_iters`` ((B,) int32) in
@@ -328,7 +430,10 @@ def fused_solve_lanes(
     CPU tensors run :func:`fused_solve_lanes_reference`. CUDA tensors launch
     the kernel on the current stream (no synchronisation) or raise: on a
     wrong device, dtype, shape or layout, on dims the kernel does not take,
-    or on a launch error."""
+    or on a launch error. The kernel's body is chosen from the shape alone
+    (:func:`fused_solve_geometry`); ``body`` forces one, to time one body
+    against the other on the same inputs (the port's callers never pass
+    it)."""
     early = _early(check_every, tol)
     if active is not None and not early:
         raise ValueError(
@@ -350,8 +455,9 @@ def fused_solve_lanes(
     B = x.shape[0]
     m = rho.shape[-1]
     d = nv + m
+    geo = fused_solve_geometry(nv, m, body)
     _check_layout("fused_solve", nv, m, n_box, soc_dims, iters,
-                  fused_solve_smem_bytes(nv, m))
+                  geo.smem_bytes)
     dev = x.device
     for name, t, shape in (
         ("K2", K2, (B, d, d)), ("Minv", Minv, (B, nv, nv)),
@@ -388,10 +494,12 @@ def fused_solve_lanes(
         _ptr(xo), _ptr(yo), _ptr(zo), _ptr(res), _ptr(eff),
         B, nv, m, n_box, iters, int(check_every) if early else 0,
         float(tol) if early else 0.0, 1 if shift is not None else 0,
-        1 if precision == "bf16" else 0, float(alpha), float(1 - alpha),
-        _soc_struct(soc_dims), dev.index, stream,
+        1 if precision == "bf16" else 0, BODIES.index(geo.body),
+        float(alpha), float(1 - alpha), _soc_struct(soc_dims), dev.index,
+        stream,
     )
     _build.raise_on(err, "fused_solve")
+    KERNEL_LAUNCHES[KERNEL_NAMES[geo.body, early, precision]] += 1
     suffix = "" if precision == "f32" else "_" + precision
     if early:
         LAUNCHES["fused_solve_early" + suffix] += 1

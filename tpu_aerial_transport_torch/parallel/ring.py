@@ -21,9 +21,9 @@ of shape ``(d, ...)``, row r being what shard r holds, and returns
   reproduces the JAX ring's arithmetic on any device; on one card it is
   the slowest impl (2 (d - 1) hops of small ops a sum);
 - ``"pallas_ring"``: sums through the ring-sum kernel
-  (``csrc/ring_sum.cu``, a thread block cluster of d CTAs trading the
-  payload through distributed shared memory); max, min and gathers take
-  the ring's rotate paths, as in the JAX package.
+  (``csrc/ring_sum.cu``: one launch, each thread adding its columns' d
+  shard values in every shard's ring order in registers); max, min and
+  gathers take the ring's rotate paths, as in the JAX package.
 
 One deliberate difference: off the TPU the JAX package quietly runs
 ``"pallas_ring"`` as ``"ring"``. The port launches its kernel for tensors
@@ -50,9 +50,10 @@ from tpu_aerial_transport_torch.ops import _build
 IMPLS = ("allreduce", "ring", "pallas_ring")
 ENV_VAR = "TPU_AERIAL_CONSENSUS"
 OPS = ("sum", "max", "min")
-# The most shards one cluster holds (the portable cluster size); more
-# shards need the cross-card form.
-MAX_SHARDS = 8
+# The most shards the ring-sum kernel is built for (csrc/ring_sum.cu
+# RS_MAX_SHARDS): a thread holds its columns' d values in registers. More
+# shards, or shards on several cards, need the cross-card form.
+MAX_SHARDS = 32
 
 # Plain launch counter: the wrapper adds one where it launches its kernel.
 LAUNCHES = {"ring_sum": 0}
@@ -60,6 +61,9 @@ LAUNCHES = {"ring_sum": 0}
 # ring_sum_launch(x, out, d, P, device, stream) -> cudaError_t.
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# ring_sum_info(d, P, device, int out[3]) -> cudaError_t.
+_INFO_ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_void_p]
 
 _ALLREDUCE = {
     "sum": lambda x: torch.sum(x, dim=0, keepdim=True),
@@ -236,26 +240,28 @@ def ring_sum_shards(x: torch.Tensor) -> torch.Tensor:
     r of the result is shard r's copy of the sum, in the TPU kernel's ring
     order (:func:`ring_sum_shards_reference`).
 
-    CPU tensors run the plain version. CUDA tensors launch
-    ``ring_sum_kernel`` on the current stream (no synchronisation) or
-    raise: on a dtype, shape or layout the kernel does not take, more than
-    ``MAX_SHARDS`` shards, or a launch error."""
+    Raises on a dtype or shape the kernel does not take and on more than
+    ``MAX_SHARDS`` shards, on any device. CPU tensors run the plain
+    version. CUDA tensors launch ``ring_sum_kernel`` on the current stream
+    (no synchronisation) or raise: on a layout the kernel does not take or
+    a launch error."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"x: expected a tensor, got {type(x).__name__}")
     if x.dtype != torch.float32:
         raise TypeError(f"x: dtype {x.dtype}, the kernel takes float32")
     if x.dim() != 2 or x.shape[0] < 1:
         raise ValueError(f"x: shape {tuple(x.shape)}, expected (d >= 1, P)")
+    d, P = x.shape
+    if d > MAX_SHARDS:
+        raise ValueError(
+            f"{d} shards: the ring-sum kernel takes at most {MAX_SHARDS} (a "
+            "thread holds a column's d values in registers; the cross-card "
+            "form is not ported)"
+        )
     if x.device.type == "cpu":
         return ring_sum_shards_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"ring_sum_shards: unsupported device {x.device}")
-    d, P = x.shape
-    if d > MAX_SHARDS:
-        raise ValueError(
-            f"{d} shards: one cluster holds at most {MAX_SHARDS} (the "
-            "cross-card form is not ported)"
-        )
     if not x.is_contiguous():
         raise ValueError("x is not contiguous")
     out = torch.empty_like(x)
@@ -267,3 +273,15 @@ def ring_sum_shards(x: torch.Tensor) -> torch.Tensor:
     _build.raise_on(err, "ring_sum")
     LAUNCHES["ring_sum"] += 1
     return out
+
+
+def ring_sum_info(d: int, P: int, device=None) -> dict:
+    """What the build made of the kernel a ``(d, P)`` launch takes:
+    ``{"registers", "local_bytes", "vec16"}`` (registers a thread, local
+    memory a thread -- spills -- and whether it takes the 16-byte form)."""
+    fn = _build.bind("ring_sum", _INFO_ARGTYPES, "info")
+    index = torch.device("cuda" if device is None else device).index
+    index = torch.cuda.current_device() if index is None else index
+    out = (ctypes.c_int * 3)()
+    _build.raise_on(fn(d, P, index, out), "ring_sum")
+    return {"registers": out[0], "local_bytes": out[1], "vec16": bool(out[2])}
