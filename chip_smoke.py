@@ -42,8 +42,13 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    agree; time both and compute the bound from this run's data;
 9. drive the chunked route (``socp_fused="pallas"``), fixed and adaptive,
    for a few steps each: the chunk kernel must have launched exactly once
-   per chunk run (counted from each solve's effective iterations); hold it
-   against its plain version on captured inputs and time it;
+   per chunk run (counted from each solve's effective iterations), every
+   launch its warp body (``warp_chunk_kernel``); then C-ADMM's full QP at
+   n = 8 (d = 72) on the same route, every launch the one-block body
+   (``admm_chunk_kernel``); hold both bodies against their plain version on
+   captured inputs (the headline's with and without the shift, ragged,
+   shorter chunks; DD's d = 56 from phase 7; the full QP's) and time each
+   body and x-row layout in turns on the same inputs beside the bound;
 10-12. the bf16 headline, bf16 DD and the bf16 kernel forms against their
    plain version;
 13. the entry step and the centralized rollout, the shared-memory body's
@@ -73,16 +78,23 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    profiled;
 19. the first sharded step of 15 and 16 against the CPU (which runs the
    kernel's plain version) on 8 scenarios, and against the single program
-   on the card.
+   on the card;
+20. the centralized controller where the whole-solve kernel cannot hold
+   its QP (more than 16 SOC blocks): n = 16 at 1 and 256 scenarios and
+   n = 64 at 1 (the JAX bench's ``centralized_n{16,64}_single``), each on
+   the route the solver's resolver names, which must be ``"scan"``, with
+   no kernel launched, finite states, and n = 16's first step of 8
+   scenarios against the CPU.
 
 The whole-solve kernel has two bodies, chosen from the QP's shape alone:
 one warp per lane (``warp_solve_*kernel``) for every agent QP (nv and m at
 most 32), one block per lane (``fused_solve_*kernel``) for the centralized
-QPs and C-ADMM's full QP at n = 8. Every timed whole-
-solve and ring-sum line carries the kernel's bound, its earlier time from
-PERF.md (``EARLIER_MS``), the other body's time on the same inputs in turns
-where there is one, registers, spill bytes and resident lanes an SM; each
-timed path checks by kernel name which body ran.
+QPs and C-ADMM's full QP at n = 8. The chunk kernel has the same two
+bodies (``warp_chunk_kernel``, ``admm_chunk_kernel``). Every timed
+kernel line carries the kernel's bound, its earlier time from PERF.md
+(``EARLIER_MS``), the other body's time on the same inputs in turns where
+there is one, registers, spill bytes and resident lanes an SM; each timed
+path checks by kernel name which body ran.
 
 The kernel bar is 1e-4 x max(1, |ref|) for every output, or twice the
 plain version's own float32 rounding (its distance from the same plain
@@ -117,15 +129,17 @@ OWN_KERNELS = {"fused_solve_kernel": "fused_solve",
                "warp_solve_bf16_kernel": "fused_solve_bf16",
                "warp_solve_early_bf16_kernel": "fused_solve_early_bf16",
                "admm_chunk_kernel": "admm_chunk",
+               "warp_chunk_kernel": "admm_chunk",
                "ring_sum_kernel": "ring_sum"}
 # Each kernel's earlier time at the shapes timed here, from PERF.md's kernel
-# table (NVIDIA H100 80GB HBM3, 700.00 W): the one-block-a-lane body at the
-# agent QPs (chip run 3, PR 3) and the cluster ring (chip run 2, PR 4). The
-# shared-memory body's shapes (m > 32 or nv > 32) had no timed row.
+# table (NVIDIA H100 80GB HBM3, 700.00 W): the whole-solve kernel's
+# one-block-a-lane body at the agent QPs, the cluster ring sum and the chunk
+# kernel's one-block body at the headline. The shared-memory body's shapes
+# (m > 32 or nv > 32) had no timed row.
 EARLIER_MS = {"warp_solve_kernel": 0.0623, "warp_solve_early_kernel": 0.0656,
               "warp_solve_bf16_kernel": 0.0705,
               "warp_solve_early_bf16_kernel": 0.1598,
-              "ring_sum_kernel": 0.0060}
+              "ring_sum_kernel": 0.0060, "admm_chunk_kernel": 0.0504}
 
 N_AGENTS, N_SCENARIOS, TIMED_STEPS = 8, 256, 10
 # Steps of each chunked-route arm (fixed and adaptive), after a warm-up.
@@ -262,7 +276,7 @@ def zero_launches() -> None:
     from tpu_aerial_transport_torch.parallel import ring
 
     for counts in (admm_kernel.LAUNCHES, ring.LAUNCHES,
-                   admm_kernel.KERNEL_LAUNCHES):
+                   admm_kernel.KERNEL_LAUNCHES, admm_kernel.CHUNK_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -885,6 +899,316 @@ def bf16_phases(card, report, lanes):
     ]
 
 
+def counting_chunks(expected):
+    """A stand-in for ``socp.solve_socp`` that adds to ``expected[0]`` the
+    chunks each solve ran, from its effective iterations: the batch runs
+    the most full chunks any lane ran, then one remainder chunk if any lane
+    ran it (one chunk for a fixed-iteration solve)."""
+    from tpu_aerial_transport_torch.ops import socp
+
+    solve = socp.solve_socp
+
+    def counted(*a, **kw):
+        out = solve(*a, **kw)
+        ce, tol = kw.get("check_every", 0), kw.get("tol", 0.0)
+        if ce and tol > 0:
+            eff = out[1].flatten()
+            expected[0] += int((eff // ce).max()) + int(
+                bool((eff % ce != 0).any()))
+        else:
+            expected[0] += 1
+        return out
+
+    return solve, counted
+
+
+def chunk_inputs(args, kw):
+    """A whole-solve call's captured inputs as the chunk kernel's: w2 =
+    [Minv q; A Minv q] and the shift (zeros for none), as the chunked route
+    builds them."""
+    import torch
+
+    x, y, z, K2, Minv, A, P, q, rho, lb, ub, shift = args[:12]
+    wq = (Minv @ q[..., None])[..., 0]
+    w2 = torch.cat([wq, (A @ wq[..., None])[..., 0]], dim=-1)
+    shift = torch.zeros_like(y) if shift is None else shift
+    return ([x, y, z, K2, w2, rho, lb, ub, shift],
+            {k: kw[k] for k in ("nv", "n_box", "soc_dims", "iters", "alpha")})
+
+
+def check_chunk_body(cases, card, forms=(None,)):
+    """The chunk kernel against its plain version on each case ``(name,
+    args, kw)``, in each of ``forms`` (``(body, x_rows)``; None: the
+    wrapper's own choice), at the kernel bar; returns the report by case
+    and form, each with its largest error."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    checks = {}
+    for case, a, k in cases:
+        ref = admm_kernel.admm_chunk_lanes_reference(*a, **k)
+        ref64 = admm_kernel.admm_chunk_lanes_reference(*in_float64(a), **k)
+        nv, m = k["nv"], a[5].shape[-1]
+        for forced in forms:
+            body, x_rows = forced or (None, None)
+            geo = admm_kernel.admm_chunk_geometry(nv, m, body, x_rows)
+            got = admm_kernel.admm_chunk_lanes(*a, **k, body=body,
+                                               x_rows=x_rows)
+            torch.cuda.synchronize()
+            errs, noise, ok = agreement(("x", "y", "z"), got, ref, ref64)
+            label = f"{case}[{geo.body}" + (f"/{geo.x_rows}]" if geo.x_rows
+                                              else "]")
+            print(f"chunk kernel check {label}: B={a[0].shape[0]} "
+                  f"d={nv + m} iters={k['iters']} max|err| "
+                  + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+                  + "; plain float32 vs float64 "
+                  + " ".join(f"{n}={e:.3e}" for n, e in noise.items())
+                  + f" (bar max({KERNEL_ATOL} x max(1, |ref|), "
+                  f"{ROUNDING_FACTOR} x that)) "
+                  + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+            checks[label] = {"B": a[0].shape[0], "body": geo.body,
+                             "max_abs_err": errs, "worst": max(errs.values()),
+                             "plain_f32_vs_f64": noise, "ok": ok}
+            if not ok:
+                fail(f"chunk kernel disagrees with its plain version on "
+                     f"{label}")
+    return checks
+
+
+def chunk_timing(what, a, k, card, forms, reps=100) -> dict:
+    """The chunk kernel on one input set in each of ``forms`` (``(body,
+    x_rows)``, the wrapper's own first), timed with CUDA graphs in turns
+    (forwards, then backwards), beside the bound from these inputs' bytes
+    and operations and what the build made of each form (registers, spill
+    bytes, resident lanes an SM). Returns the timings by form and the
+    bound."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    nv, m = k["nv"], a[5].shape[-1]
+    B = a[0].shape[0]
+    bytes_ = B * admm_kernel.admm_chunk_bytes_per_lane(nv, m, k["n_box"])
+    flops = B * admm_kernel.admm_chunk_flops_per_lane(
+        nv, m, k["iters"], tuple(k["soc_dims"]))
+    b_ms, b_by = bound(bytes_, flops)
+    turns = {}
+    for form in list(forms) + list(reversed(forms)):
+        turns.setdefault(form, []).append(cuda_ms(
+            lambda: admm_kernel.admm_chunk_lanes(
+                *a, **k, body=form[0], x_rows=form[1]), reps))
+    out = {}
+    for body, x_rows in forms:
+        geo = admm_kernel.admm_chunk_geometry(nv, m, body, x_rows)
+        info = admm_kernel.admm_chunk_info(nv, m, body=body, x_rows=x_rows)
+        if (info["lanes_per_block"], info["threads"],
+                info["smem_bytes"]) != tuple(geo[2:]):
+            fail(f"{what}: the library launches {info}, the wrapper's "
+                 f"geometry is {geo}")
+        t = turns[body, x_rows]
+        ms = sum(t) / len(t)
+        label = f"{info['name']}" + (f"[{x_rows}]" if x_rows else "")
+        earlier = EARLIER_MS.get("admm_chunk_kernel") if (nv, m) == (16, 32) \
+            else None
+        print(f"{label} ({what}, B={B}, d={nv + m}, iters={k['iters']}): "
+              f"{ms:.4f} ms/launch (CUDA graph; turns {t[0]:.4f} and "
+              f"{t[1]:.4f}); bound {b_ms:.4f} ms by {b_by} "
+              f"({bytes_ / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP; "
+              f"{ms / b_ms:.1f}x); the one-block body at the headline "
+              f"earlier " + (f"{earlier:.4f} ms (PERF.md)" if earlier
+                             else "not recorded")
+              + f" | {info['registers']} registers, {info['local_bytes']} B "
+              f"local, {info['lanes_per_sm']} lanes resident an SM "
+              f"({info['lanes_per_block']} a block, {info['smem_bytes']} B "
+              f"shared a block) | {card}", flush=True)
+        out[label] = {"ms": ms, "turns_ms": t, **info}
+    return {"forms": out, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": bytes_, "flops": flops}
+
+
+def chunk_phases(card, report, css0, states0, dd_args, lanes):
+    """Phase 9, the chunk kernel. The chunked route (``socp_fused=
+    "pallas"``) on the headline, fixed and adaptive, CHUNK_STEPS steps each
+    after a warm-up: one launch a chunk run, every one of the warp body;
+    then C-ADMM's full QP at n = 8 (d = 72) on the same route, the block
+    body's path: one launch a consensus iteration, all of the block body.
+    The warp body against its plain version on the headline's inputs (with
+    and without the shift, ragged, shorter chunks), each x-row layout and
+    the block body too, and on DD's (d = 56, from phase 7's capture); the
+    block body on the full QP's. Each body and layout timed in turns on the
+    same inputs beside the bound. Returns the two bodies' rows of the
+    kernels line."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel, socp
+
+    chunk_args, chunk_report, chunk_launches = [], {}, 0
+    for effort in ("fixed", "adaptive"):
+        step_c, _, _ = workload("cadmm", N_AGENTS, N_SCENARIOS, max_iter=20,
+                                inner_iters=20, socp_fused="pallas",
+                                effort=effort)
+        with capturing(admm_kernel, "admm_chunk_lanes", chunk_args):
+            step_c(css0, states0)
+        expected = [0]
+        solve, counted = counting_chunks(expected)
+        socp.solve_socp = counted
+        try:
+            css_c, states_c, iters_c, inner_c, secs_c, launches_c, _ = \
+                timed_steps(step_c, css0, states0, CHUNK_STEPS)
+        finally:
+            socp.solve_socp = solve
+        what = f"the chunked route ({effort})"
+        check_launches(launches_c, "admm_chunk", expected[0], what)
+        if admm_kernel.CHUNK_LAUNCHES != {"admm_chunk_kernel": 0,
+                                          "warp_chunk_kernel": expected[0]}:
+            fail(f"{what} ran {admm_kernel.CHUNK_LAUNCHES}, expected all "
+                 f"warp_chunk_kernel")
+        check_states(css_c, states_c, what)
+        chunk_launches += launches_c["admm_chunk"]
+        runs_c = int(iters_c.max(dim=1).values.sum())
+        rate_c = N_SCENARIOS * CHUNK_STEPS / secs_c
+        print(f"chunked route (socp_fused='pallas', effort {effort}): "
+              f"{CHUNK_STEPS} MPC steps in {secs_c:.4f} s = {rate_c:.2f} "
+              f"scenario-MPC-steps/s (one host synchronisation a solve "
+              f"counts the chunks) | consensus iterations run {runs_c} | "
+              f"chunk launches {launches_c['admm_chunk']} = chunks run "
+              f"{expected[0]}, all warp_chunk_kernel | {card}", flush=True)
+        chunk_report[effort] = {
+            "scenario_mpc_steps_per_s": rate_c, "seconds": secs_c,
+            "consensus_iterations": runs_c, "launches": launches_c,
+            "chunks_run": expected[0],
+        }
+    if not chunk_args:
+        fail("no admm_chunk call captured")
+
+    # The block body's path: the full agent QP (d = 72) on route "pallas".
+    step_f, css_f0, st_f0 = workload(
+        "cadmm", N_AGENTS, N_SCENARIOS, reduced_qp=False, pad_operators=True,
+        socp_fused="pallas", effort="fixed")
+    full_args = []
+    with capturing(admm_kernel, "admm_chunk_lanes", full_args):
+        step_f(css_f0, st_f0)
+    css_f, st_f, iters_f, _, secs_f, launches_f, _ = timed_steps(
+        step_f, css_f0, st_f0, CHUNK_STEPS)
+    runs_f = int(iters_f.max(dim=1).values.sum())
+    what = "full-QP C-ADMM n = 8 on the chunked route"
+    check_launches(launches_f, "admm_chunk", runs_f, what)
+    if admm_kernel.CHUNK_LAUNCHES != {"admm_chunk_kernel": runs_f,
+                                      "warp_chunk_kernel": 0}:
+        fail(f"{what} ran {admm_kernel.CHUNK_LAUNCHES}, expected all "
+             f"admm_chunk_kernel")
+    check_states(css_f, st_f, what)
+    f_args, f_kw = full_args[0]
+    print(f"{what}: {N_SCENARIOS}x{N_AGENTS}, d = "
+          f"{f_kw['nv'] + f_args[5].shape[-1]}, {CHUNK_STEPS} MPC steps in "
+          f"{secs_f:.4f} s = {N_SCENARIOS * CHUNK_STEPS / secs_f:.2f} "
+          f"scenario-MPC-steps/s | launches {launches_f} = consensus "
+          f"iterations run {runs_f}, all admm_chunk_kernel | {card}",
+          flush=True)
+    chunk_report["full_qp_n8"] = {
+        "scenario_mpc_steps_per_s": N_SCENARIOS * CHUNK_STEPS / secs_f,
+        "launches": launches_f, "iterations_run": runs_f}
+
+    c_args, c_kw = chunk_args[0]
+    d_args, d_kw = chunk_inputs(*dd_args[0])
+    zeros = torch.zeros_like(c_args[8])
+    headline_forms = (("warp", "split"), ("warp", "shared"), ("block", None))
+    checks = {
+        **check_chunk_body([("headline_20", c_args, c_kw)], card,
+                           headline_forms),
+        **check_chunk_body(
+            [("headline_no_shift", c_args[:8] + [zeros], c_kw),
+             ("ragged_B1000", lanes(c_args, 1000), c_kw),
+             ("chunk_10", c_args, dict(c_kw, iters=10)),
+             ("remainder_7", c_args, dict(c_kw, iters=7))], card),
+        **check_chunk_body([("dd_d56", d_args, d_kw)], card,
+                           (("warp", "shared"), ("block", None))),
+        **check_chunk_body([("full_qp_d72", f_args, f_kw)], card),
+    }
+    w_err, b_err = (max(c["worst"] for c in checks.values()
+                        if c["body"] == body) for body in ("warp", "block"))
+    timing = {
+        "headline": chunk_timing("the headline's chunk", c_args, c_kw, card,
+                                 headline_forms),
+        "dd_d56": chunk_timing("DD's shape", d_args, d_kw, card,
+                               (("warp", "shared"), ("block", None))),
+        "full_qp_d72": chunk_timing("the full QP at n = 8", f_args, f_kw,
+                                    card, ((None, None),)),
+    }
+    w_ms = timing["headline"]["forms"]["warp_chunk_kernel[split]"]["ms"]
+    w_plain = cuda_ms(
+        lambda: admm_kernel.admm_chunk_lanes_reference(*c_args, **c_kw), 5)
+    b_ms = timing["full_qp_d72"]["forms"]["admm_chunk_kernel"]["ms"]
+    b_plain = cuda_ms(
+        lambda: admm_kernel.admm_chunk_lanes_reference(*f_args, **f_kw), 5)
+    print(f"admm_chunk plain PyTorch (CUDA graphs): headline {w_plain:.4f} "
+          f"ms, full QP d = 72 {b_plain:.4f} ms; no single PyTorch call "
+          f"computes this function | {card}", flush=True)
+    report["chunk_route"] = chunk_report
+    report["chunk_checks"] = checks
+    report["admm_chunk"] = {"timing": timing, "plain_ms": w_plain,
+                            "block_plain_ms": b_plain}
+    row = {"route": "cuda", "source": f"{PKG}/csrc/admm_chunk.cu",
+           "replaces": "tpu_aerial_transport/ops/admm_kernel.py:128",
+           "library_ms": None}
+    return [
+        {"name": "warp_chunk_kernel", **row, "launches": chunk_launches,
+         "max_abs_err": w_err, "ms": w_ms, "plain_ms": w_plain,
+         "bound_ms": timing["headline"]["bound_ms"],
+         "bound_by": timing["headline"]["bound_by"]},
+        {"name": "admm_chunk_kernel", **row, "launches": runs_f,
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
+         "bound_ms": timing["full_qp_d72"]["bound_ms"],
+         "bound_by": timing["full_qp_d72"]["bound_by"]},
+    ]
+
+
+def centralized_scan_phase(card, report):
+    """Phase 20, route "scan": the centralized controller at n = 16 (the JAX
+    bench's ``centralized_n16_single``, and 256 scenarios) and n = 64
+    (``centralized_n64_single``, d = 799), where the whole-solve kernel
+    cannot hold the QP. The resolver must name "scan", no kernel may
+    launch, states stay finite; one warm-up and CHUNK_STEPS timed steps
+    each; the first step of n = 16 on 8 scenarios against the CPU."""
+    from tpu_aerial_transport_torch.control import centralized
+    from tpu_aerial_transport_torch.harness import rollout, setup
+
+    report["centralized_scan"] = {}
+    for n, S in ((16, 1), (16, N_SCENARIOS), (64, 1)):
+        params, col, _ = setup.rqp_setup(n, device="cpu")
+        cfg = centralized.make_config(
+            params, col.collision_radius, col.max_deceleration,
+            solver_iters=rollout.CENTRALIZED_SOLVER_ITERS)
+        route = centralized.solve_route(n, cfg)
+        n_box, m, soc = centralized.qp_dims(n, cfg.n_env_cbfs)
+        what = f"centralized n = {n}, {S} scenario{'s' if S > 1 else ''}"
+        if route != "scan":
+            fail(f"{what} resolved to route {route!r}, expected 'scan'")
+        step, css0, st0 = workload("centralized", n, S)
+        zero_launches()
+        first = step(css0, st0)
+        launches0 = launch_counts()
+        css, st, _, _, secs, launches, stats = timed_steps(
+            step, css0, st0, CHUNK_STEPS)
+        check_launch_counts(launches0, {}, what + " (warm-up)")
+        check_launch_counts(launches, {}, what)
+        check_states(css, st, what)
+        ok_frac = float(stats.ok_frac.mean())
+        print(f"{what}: route {route} (d = {9 + 3 * n + m}, {len(soc)} SOC "
+              f"blocks), {CHUNK_STEPS} MPC steps in {secs:.4f} s = "
+              f"{CHUNK_STEPS / secs:.2f} steps/s = "
+              f"{S * CHUNK_STEPS / secs:.2f} scenario-MPC-steps/s | solves "
+              f"under solver_tol in the last step {ok_frac:.4f} | kernel "
+              f"launches none | {card}", flush=True)
+        entry = {"route": route, "d": 9 + 3 * n + m, "steps_per_s":
+                 CHUNK_STEPS / secs, "scenario_mpc_steps_per_s":
+                 S * CHUNK_STEPS / secs, "ok_frac_last_step": ok_frac}
+        if n == 16 and S > 1:
+            entry["card_vs_cpu"] = card_vs_cpu(
+                "centralized n = 16 (route scan)", "centralized", n, first,
+                card)
+        report["centralized_scan"][f"n{n}_S{S}"] = entry
+
+
 def centralized_phases(card, report):
     """Phase 13, the shared-memory body: the entry step (n = 3) and the
     centralized rollout (n = 4), each one early-exit launch a step, against
@@ -1420,7 +1744,7 @@ def main() -> int:
         return 1
 
     from tpu_aerial_transport_torch.harness import rollout
-    from tpu_aerial_transport_torch.ops import _build, admm_kernel, socp
+    from tpu_aerial_transport_torch.ops import _build, admm_kernel
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1429,6 +1753,9 @@ def main() -> int:
           f"cuda {torch.version.cuda} | host: {os.cpu_count()} cores, load "
           f"{os.getloadavg()[0]:.2f}", flush=True)
     report = {"card": card, "kind": kind}
+    # Seconds since the start at which each phase began (the report's
+    # "phase_at"), to see where the smoke's time limit goes.
+    phase_at = report["phase_at"] = {}
 
     # 1. Build.
     t0 = time.perf_counter()
@@ -1451,6 +1778,7 @@ def main() -> int:
                       f"{v['spill_bytes']} B spilled", flush=True)
     report["build_s"] = build_s
 
+    phase_at["2"] = time.perf_counter() - t_start
     # 2. The main path, with the warm-up step's kernel inputs captured.
     run, css0, states0 = rollout.build(
         n=N_AGENTS, n_scenarios=N_SCENARIOS, max_iter=20, inner_iters=20,
@@ -1511,6 +1839,7 @@ def main() -> int:
         "launches": launches,
     }
 
+    phase_at["3"] = time.perf_counter() - t_start
     # 3. Kernel against its plain version on the main path's inputs.
     args, kw = captured[0]
     nv, n_box, soc = kw["nv"], kw["n_box"], tuple(kw["soc_dims"])
@@ -1608,6 +1937,7 @@ def main() -> int:
         "timing": main_timing,
     }
 
+    phase_at["4"] = time.perf_counter() - t_start
     # 4. Where one MPC step's time goes.
     from torch.profiler import ProfilerActivity, profile
 
@@ -1640,6 +1970,7 @@ def main() -> int:
                          "kernel_us_per_launch": in_path_us,
                          "kernels_in_trace": in_trace}
 
+    phase_at["5"] = time.perf_counter() - t_start
     # 5. The card's first step against the CPU's plain path, 8 scenarios.
     n_cpu = 8
     step_cpu, cs0_cpu, _ = rollout.make_mpc_step(
@@ -1671,6 +2002,7 @@ def main() -> int:
     if not ok:
         fail("the card's first step disagrees with the CPU plain path")
 
+    phase_at["6"] = time.perf_counter() - t_start
     # 6. The adaptive headline: the same rollout with effort="adaptive",
     # through the whole-solve kernel's early-exit form.
     step_fx, _, _ = rollout.make_mpc_step(
@@ -1777,6 +2109,7 @@ def main() -> int:
         "wall_ms": step_s * 1e3, "phases": phases_a,
         "kernel_us_per_launch": early_us, "kernels_in_trace": in_trace}
 
+    phase_at["7"] = time.perf_counter() - t_start
     # 7. DD at 256 x 8, adaptive effort (its warm-up step gives phase 8
     # DD's d = 56 inputs).
     step_dd, cs0_dd, _ = rollout.make_mpc_step(
@@ -1832,6 +2165,7 @@ def main() -> int:
                         "iters_card": it_card, "iters_cpu": it_cpu},
     }
 
+    phase_at["8"] = time.perf_counter() - t_start
     # 8. The early-exit kernel against its plain version, on inputs
     # captured from the adaptive main path (its first consensus iteration)
     # and DD's.
@@ -1877,110 +2211,25 @@ def main() -> int:
         "timing": e_timing, "dd_timing": dd_timing,
     }
 
-    # 9. The chunked route, fixed and adaptive.
-    chunk_args, chunk_report, chunk_launches = [], {}, 0
-    for effort in ("fixed", "adaptive"):
-        step_c, _, _ = rollout.make_mpc_step(
-            "cadmm", N_AGENTS, max_iter=20, inner_iters=20,
-            socp_fused="pallas", effort=effort, device="cuda")
-        with capturing(admm_kernel, "admm_chunk_lanes", chunk_args):
-            step_c(css0, states0)
-        expected = [0]
-        solve = socp.solve_socp
+    phase_at["9"] = time.perf_counter() - t_start
+    # 9. The chunk kernel: the chunked route, fixed and adaptive, and the
+    # full QP's; both bodies against their plain version and timed.
+    chunk_rows = chunk_phases(card, report, css0, states0, dd_args, lanes)
 
-        def counted(*a, **kw):
-            """The chunks a solve ran, from its effective iterations: the
-            batch runs the most full chunks any lane ran, then one
-            remainder chunk if any lane ran it."""
-            out = solve(*a, **kw)
-            ce, tol = kw.get("check_every", 0), kw.get("tol", 0.0)
-            if ce and tol > 0:
-                eff = out[1].flatten()
-                expected[0] += int((eff // ce).max()) + int(
-                    bool((eff % ce != 0).any()))
-            else:
-                expected[0] += 1
-            return out
-
-        socp.solve_socp = counted
-        try:
-            css_c, states_c, iters_c, inner_c, secs_c, launches_c, _ = \
-                timed_steps(step_c, css0, states0, CHUNK_STEPS)
-        finally:
-            socp.solve_socp = solve
-        check_launches(launches_c, "admm_chunk", expected[0],
-                       f"the chunked route ({effort})")
-        check_states(css_c, states_c, f"the chunked route ({effort})")
-        chunk_launches += launches_c["admm_chunk"]
-        runs_c = int(iters_c.max(dim=1).values.sum())
-        rate_c = N_SCENARIOS * CHUNK_STEPS / secs_c
-        print(f"chunked route (socp_fused='pallas', effort {effort}): "
-              f"{CHUNK_STEPS} MPC steps in {secs_c:.4f} s = {rate_c:.2f} "
-              f"scenario-MPC-steps/s (one host synchronisation a solve "
-              f"counts the chunks) | consensus iterations run {runs_c} | "
-              f"chunk launches {launches_c['admm_chunk']} = chunks run "
-              f"{expected[0]} | {card}", flush=True)
-        chunk_report[effort] = {
-            "scenario_mpc_steps_per_s": rate_c, "seconds": secs_c,
-            "consensus_iterations": runs_c, "launches": launches_c,
-            "chunks_run": expected[0],
-        }
-    if not chunk_args:
-        fail("no admm_chunk call captured")
-    c_args, c_kw = chunk_args[0]
-    c_names = ("x", "y", "z")
-    c_checks, c_err = {}, 0.0
-    for case, a, k in (("headline_20", c_args, c_kw),
-                       ("ragged_B1000", lanes(c_args, 1000), c_kw),
-                       ("chunk_10", c_args, dict(c_kw, iters=10))):
-        got = admm_kernel.admm_chunk_lanes(*a, **k)
-        ref = admm_kernel.admm_chunk_lanes_reference(*a, **k)
-        ref64 = admm_kernel.admm_chunk_lanes_reference(*in_float64(a), **k)
-        torch.cuda.synchronize()
-        errs, noise, ok = agreement(c_names, got, ref, ref64)
-        c_err = max(c_err, max(errs.values()))
-        print(f"chunk kernel check {case}: B={a[0].shape[0]} "
-              f"d={k['nv'] + a[5].shape[-1]} iters={k['iters']} max|err| "
-              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
-              + "; plain float32 vs float64 "
-              + " ".join(f"{n}={e:.3e}" for n, e in noise.items())
-              + f" (bar max({KERNEL_ATOL} x max(1, |ref|), "
-              f"{ROUNDING_FACTOR} x that)) "
-              + ("ok" if ok else "FAIL"), flush=True)
-        c_checks[case] = {"B": a[0].shape[0], "max_abs_err": errs,
-                          "plain_f32_vs_f64": noise, "ok": ok}
-        if not ok:
-            fail(f"chunk kernel disagrees with its plain version on {case}")
-    B_c = c_args[0].shape[0]
-    m_c = c_args[5].shape[-1]
-    c_bytes = B_c * admm_kernel.admm_chunk_bytes_per_lane(
-        c_kw["nv"], m_c, c_kw["n_box"])
-    c_flops = B_c * admm_kernel.admm_chunk_flops_per_lane(
-        c_kw["nv"], m_c, c_kw["iters"], tuple(c_kw["soc_dims"]))
-    c_bound, c_by = bound(c_bytes, c_flops)
-    c_ms = cuda_ms(lambda: admm_kernel.admm_chunk_lanes(*c_args, **c_kw), 100)
-    c_plain = cuda_ms(
-        lambda: admm_kernel.admm_chunk_lanes_reference(*c_args, **c_kw), 5)
-    print(f"admm_chunk timing (B={B_c}, d={c_kw['nv'] + m_c}, "
-          f"iters={c_kw['iters']}): kernel {c_ms:.4f} ms/launch, plain "
-          f"PyTorch {c_plain:.4f} ms (both CUDA graphs), bound {c_bound:.4f}"
-          f" ms by {c_by} ({c_bytes / 1e6:.2f} MB, {c_flops / 1e6:.1f} MFLOP)"
-          f"; no single PyTorch call computes this function | {card}",
-          flush=True)
-    report["chunk_route"] = chunk_report
-    report["chunk_checks"] = c_checks
-    report["admm_chunk"] = {
-        "kernel_ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
-        "bound_by": c_by, "bytes": c_bytes, "flops": c_flops,
-    }
-
+    phase_at["10"] = time.perf_counter() - t_start
     # 10-12. bf16 storage; 13. the entry step and the centralized
     # controller; 14. C-ADMM's full QP, rho schedule and two-phase budget.
     bf16_rows = bf16_phases(card, report, lanes)
+    phase_at["13"] = time.perf_counter() - t_start
     central_rows = centralized_phases(card, report)
+    phase_at["14"] = time.perf_counter() - t_start
     option_launches = cadmm_option_phases(card, report)
+    phase_at["15"] = time.perf_counter() - t_start
     # 15-19. The agent-sharded paths and the ring-sum kernel.
     ring_row = sharded_phases(card, report)
+    phase_at["20"] = time.perf_counter() - t_start
+    # 20. The centralized controller at n = 16 and 64: route "scan".
+    centralized_scan_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],
@@ -1988,14 +2237,7 @@ def main() -> int:
                       for c in checks.values()), plain_ms, bound_by),
         solve_row(e_timing, launches_a["fused_solve_early"], e_err, e_plain,
                   e_by),
-    ] + bf16_rows + central_rows + [{
-        "name": "admm_chunk_kernel", "route": "cuda",
-        "source": f"{PKG}/csrc/admm_chunk.cu",
-        "replaces": "tpu_aerial_transport/ops/admm_kernel.py:128",
-        "launches": chunk_launches, "max_abs_err": c_err, "ms": c_ms,
-        "plain_ms": c_plain, "bound_ms": c_bound, "bound_by": c_by,
-        "library_ms": None,
-    }, ring_row]
+    ] + bf16_rows + central_rows + chunk_rows + [ring_row]
     report["kernels"] = kernels
     report["launches_elsewhere"] = {
         "fused_solve_cadmm_options": option_launches,
@@ -2007,7 +2249,9 @@ def main() -> int:
     report["total_s"] = total_s
     with open(path, "w") as f:
         json.dump(report, f, indent=1, default=str)
-    print(f"total: {total_s:.1f} s, the build included | {card}", flush=True)
+    print(f"total: {total_s:.1f} s, the build included; phases began at "
+          + ", ".join(f"{k}: {v:.1f} s" for k, v in phase_at.items())
+          + f" | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,7 @@ from test_torch_cadmm import _scenarios, _t
 from tpu_aerial_transport.control import centralized as jcentral
 from tpu_aerial_transport.envs import forest as jforest
 from tpu_aerial_transport.harness import setup as jsetup
+from tpu_aerial_transport.ops import socp as jsocp
 from tpu_aerial_transport_torch import convert, entry
 from tpu_aerial_transport_torch.control import centralized
 from tpu_aerial_transport_torch.control.types import EnvCBF
@@ -182,6 +183,38 @@ def test_bench_rollout_matches_jax():
     np.testing.assert_allclose(css.prev_f.numpy(), np.asarray(jcss.prev_f),
                                atol=1e-3, rtol=0)
     assert np.all(np.asarray(jst.ok_frac) == 1.0)
+
+
+def test_centralized_n16_step_matches_jax():
+    """One step of ``rollout.build(controller="centralized", n=16)``
+    against the JAX bench's ``make_mpc_step("centralized", 16)`` vmapped
+    over 2 seeded scenarios. At d = 223 and 32 SOC blocks no kernel holds
+    the QP: both packages resolve it to route "scan" (the JAX package on
+    the CPU by its backend, the port by shape). States to 1e-4, forces to
+    1e-3 N (the bench rollout's bars)."""
+    S, n = 2, 16
+    n_box, m, soc = centralized.qp_dims(n, 10)
+    assert jsocp.runtime_fused_mode("auto", 9 + 3 * n, m, n_box) == "scan"
+    params, col, _ = setup.rqp_setup(n, device="cpu")
+    cfg = centralized.make_config(params, col.collision_radius,
+                                  col.max_deceleration)
+    assert centralized.solve_route(n, cfg) == "scan"
+    jstep, jcs0, jst0 = bench.make_mpc_step("centralized", n)
+    jstates = bench._scenario_batch(jst0, S)
+    jcss = jax.vmap(lambda _: jcs0)(jnp.arange(S))
+    jcss, jstates, jst = jax.jit(jax.vmap(jstep))(jcss, jstates)
+    run, css, states = rollout.build(n=n, n_scenarios=S, device="cpu",
+                                     controller="centralized")
+    before = dict(admm_kernel.LAUNCHES)
+    css, states, iters = run(css, states, 1)
+    assert admm_kernel.LAUNCHES == before
+    assert iters.tolist() == [[-1] * S]
+    for f in KEYS:
+        np.testing.assert_allclose(getattr(states, f).numpy(),
+                                   np.asarray(getattr(jstates, f)),
+                                   atol=1e-4, rtol=0, err_msg=f)
+    np.testing.assert_allclose(css.prev_f.numpy(), np.asarray(jcss.prev_f),
+                               atol=1e-3, rtol=0)
 
 
 def test_failed_solve_keeps_previous_forces_and_warm_start():

@@ -173,8 +173,8 @@ def test_ported_options_build(kw):
 
 def test_resolve_effort_and_route(monkeypatch):
     """``effort="auto"`` follows TAT_EFFORT, else fixed; junk raises; the
-    route "auto" is the whole-solve kernel, and the JAX package's
-    scan/interpret modes have no counterpart here."""
+    route "auto" is the whole-solve kernel, "scan" is a route of its own,
+    and the JAX package's interpret modes have no counterpart here."""
     monkeypatch.delenv("TAT_EFFORT", raising=False)
     assert socp.resolve_effort("auto") == "fixed"
     assert socp.resolve_effort(None) == "fixed"
@@ -188,7 +188,8 @@ def test_resolve_effort_and_route(monkeypatch):
     with pytest.raises(ValueError):
         socp.resolve_effort("turbo")
     assert socp.resolve_route("auto") == "kernel"
-    for mode in ("scan", "interpret", "reference"):
+    assert socp.resolve_route("scan") == "scan"
+    for mode in ("interpret", "kernel_interpret", "reference"):
         with pytest.raises(ValueError, match="socp_fused"):
             socp.resolve_route(mode)
 
@@ -231,7 +232,7 @@ def test_left_out_call_paths_raise():
                          rollout.stack_scenarios(st0, 2))
     assert torch.isfinite(st1.xl).all() and stats.iters.tolist() == [-1, -1]
     with pytest.raises(ValueError, match="socp_fused"):
-        _cfg(socp_fused="scan")
+        _cfg(socp_fused="interpret")
     with pytest.raises(ValueError, match="precision"):
         _cfg(socp_precision="fp8")
     with pytest.raises(ValueError, match="precision"):

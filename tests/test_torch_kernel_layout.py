@@ -1,7 +1,9 @@
 """The port's kernel launch layouts, decided on the host: which body of the
-whole-solve kernel each QP shape takes, its block and shared memory, and
-the ring-sum kernel's shard cap. Nothing here needs a card: the wrapper
-decides from the shapes alone, and these are the decisions it makes.
+whole-solve kernel and of the chunk kernel each QP shape takes, its block
+and shared memory, the solver's route resolver against the wrappers'
+refusals, and the ring-sum kernel's shard cap. Nothing here needs a card:
+the wrapper decides from the shapes alone, and these are the decisions it
+makes.
 
 The expected shared-memory sizes are written out from the layout that
 ``csrc/fused_solve.cu`` documents (row strides of an odd number of
@@ -13,7 +15,7 @@ import torch
 
 from tpu_aerial_transport_torch.control import cadmm, centralized, dd
 from tpu_aerial_transport_torch.harness import setup
-from tpu_aerial_transport_torch.ops import admm_kernel
+from tpu_aerial_transport_torch.ops import admm_kernel, socp
 from tpu_aerial_transport_torch.parallel import ring
 
 # Shared memory of one H100 SM (228 KB) and what the runtime reserves a
@@ -139,3 +141,114 @@ def test_ring_sum_shard_cap():
     assert torch.equal(out, ring.ring_sum_shards_reference(x))
     with pytest.raises(ValueError, match="at most 32.*registers"):
         ring.ring_sum_shards(torch.zeros((33, 5)))
+
+
+@pytest.mark.parametrize("controller,n,nv,m,x_rows,lane_floats", [
+    # u 48; x rows in two half-warps' registers.
+    ("cadmm", 8, 16, 32, "split", 48),
+    # u 56, then K2's 24 x rows x 60 in shared memory.
+    ("dd", 8, 24, 32, "shared", 56 + 24 * 60),
+])
+def test_agent_qps_take_the_warp_chunk_body(controller, n, nv, m, x_rows,
+                                            lane_floats):
+    """The chunk kernel runs every agent QP one warp a lane, four lanes a
+    block: the headline (d = 48, nv = 16) with K2's x rows split across
+    the two half-warps' registers, DD (d = 56, nv = 24) with them in
+    shared memory; 16 lanes fit an SM's shared memory."""
+    assert _agent_dims(controller, n) == (nv, m)
+    geo = admm_kernel.admm_chunk_geometry(nv, m)
+    assert geo == admm_kernel.ChunkGeometry("warp", x_rows, 4, 128,
+                                            4 * 4 * lane_floats)
+    blocks = 16 // geo.lanes_per_block
+    assert blocks * (geo.smem_bytes + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
+    assert admm_kernel.admm_chunk_fits(nv, m, m - 8, (4, 4))
+    admm_kernel._check_layout("admm_chunk", nv, m, m - 8, (4, 4), 20,
+                              geo.smem_bytes)
+
+
+@pytest.mark.parametrize("nv,m,threads", [
+    (40, 32, 96),  # C-ADMM's full QP at n = 8, padded: d = 72.
+    (33, 31, 64), (12, 33, 64),  # d = 64, one side past 32.
+    (57, 94, 160),  # a centralized-sized QP.
+])
+def test_chunk_shapes_beyond_the_warp_take_the_block_body(nv, m, threads):
+    """Past 32 x rows or 32 constraint rows the chunk kernel keeps one
+    block of whole warps a lane with K2 in shared memory (odd row stride,
+    two d-vectors); the warp body cannot be forced there, and the split
+    layout only up to 16 x rows."""
+    d = nv + m
+    geo = admm_kernel.admm_chunk_geometry(nv, m)
+    assert geo == admm_kernel.ChunkGeometry(
+        "block", None, 1, threads, 4 * (d * (d | 1) + 2 * d))
+    with pytest.raises(ValueError, match="warp"):
+        admm_kernel.admm_chunk_geometry(nv, m, "warp")
+    with pytest.raises(ValueError, match="split"):
+        admm_kernel.admm_chunk_geometry(24, 32, "warp", "split")
+    assert admm_kernel.admm_chunk_geometry(16, 32, "block").body == "block"
+    assert admm_kernel.admm_chunk_geometry(
+        16, 32, "warp", "shared").smem_bytes == 4 * 4 * (48 + 16 * 52)
+
+
+# (nv, m, n_box, soc_dims) of the solves the port runs: the centralized QPs
+# at n agents, and the padded agent QPs.
+_CENTRAL = {f"central_n{n}": _central_dims(n)
+            for n in (1, 2, 3, 4, 6, 8, 9, 10, 16, 64)}
+_AGENTS = {"cadmm_d48": (16, 32, 24, (4, 4)), "dd_d56": (24, 32, 24, (4, 4)),
+           "full_qp_n8_d72": (40, 32, 24, (4, 4)),
+           "cadmm_unpadded": (12, 25, 17, (4, 4))}
+_SHAPES = {**_CENTRAL, **_AGENTS}
+
+
+@pytest.mark.parametrize("shape", list(_SHAPES), ids=list(_SHAPES))
+def test_route_resolver_agrees_with_the_kernels_refusal(shape):
+    """``runtime_fused_mode`` over every route: a shape it sends to a
+    kernel ("kernel" or "pallas") is one that kernel's wrapper accepts
+    (``_check_layout``), and a shape it turns from that kernel into "scan"
+    is one the wrapper refuses; "scan" stays "scan", and "auto" is
+    "kernel" resolved the same way."""
+    nv, m, n_box, soc = _SHAPES[shape]
+    geos = {"kernel": ("fused_solve",
+                       admm_kernel.fused_solve_geometry(nv, m).smem_bytes),
+            "pallas": ("admm_chunk",
+                       admm_kernel.admm_chunk_geometry(nv, m).smem_bytes)}
+    for route in ("kernel", "pallas"):
+        kernel, smem = geos[route]
+        got = socp.runtime_fused_mode(route, nv, m, n_box, soc,
+                                      check_every=5, tol=1e-3)
+        if got == route:
+            admm_kernel._check_layout(kernel, nv, m, n_box, soc, 20, smem)
+        else:
+            assert got == "scan"
+            with pytest.raises(ValueError, match="kernel takes"):
+                admm_kernel._check_layout(kernel, nv, m, n_box, soc, 20,
+                                          smem)
+    assert socp.runtime_fused_mode("auto", nv, m, n_box, soc) == \
+        socp.runtime_fused_mode("kernel", nv, m, n_box, soc)
+    assert socp.runtime_fused_mode("scan", nv, m, n_box, soc) == "scan"
+    if shape in _AGENTS:  # every agent QP runs on a kernel route.
+        assert socp.runtime_fused_mode("auto", nv, m, n_box, soc) == \
+            "kernel"
+        assert socp.runtime_fused_mode("pallas", nv, m, n_box, soc) == \
+            "pallas"
+
+
+def test_route_resolver_boundary_and_bad_routes():
+    """Centralized n <= 8 (at most 16 SOC blocks) stays on the whole-solve
+    kernel; from n = 9 (18 blocks) both kernel routes resolve to "scan";
+    the controller's own label says the same; routes outside ROUTES and
+    "auto" are ValueErrors."""
+    for n in range(1, 17):
+        nv, m, n_box, soc = _central_dims(n)
+        want = "kernel" if n <= 8 else "scan"
+        assert socp.runtime_fused_mode("auto", nv, m, n_box, soc) == want
+        assert (socp.runtime_fused_mode("pallas", nv, m, n_box, soc)
+                == ("pallas" if n <= 8 else "scan"))
+        params, col, _ = setup.rqp_setup(n, device="cpu")
+        cfg = centralized.make_config(params, col.collision_radius,
+                                      col.max_deceleration)
+        assert centralized.solve_route(n, cfg) == want
+    assert admm_kernel.fused_solve_fits(*_central_dims(8))
+    assert not admm_kernel.fused_solve_fits(*_central_dims(9))
+    for bad in ("interpret", "kernel_interpret", "turbo"):
+        with pytest.raises(ValueError, match="socp_fused"):
+            socp.runtime_fused_mode(bad, 16, 32, 24, (4, 4))

@@ -208,3 +208,90 @@ def test_solve_socp_builds_its_operator():
                                        p_scale=1.0 / nv)
     kw = dict(n_box=n_box, soc_dims=soc, iters=25)
     _assert_solutions(*_solve_pair(P, q, A, lb, ub, shift, kw), 1e-4)
+
+
+def _central_shape(n):
+    """(nv, n_box, soc) of the centralized QP at n agents (the JAX package's
+    qp_dims with 10 environment rows): n = 16 is d = 223 with 32 SOC
+    blocks, n = 64 d = 799 with 128."""
+    return 9 + 3 * n, 12 + n + 10, (4,) * (2 * n)
+
+
+def _scan_pair(n, B, kw, seed, warm=False):
+    """The JAX package's scan route (vmapped) and the port's solve on the
+    same seeded problems and JAX-built operator at the centralized n-agent
+    shape, cold started or (``warm``) warm started from the JAX cold
+    solution with a moved q. The port runs through "auto", which its
+    resolver sends to "scan" at this shape, through "scan" itself, and
+    through "scan" in float64 (the yardstick of its float32 rounding)."""
+    nv, n_box, soc = _central_shape(n)
+    P, q, A, lb, ub, shift = _problems(B, nv, n_box, soc, seed=seed,
+                                       p_scale=1.0 / nv)
+    m = n_box + sum(soc)
+    assert socp.runtime_fused_mode("auto", nv, m, n_box, soc) == "scan"
+    rho = jax.vmap(lambda l_, u_: jsocp.make_rho_vec(m, n_box, l_, u_, 0.4))(
+        lb, ub)
+    op = jax.vmap(jsocp.kkt_operator)(jnp.asarray(P), jnp.asarray(A), rho)
+    kw = dict(kw, n_box=n_box, soc_dims=soc)
+    start = None
+    if warm:
+        start, _ = _solve_pair(P, q, A, lb, ub, shift,
+                               dict(n_box=n_box, soc_dims=soc, iters=30),
+                               op=op)
+        q = q + 0.1
+
+    def conv(t, dtype=torch.float32):
+        return None if t is None else type(t)(
+            *(_t(np.asarray(a)).to(dtype) for a in t))
+
+    ref, auto = _solve_pair(P, q, A, lb, ub, shift, kw, op=op, warm=start)
+    scan = socp.solve_socp(*map(_t, (P, q, A, lb, ub)), shift=_t(shift),
+                           op=conv(op), warm=conv(start), fused="scan", **kw)
+    f64 = torch.float64
+    scan64 = socp.solve_socp(
+        *(_t(a).to(f64) for a in (P, q, A, lb, ub)), shift=_t(shift).to(f64),
+        op=conv(op, f64), warm=conv(start, f64), fused="scan", **kw)
+    return ref, (auto, scan, scan64)
+
+
+def _close(ref, out, out64):
+    """The smoke's kernel bar, per output: 1e-4 x max(1, |ref|), or twice
+    the port's own float32 rounding (its distance from the same solve in
+    float64) where that is larger. The duals of the three equality rows
+    move by rho = 400 times the rounding of A x, which the two frameworks'
+    sums round apart (chip_smoke.py ROUNDING_FACTOR)."""
+    for a, b, c in zip(ref, out, out64):
+        a = np.asarray(a)
+        noise = float((b.double() - c).abs().max())
+        bar = max(1e-4 * max(1.0, float(np.abs(a).max())), 2.0 * noise)
+        np.testing.assert_allclose(b.numpy(), a, rtol=0, atol=bar)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("form", ["fixed", "chunked"])
+def test_scan_route_matches_jax_at_centralized_n16(form, warm):
+    """Route "scan" against the JAX package's ``fused="scan"`` at the
+    centralized n = 16 shape (d = 223, 32 SOC blocks: no kernel holds it),
+    fixed-iteration and tolerance-chunked (with the effective iterations
+    each lane ran, equal in both packages and in float64), cold and warm
+    started, within the kernel bar (:func:`_close`). The port's "auto" and
+    "scan" give the same bits at this shape."""
+    kw = dict(iters=40)
+    if form == "chunked":
+        kw.update(check_every=10, tol=2e-2, report_iters=True)
+    ref, (auto, scan, scan64) = _scan_pair(16, 3, kw, seed=11, warm=warm)
+    if form == "chunked":
+        (ref, ref_eff), (auto, eff), (scan, eff_s), (scan64, eff64) = (
+            ref, auto, scan, scan64)
+        assert eff.tolist() == np.asarray(ref_eff).tolist()
+        assert torch.equal(eff, eff_s) and torch.equal(eff, eff64)
+    _close(ref, auto, scan64)
+    for a, b in zip(auto, scan):
+        assert torch.equal(a, b)
+
+
+def test_scan_route_matches_jax_at_centralized_n64():
+    """One lane at the centralized n = 64 shape (d = 799, 128 SOC blocks),
+    a few iterations of route "scan" against the JAX package's."""
+    ref, (auto, _, auto64) = _scan_pair(64, 1, dict(iters=4), seed=12)
+    _close(ref, auto, auto64)

@@ -13,10 +13,14 @@ Counterpart of ``tpu_aerial_transport/control/centralized.py``. The problem:
             up to n_env_cbfs collision CBF rows  lhs @ dvl >= rhs.
 
 All ``S`` scenarios' QPs are one batched solve (``ops.socp.solve_socp``,
-route ``"kernel"``): warm-started, tolerance-chunked (``solver_check_every``
-iterations a chunk, to ``solver_tol``, capped at ``solver_iters``), so on
-the card one launch of the whole-solve kernel's early-exit form per MPC
-step, at d = 9 + 3n + 12 + n + n_env_cbfs + 8n (67 at n = 3, 79 at n = 4).
+route ``"auto"``, as the JAX package's controller takes it): warm-started,
+tolerance-chunked (``solver_check_every`` iterations a chunk, to
+``solver_tol``, capped at ``solver_iters``), at d = 9 + 3n + 12 + n +
+n_env_cbfs + 8n (67 at n = 3, 79 at n = 4, 223 at n = 16). The solver's
+resolver decides the route from that shape (:func:`solve_route`): up to
+n = 8 the whole-solve kernel holds it, one launch of its early-exit form per
+MPC step on the card; from n = 9 (more than 16 SOC blocks) the ``"scan"``
+route runs it in plain tensor ops.
 A scenario whose solve fails keeps its previous forces and warm start.
 ``equilibrium_forces`` and ``smooth_block`` are shared with the distributed
 controllers.
@@ -198,6 +202,16 @@ def init_ctrl_state(params: RQPParams, cfg: RQPCentralizedConfig,
         dual_res=torch.zeros((), **kw),
     )
     return CtrlState(prev_f=f_eq.clone(), warm=warm)
+
+
+def solve_route(n: int, cfg: RQPCentralizedConfig) -> str:
+    """The route the controller's solve runs at ``n`` agents
+    (``ops.socp.runtime_fused_mode`` of ``"auto"`` at its shape): the JAX
+    bench's ``fused_resolved`` label."""
+    n_box, m, soc_dims = qp_dims(n, cfg.n_env_cbfs)
+    return socp.runtime_fused_mode(
+        "auto", 9 + 3 * n, m, n_box, soc_dims,
+        check_every=cfg.solver_check_every, tol=cfg.solver_tol)
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

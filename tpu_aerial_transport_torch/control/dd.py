@@ -455,8 +455,10 @@ def control(
         rho_vec = socp.make_rho_vec(m, n_box, lb, ub, 0.4)
         op = socp.kkt_operator(P, A, rho_vec)
         # bf16 storage: rounded once per control step, not per solve.
+        route = socp.runtime_fused_mode(base.socp_fused, A.shape[-1], m,
+                                        n_box, (4, 4))
         op, A, P = socp.stored_operators(op, A, P, base.socp_precision,
-                                         base.socp_fused)
+                                         route)
 
     if plan is None:
         plan = make_dd_plan(params, cfg)

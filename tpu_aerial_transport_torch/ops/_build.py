@@ -4,14 +4,17 @@ Each source is compiled by ``nvcc`` into its own shared library with a plain C
 interface, loaded through ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -split-compile=0 \\
+         -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 The library name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
 a stale library is never loaded. The build directory is
 ``build/kernels`` beside the package (listed in ``.gitignore``), or
 ``TAT_TORCH_BUILD_DIR``. :func:`build` compiles several sources at once, one
-``nvcc`` process each, all started together.
+``nvcc`` process each, all started together; ``-split-compile=0`` lets
+each one compile its entry functions on every core, so the build (which
+counts against the smoke's time limit) does not wait on one core a source.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 KERNELS = ("fused_solve", "admm_chunk", "ring_sum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
 )
 
 _LOCK = threading.Lock()

@@ -39,7 +39,15 @@ alone (:func:`fused_solve_geometry`): ``nv`` and ``m`` at most
 ``WARP_MAX_ROWS`` (every agent QP) runs one warp per lane, each thread
 holding one constraint row of K2 in registers (``warp_solve_*kernel``);
 other shapes (the centralized QPs) one block per lane with every operator
-in shared memory (``fused_solve_*kernel``).
+in shared memory (``fused_solve_*kernel``). The chunk kernel has the same
+two bodies (:func:`admm_chunk_geometry`): ``warp_chunk_kernel`` for the
+agent QPs, with K2's x rows in registers where ``nv <= 16`` and in shared
+memory otherwise, and the one-block-a-lane ``admm_chunk_kernel`` beyond.
+
+:func:`fused_solve_fits` and :func:`admm_chunk_fits` say from the shape
+alone whether a kernel takes a solve; the solver's route resolver
+(``ops.socp.runtime_fused_mode``) reads them, and the wrappers refuse what
+they reject (:func:`_check_layout`), from the same limits.
 """
 
 from __future__ import annotations
@@ -72,6 +80,18 @@ KERNEL_NAMES = {
 }
 KERNEL_LAUNCHES = {name: 0 for name in KERNEL_NAMES.values()}
 
+# The chunk kernel's entry points by body, as a trace names them, and a
+# launch counter for each, added to beside LAUNCHES["admm_chunk"].
+CHUNK_BODIES = ("block", "warp")
+CHUNK_KERNEL_NAMES = {"block": "admm_chunk_kernel",
+                      "warp": "warp_chunk_kernel"}
+CHUNK_LAUNCHES = {name: 0 for name in CHUNK_KERNEL_NAMES.values()}
+# Layouts of K2's x rows in the chunk kernel's warp body (csrc/admm_chunk.cu
+# WC_SHARED, WC_SPLIT): the warp's shared memory, or each row's two halves
+# in two threads' registers (at most WARP_SPLIT_MAX_NV rows).
+X_ROWS = ("shared", "split")
+WARP_SPLIT_MAX_NV = 16
+
 # Operator storage of the whole-solve kernel, by precision name.
 STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -102,10 +122,13 @@ _FUSED_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [
 # fused_solve_info(nv, m, bf16, early, body, device, int out[6]).
 _INFO_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # admm_chunk_launch(9 input and 3 output pointers, B, nv, m, n_box, iters,
-# has_shift, alpha, 1 - alpha, soc, device, stream) -> cudaError_t.
-_CHUNK_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+# has_shift, body, x_rows, alpha, 1 - alpha, soc, device, stream) ->
+# cudaError_t.
+_CHUNK_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_float, _SocDims, ctypes.c_int, ctypes.c_void_p,
 ]
+# admm_chunk_info(nv, m, body, x_rows, device, int out[6]).
+_CHUNK_INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _iter_flops(nv: int, m: int, soc_dims: Sequence[int]) -> int:
@@ -253,10 +276,89 @@ def admm_chunk_flops_per_lane(nv: int, m: int, iters: int,
 
 
 def admm_chunk_smem_bytes(nv: int, m: int) -> int:
-    """Dynamic shared memory of one chunk block: K2 with an odd row stride
-    and two d-vectors (csrc/admm_chunk.cu chunk_smem_floats)."""
+    """Dynamic shared memory of one block (one lane) of the chunk kernel's
+    block body: K2 with an odd row stride and two d-vectors
+    (csrc/admm_chunk.cu chunk_smem_floats)."""
     d = nv + m
     return 4 * (d * (d | 1) + 2 * d)
+
+
+def warp_chunk_smem_bytes(nv: int, m: int, x_rows: str) -> int:
+    """Shared memory of one lane (warp) of the chunk kernel's warp body: u
+    at d rounded up to 8 entries, and K2's x rows with an odd-word row
+    stride where they live in shared memory (csrc/admm_chunk.cu
+    wc_smem_floats)."""
+    dr = _round_up(nv + m, 8)
+    return 4 * (dr + (nv * _ld16(dr) if x_rows == "shared" else 0))
+
+
+class ChunkGeometry(NamedTuple):
+    """How the chunk kernel launches for one (nv, m)."""
+
+    body: str  # "warp" or "block".
+    x_rows: str | None  # the warp body's layout of K2's x rows.
+    lanes_per_block: int
+    threads: int  # a block.
+    smem_bytes: int  # dynamic shared memory a block.
+
+
+def admm_chunk_geometry(nv: int, m: int, body: str | None = None,
+                        x_rows: str | None = None) -> ChunkGeometry:
+    """The chunk kernel's body and launch shape for ``(nv, m)``.
+    ``body=None`` decides from the shape alone, as the wrapper does: one
+    warp per lane, ``WARP_LANES_PER_BLOCK`` lanes a block, when ``nv`` and
+    ``m`` are both at most ``WARP_MAX_ROWS`` (every agent QP); else one
+    block of ``d`` threads (whole warps) per lane. In the warp body
+    ``x_rows=None`` holds K2's x rows in registers, split across the two
+    half-warps, where ``nv <= WARP_SPLIT_MAX_NV`` (the C-ADMM headline,
+    d = 48: no spills, faster than shared memory on an H100), and in the
+    warp's shared memory otherwise (DD, d = 56, where whole rows in
+    registers spill at the 128-register cap that keeps 16 lanes an SM).
+    ``body``/``x_rows`` force a body or layout, to time one against another
+    on the same inputs."""
+    d = nv + m
+    fits = nv <= WARP_MAX_ROWS and m <= WARP_MAX_ROWS
+    if body is None:
+        body = "warp" if fits else "block"
+    if body not in CHUNK_BODIES or (body == "warp" and not fits):
+        raise ValueError(f"body={body!r} for nv={nv}, m={m}: expected one "
+                         f"of {CHUNK_BODIES}, 'warp' only for nv and m at "
+                         f"most {WARP_MAX_ROWS}")
+    if body == "block":
+        if x_rows is not None:
+            raise ValueError("x_rows= applies to the warp body only")
+        return ChunkGeometry("block", None, 1, -(-d // 32) * 32,
+                             admm_chunk_smem_bytes(nv, m))
+    if x_rows is None:
+        x_rows = "split" if nv <= WARP_SPLIT_MAX_NV else "shared"
+    if x_rows not in X_ROWS or (x_rows == "split"
+                                and nv > WARP_SPLIT_MAX_NV):
+        raise ValueError(f"x_rows={x_rows!r} for nv={nv}: expected one of "
+                         f"{X_ROWS}, 'split' only for nv at most "
+                         f"{WARP_SPLIT_MAX_NV}")
+    return ChunkGeometry("warp", x_rows, WARP_LANES_PER_BLOCK,
+                         32 * WARP_LANES_PER_BLOCK,
+                         WARP_LANES_PER_BLOCK
+                         * warp_chunk_smem_bytes(nv, m, x_rows))
+
+
+def admm_chunk_info(nv: int, m: int, *, body: str | None = None,
+                    x_rows: str | None = None, device=None) -> dict:
+    """What the build made of the chunk entry point a launch at ``(nv, m)``
+    takes (``body``/``x_rows`` as in :func:`admm_chunk_geometry`), from
+    the library itself, as :func:`fused_solve_info` reports it."""
+    geo = admm_chunk_geometry(nv, m, body, x_rows)
+    fn = _build.bind("admm_chunk", _CHUNK_INFO_ARGTYPES, "info")
+    index = torch.device("cuda" if device is None else device).index
+    index = torch.cuda.current_device() if index is None else index
+    out = (ctypes.c_int * 6)()
+    err = fn(nv, m, CHUNK_BODIES.index(geo.body),
+             X_ROWS.index(geo.x_rows) if geo.x_rows else 0, index, out)
+    _build.raise_on(err, "admm_chunk")
+    return {"name": CHUNK_KERNEL_NAMES[geo.body], "x_rows": geo.x_rows,
+            "lanes_per_block": out[0], "threads": out[1],
+            "smem_bytes": out[2], "registers": out[3],
+            "local_bytes": out[4], "lanes_per_sm": out[5]}
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -381,6 +483,33 @@ def _check(name, t, shape, device, dtype=torch.float32):
         raise ValueError(f"{name} is not contiguous")
 
 
+def _holds(nv: int, m: int, soc_dims, smem: int) -> bool:
+    """Whether a kernel's limits take the shape: at most MAX_SOC_BLOCKS
+    SOC blocks, d at most MAX_DIM, and ``smem`` (its launch's dynamic
+    shared memory a block) at most MAX_SMEM_BYTES."""
+    return (len(soc_dims) <= MAX_SOC_BLOCKS and nv + m <= MAX_DIM
+            and smem <= MAX_SMEM_BYTES)
+
+
+def fused_solve_fits(nv: int, m: int, n_box: int,
+                     soc_dims: Sequence[int]) -> bool:
+    """Whether the whole-solve kernel takes a solve of this shape, at the
+    body and shared memory :func:`fused_solve_geometry` gives it: the limits
+    :func:`_check_layout` enforces in :func:`fused_solve_lanes`. ``n_box``
+    is part of the shape the solver passes; the limits do not read it."""
+    del n_box
+    return _holds(nv, m, soc_dims, fused_solve_geometry(nv, m).smem_bytes)
+
+
+def admm_chunk_fits(nv: int, m: int, n_box: int,
+                    soc_dims: Sequence[int]) -> bool:
+    """Whether the chunk kernel takes a solve of this shape, at the body
+    and shared memory :func:`admm_chunk_geometry` gives it (the limits
+    :func:`_check_layout` enforces in :func:`admm_chunk_lanes`)."""
+    del n_box
+    return _holds(nv, m, soc_dims, admm_chunk_geometry(nv, m).smem_bytes)
+
+
 def _check_layout(kernel, nv, m, n_box, soc_dims, iters, smem):
     """Raise on a cone layout or size the kernels do not take."""
     d = nv + m
@@ -388,8 +517,7 @@ def _check_layout(kernel, nv, m, n_box, soc_dims, iters, smem):
         raise ValueError(
             f"m={m} != n_box={n_box} + sum(soc_dims)={sum(soc_dims)}"
         )
-    if (len(soc_dims) > MAX_SOC_BLOCKS or d > MAX_DIM or iters < 0
-            or smem > MAX_SMEM_BYTES):
+    if not _holds(nv, m, soc_dims, smem) or iters < 0:
         raise ValueError(
             f"{kernel} kernel takes d <= {MAX_DIM}, at most "
             f"{MAX_SOC_BLOCKS} SOC blocks, {MAX_SMEM_BYTES} B of shared "
@@ -511,14 +639,17 @@ def fused_solve_lanes(
 def admm_chunk_lanes(
     x, y, z, K2, w2, rho, lb, ub, shift,
     *, nv: int, n_box: int, soc_dims: Sequence[int], iters: int,
-    alpha: float,
+    alpha: float, body: str | None = None, x_rows: str | None = None,
 ):
     """``iters`` ADMM iterations per lane with ``K2`` and ``w2`` given,
     batch-first ``(B, rows...)``; returns ``(x, y, z)``.
 
     CPU tensors run :func:`admm_chunk_lanes_reference`. CUDA tensors launch
     the kernel on the current stream (no synchronisation) or raise, as
-    :func:`fused_solve_lanes` does."""
+    :func:`fused_solve_lanes` does. The body and the x-row layout are
+    chosen from the shape alone (:func:`admm_chunk_geometry`); ``body`` and
+    ``x_rows`` force them, to time one against another on the same inputs
+    (the port's callers never pass them)."""
     if x.device.type == "cpu":
         return admm_chunk_lanes_reference(
             x, y, z, K2, w2, rho, lb, ub, shift, nv=nv, n_box=n_box,
@@ -530,8 +661,9 @@ def admm_chunk_lanes(
     B = x.shape[0]
     m = rho.shape[-1]
     d = nv + m
+    geo = admm_chunk_geometry(nv, m, body, x_rows)
     _check_layout("admm_chunk", nv, m, n_box, soc_dims, iters,
-                  admm_chunk_smem_bytes(nv, m))
+                  geo.smem_bytes)
     dev = x.device
     for name, t, shape in (
         ("x", x, (B, nv)), ("y", y, (B, m)), ("z", z, (B, m)),
@@ -549,9 +681,11 @@ def admm_chunk_lanes(
     err = fn(
         _ptr(K2), _ptr(w2), _ptr(rho), _ptr(lb), _ptr(ub), _ptr(shift),
         _ptr(x), _ptr(y), _ptr(z), _ptr(xo), _ptr(yo), _ptr(zo),
-        B, nv, m, n_box, iters, 1, float(alpha), float(1 - alpha),
-        _soc_struct(soc_dims), dev.index, stream,
+        B, nv, m, n_box, iters, 1, CHUNK_BODIES.index(geo.body),
+        X_ROWS.index(geo.x_rows) if geo.x_rows else 0, float(alpha),
+        float(1 - alpha), _soc_struct(soc_dims), dev.index, stream,
     )
     _build.raise_on(err, "admm_chunk")
+    CHUNK_LAUNCHES[CHUNK_KERNEL_NAMES[geo.body]] += 1
     LAUNCHES["admm_chunk"] += 1
     return xo, yo, zo

@@ -10,20 +10,27 @@ rest second-order-cone blocks of static dims ``soc_dims``. Every argument
 carries explicit leading batch axes (e.g. ``(S scenarios, n agents)``); the
 solver folds them into one lane axis.
 
-Two routes run the ADMM iterations (``solve_socp(fused=...)``, the JAX
-package's ``fused`` modes of the same names):
+Three routes run the ADMM iterations (``solve_socp(fused=...)``, the
+JAX package's ``fused`` modes of the same names):
 
-- ``"kernel"`` (the default): the whole solve -- the ``w2 = [Minv q; A Minv
-  q]`` build, the iterations with the prebuilt fused operator ``K2``, the
-  exit residuals, and in the tolerance-chunked form the per-lane early exit
-  -- in one call of ``ops.admm_kernel.fused_solve_lanes``;
+- ``"kernel"`` (what ``"auto"`` asks for): the whole solve -- the ``w2 =
+  [Minv q; A Minv q]`` build, the iterations with the prebuilt fused
+  operator ``K2``, the exit residuals, and in the tolerance-chunked form
+  the per-lane early exit -- in one call of
+  ``ops.admm_kernel.fused_solve_lanes``;
 - ``"pallas"``: ``w2`` and the residuals in plain tensor ops, the
   iterations in chunks through ``ops.admm_kernel.admm_chunk_lanes`` (one
   call for a fixed-iteration solve, one per chunk of a tolerance-chunked
-  one, under :func:`_masked_chunk_loop`).
+  one, under :func:`_masked_chunk_loop`);
+- ``"scan"``: the same as ``"pallas"`` with the chunks a plain loop of
+  :func:`_admm_step`, on the tensors' device.
 
-Each call is the hand-written CUDA kernel for tensors on the card and its
-plain PyTorch version for tensors on the CPU.
+Each kernel call is the hand-written CUDA kernel for tensors on the card
+and its plain PyTorch version for tensors on the CPU. Which route runs is
+decided from the solve's shape alone, before any launch, by
+:func:`runtime_fused_mode`: ``"kernel"`` or ``"pallas"`` becomes
+``"scan"`` where the kernel cannot hold the shape (the centralized QPs
+from n = 9 on: more than 16 SOC blocks), on the CPU and on the card alike.
 
 ``precision="bf16"`` stores the operators K2, Minv, A and P of route
 ``"kernel"`` in bfloat16 (the kernel's bf16 form; :func:`resolve_precision`).
@@ -46,7 +53,7 @@ EQ_RHO_SCALE = 1e3  # rho boost for equality rows.
 INF = 1e20  # "infinity" bound.
 
 # The routes that run the ADMM iterations (see the module docstring).
-ROUTES = ("kernel", "pallas")
+ROUTES = ("kernel", "pallas", "scan")
 # The consensus-level solver-effort vocabulary (controllers' ``effort=``
 # knob; see :func:`resolve_effort`).
 EFFORTS = ("fixed", "adaptive")
@@ -362,11 +369,12 @@ def stored_operators(op: KKTOp, A: torch.Tensor, P: torch.Tensor,
 
 
 def resolve_route(fused: str) -> str:
-    """``"auto"`` -> ``"kernel"``; a route of :data:`ROUTES` passes through;
-    anything else (the JAX package's ``"scan"``/``"interpret"`` modes
-    included, which have no counterpart here) is a ValueError. The device
-    of the tensors, not the route, decides between a kernel and its plain
-    version."""
+    """The configured route, at config build time: ``"auto"`` ->
+    ``"kernel"``; a route of :data:`ROUTES` passes through; anything else
+    (the JAX package's ``"interpret"`` modes included, which have no
+    counterpart here) is a ValueError. The device of the tensors, not the
+    route, decides between a kernel and its plain version; the shape
+    decides whether a kernel route holds (:func:`runtime_fused_mode`)."""
     if fused == "auto":
         return "kernel"
     if fused not in ROUTES:
@@ -374,6 +382,32 @@ def resolve_route(fused: str) -> str:
             f"socp_fused={fused!r}: expected one of {ROUTES} or 'auto'"
         )
     return fused
+
+
+def runtime_fused_mode(fused: str, nv: int, m: int, n_box: int,
+                       soc_dims: Sequence[int], *, check_every: int = 0,
+                       tol: float = 0.0) -> str:
+    """The route :func:`solve_socp` runs for ``fused`` at this solve's
+    shape: ``"kernel"``, ``"pallas"`` or ``"scan"`` (the JAX package's
+    ``runtime_fused_mode``). ``fused`` is resolved by
+    :func:`resolve_route`; then ``"kernel"`` becomes ``"scan"`` where the
+    whole-solve kernel cannot hold the shape
+    (``admm_kernel.fused_solve_fits``), and ``"pallas"`` where the chunk
+    kernel cannot (``admm_kernel.admm_chunk_fits``). The one resolver that
+    dispatches a solve and labels it: a measurement records the route that
+    ran. The decision reads the shape only -- the same on the CPU and on
+    the card, taken before any launch -- and a shape a kernel holds never
+    takes ``"scan"``. ``check_every``/``tol`` are part of the contract:
+    both kernels take every chunking today."""
+    del check_every, tol
+    route = resolve_route(fused)
+    if route == "kernel" and not admm_kernel.fused_solve_fits(
+            nv, m, n_box, soc_dims):
+        return "scan"
+    if route == "pallas" and not admm_kernel.admm_chunk_fits(
+            nv, m, n_box, soc_dims):
+        return "scan"
+    return route
 
 
 def solve_socp(
@@ -394,7 +428,7 @@ def solve_socp(
     tol: float = 0.0,
     shift: torch.Tensor | None = None,
     op: KKTOp | None = None,
-    fused: str = "kernel",
+    fused: str = "auto",
     precision: str = "f32",
     active: torch.Tensor | None = None,
     report_iters: bool = False,
@@ -414,9 +448,10 @@ def solve_socp(
     ``iters`` (see :func:`_masked_chunk_loop`). ``active`` ((...) bool, the
     consensus-level adaptive-effort gate; tolerance-chunked path only)
     makes a lane a 0-effective-iteration pass-through of its warm start.
-    ``fused`` names the route (see the module docstring). ``precision``
+    ``fused`` names the route (see the module docstring), which
+    :func:`runtime_fused_mode` resolves from the shape. ``precision``
     (``"f32"`` or ``"bf16"``) is the operators' storage on route
-    ``"kernel"`` and inert on ``"pallas"``; under ``"bf16"``, ``op``, ``A``
+    ``"kernel"`` and inert on the others; under ``"bf16"``, ``op``, ``A``
     and ``P`` may come already rounded (:func:`stored_operators`) or in
     float32 (rounded here). With ``report_iters`` the return is
     ``(solution, eff_iters)``, the (...) int32 iterations each lane
@@ -424,9 +459,6 @@ def solve_socp(
     if precision not in PRECISIONS:
         raise ValueError(
             f"precision={precision!r}: expected one of {PRECISIONS}")
-    route = resolve_route(fused)
-    if route != "kernel":
-        precision = "f32"  # inert off the whole-solve kernel.
     tol_path = bool(check_every) and tol > 0
     if active is not None and not tol_path:
         raise ValueError(
@@ -436,6 +468,10 @@ def solve_socp(
         )
     m, nv = A.shape[-2:]
     assert m == n_box + sum(soc_dims)
+    route = runtime_fused_mode(fused, nv, m, n_box, soc_dims,
+                               check_every=check_every, tol=tol)
+    if route != "kernel":
+        precision = "f32"  # inert off the whole-solve kernel.
     batch = A.shape[:-2]
     dtype, device = q.dtype, q.device
 
@@ -476,21 +512,34 @@ def solve_socp(
                     *args, precision=precision, **solve_kw)
                 eff = None
     else:
-        # The chunked route: w2 and the residuals in plain tensor ops, the
-        # iterations through the chunk kernel (JAX: socp.py:1020-1021,
-        # :1060-1076).
+        # The chunked routes: w2 and the residuals in plain tensor ops, the
+        # iterations through the chunk kernel ("pallas") or a plain loop of
+        # _admm_step ("scan") (JAX: socp.py:1020-1021, :1051-1076).
         Al, Pl, ql = lanes(A, 2), lanes(P, 2), lanes(q, 1)
         wq = _mv(lanes(op.Minv, 2), ql)
         w2 = torch.cat([wq, _mv(Al, wq)], dim=-1)
-        shift_l = (lanes(shift, 1) if shift is not None
-                   else torch.zeros(carry0[1].shape, dtype=dtype,
-                                    device=device))
-        chunk_args = (lanes(op.K2, 2), w2, lanes(rho_vec, 1), lanes(lb, 1),
-                      lanes(ub, 1), shift_l)
+        K2l, rho_l = lanes(op.K2, 2), lanes(rho_vec, 1)
+        lb_l, ub_l = lanes(lb, 1), lanes(ub, 1)
+        if route == "pallas":
+            # The kernel adds a shift always: zeros stand in for none.
+            shift_l = (lanes(shift, 1) if shift is not None
+                       else torch.zeros(carry0[1].shape, dtype=dtype,
+                                        device=device))
 
-        def run_chunk(carry, k):
-            return admm_kernel.admm_chunk_lanes(
-                *carry, *chunk_args, **dict(solve_kw, iters=k))
+            def run_chunk(carry, k):
+                return admm_kernel.admm_chunk_lanes(
+                    *carry, K2l, w2, rho_l, lb_l, ub_l, shift_l,
+                    **dict(solve_kw, iters=k))
+        else:
+            shift_l = None if shift is None else lanes(shift, 1)
+            step_kw = dict(nv=nv, n_box=n_box, soc_dims=tuple(soc_dims),
+                           alpha=alpha)
+
+            def run_chunk(carry, k):
+                for _ in range(k):
+                    carry = _admm_step(carry, K2l, w2, rho_l, lb_l, ub_l,
+                                       shift_l, **step_kw)
+                return carry
 
         def residuals(carry):
             x_, y_, z_ = carry
