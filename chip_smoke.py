@@ -85,6 +85,25 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    the route the solver's resolver names, which must be ``"scan"``, with
    no kernel launched, finite states, and n = 16's first step of 8
    scenarios against the CPU.
+21. the CUDA-graph substeps: on the headline state after a warm-up step,
+   the graph replay bitwise equal to the eager substeps, and the entry
+   period's physics likewise; eager and graph substeps timed in turns; the
+   fixed headline with the graph on and off in turns, one step of each
+   profiled; the entry's periods/s with and without the graph;
+22. the logged rollout through ``harness.rollout.jit_rollout``: C-ADMM at
+   256 x 8 with the forest reference for ``LOG_STEPS`` high-level steps,
+   every log leaf finite, one whole-solve launch per consensus iteration
+   run, and the first 8 scenarios' logs against the CPU's eager rollout;
+23. the bucketing A/B: ``buckets=0`` and ``buckets=2`` at 256 x 8 in
+   turns, per-scenario results equal, both rates and the iterations each
+   bucket ran;
+24. the padded tier: ``solve_socp_padded`` on the headline set-up's
+   unpadded agent QPs on routes "kernel" and "pallas", against
+   ``solve_socp`` on the same QPs, the resolved route and the launched
+   body by name, both timed.
+
+The main path and every bench path replay the ten substeps of a step from
+a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
 
 The whole-solve kernel has two bodies, chosen from the QP's shape alone:
 one warp per lane (``warp_solve_*kernel``) for every agent QP (nv and m at
@@ -191,6 +210,14 @@ SHARDED_FORCE_BAR = 2e-3
 SHARDED_EQUAL_SHARE = 0.99
 # The ring sum against the float64 sum: float32 rounding of d <= 8 adds.
 RING_SUM_RTOL = 1e-6
+# Phases 21-23: MPC steps of each arm of the graph on/off A/B, high-level
+# steps of the logged rollout, MPC steps of each arm of the bucketing A/B.
+GRAPH_STEPS, LOG_STEPS, BUCKET_STEPS = 5, 3, 3
+# Bucketed against unbucketed where a library path's result depends on the
+# batch size (a batched inverse or product choosing another algorithm for
+# B / 2 lanes): the iteration counts must still be equal and every state
+# and controller-state leaf within this.
+BUCKET_STATE_ATOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -1730,6 +1757,375 @@ def sharded_phases(card, report):
     }
 
 
+def tree_equal(a, b) -> bool:
+    """Every leaf of two state trees bitwise equal."""
+    import torch
+
+    from tpu_aerial_transport_torch.tree import leaves
+
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def profile_step(fn):
+    """``(wall ms with the profiler on, phase_breakdown)`` of one call of
+    ``fn``, ending in a synchronise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall * 1e3, phase_breakdown(prof)
+
+
+def print_profile(what, wall_ms, ph, card):
+    dev = ph["kernels_us"] / 1e3
+    print(f"profile of {what}: wall {wall_ms:.2f} ms (profiler on), device "
+          f"busy {dev:.2f} ms = {100 * dev / wall_ms:.1f}% | {card}",
+          flush=True)
+    for name in sorted(ph["host_us"], key=lambda p: -ph["host_us"][p]):
+        print(f"  tat.{name}: host {ph['host_us'][name] / 1e3:.3f} ms, "
+              f"device {ph['device_us'].get(name, 0.0) / 1e3:.3f} ms")
+    print(f"  device time no host range holds (a replayed graph's kernels "
+          f"among it): {ph['device_us']['unattributed'] / 1e3:.3f} ms",
+          flush=True)
+
+
+def graph_phase(card, report, run, css0, states0):
+    """Phase 21, the CUDA-graph substeps: on the headline state after one
+    warm-up step, the graph replay bitwise equal to the eager substeps, and
+    the entry period's physics likewise; eager and graph substeps timed in
+    turns (CUDA events around host-driven calls); the fixed headline with
+    the graph on and off in turns; one step of each profiled; the entry's
+    periods/s with and without the graph in turns."""
+    import torch
+
+    from tpu_aerial_transport_torch import entry
+    from tpu_aerial_transport_torch.harness import rollout
+
+    css1, states1, _ = run(css0, states0, 1)
+    ctl = rollout.make_controller("cadmm", N_AGENTS, max_iter=20,
+                                  inner_iters=20, device="cuda")
+    acc = (torch.tensor([0.3, 0.0, 0.0], device=states1.xl.device),
+           torch.zeros(3, device=states1.xl.device))
+    f_des = ctl.control(css1, states1, acc)[0]
+    eager = rollout.make_substeps(ctl.params, ctl.ll.control,
+                                  cuda_graph=False)
+    graphed = rollout.make_substeps(ctl.params, ctl.ll.control)
+    ref = eager(states1, f_des)
+    first = graphed(states1, f_des)  # captures, then replays.
+    again = graphed(states1, f_des)
+    torch.cuda.synchronize()
+    g = graphed.graph
+    equal = tree_equal(ref, first) and tree_equal(ref, again)
+    print(f"graph substeps (headline, {N_SCENARIOS} x {N_AGENTS}, after one "
+          f"warm-up step): replay bitwise equal to the eager substeps on "
+          f"every state leaf: {equal} ({g.captures} capture, {g.replays} "
+          f"replays) | {card}", flush=True)
+    if not equal or (g.captures, g.replays) != (1, 2):
+        fail("the graph substeps are not bitwise equal to the eager ones")
+    turns = {"eager": [], "graph": []}
+    for arm in ("eager", "graph", "graph", "eager"):
+        fn = eager if arm == "eager" else graphed
+        turns[arm].append(event_ms(lambda: fn(states1, f_des), 20))
+    print(f"substeps (ten 1 kHz steps at {N_SCENARIOS} x {N_AGENTS}) in "
+          f"turns, CUDA events around 20 host-driven calls: eager "
+          f"{turns['eager'][0]:.4f} and {turns['eager'][1]:.4f} ms, graph "
+          f"{turns['graph'][0]:.4f} and {turns['graph'][1]:.4f} ms a call | "
+          f"{card}", flush=True)
+
+    run_off, _, _ = rollout.build(n=N_AGENTS, n_scenarios=N_SCENARIOS,
+                                  max_iter=20, inner_iters=20,
+                                  cuda_graph=False)
+    run_off(css0, states0, 1)  # warm-up.
+    rates = {"on": [], "off": []}
+    for arm in ("on", "off", "off", "on"):
+        fn = run if arm == "on" else run_off
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(css0, states0, GRAPH_STEPS)
+        torch.cuda.synchronize()
+        rates[arm].append(N_SCENARIOS * GRAPH_STEPS
+                          / (time.perf_counter() - t0))
+    print(f"fixed headline with the graph on and off in turns ({GRAPH_STEPS} "
+          f"MPC steps each): on {rates['on'][0]:.2f} and {rates['on'][1]:.2f}"
+          f", off {rates['off'][0]:.2f} and {rates['off'][1]:.2f} "
+          f"scenario-MPC-steps/s | {card}", flush=True)
+    profiles = {}
+    for arm, fn in (("on", run), ("off", run_off)):
+        wall, ph = profile_step(lambda: fn(css0, states0, 1))
+        print_profile(f"one fixed-headline step, graph {arm}", wall, ph, card)
+        profiles[arm] = {"wall_ms": wall, "phases": ph}
+
+    step_g, (cs_e, st_e, acc_e) = entry.entry()
+    step_x, _ = entry.entry(cuda_graph=False)
+    out_g = step_g(cs_e, st_e, acc_e)
+    out_x = step_x(cs_e, st_e, acc_e)
+    torch.cuda.synchronize()
+    e_equal = tree_equal(out_x[1], out_g[1])
+    pg = step_g.physics
+    print(f"graph entry physics (law once, ten integrations, B = 1): state "
+          f"after one period bitwise equal to the eager period's: {e_equal} "
+          f"({pg.captures} capture, {pg.replays} replays) | {card}",
+          flush=True)
+    if not e_equal or pg.captures != 1:
+        fail("the entry's graph physics is not bitwise equal to the eager")
+    periods = {"on": [], "off": []}
+    for arm in ("on", "off", "off", "on"):
+        fn = step_g if arm == "on" else step_x
+        cs, st = cs_e, st_e
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            cs, st, _ = fn(cs, st, acc_e)
+        torch.cuda.synchronize()
+        periods[arm].append(TIMED_STEPS / (time.perf_counter() - t0))
+    print(f"entry periods/s with the graph on and off in turns ({TIMED_STEPS}"
+          f" periods each): on {periods['on'][0]:.2f} and "
+          f"{periods['on'][1]:.2f}, off {periods['off'][0]:.2f} and "
+          f"{periods['off'][1]:.2f} | {card}", flush=True)
+    wall, ph = profile_step(lambda: step_g(cs_e, st_e, acc_e))
+    print_profile("one entry period, graph on", wall, ph, card)
+    report["graph"] = {
+        "substeps_bitwise_equal": equal, "entry_bitwise_equal": e_equal,
+        "substeps_ms_in_turns": turns, "headline_rates_in_turns": rates,
+        "headline_profiles": profiles, "entry_periods_per_s_in_turns":
+        periods, "entry_profile": {"wall_ms": wall, "phases": ph},
+    }
+
+
+def logged_rollout_phase(card, report):
+    """Phase 22, the logged rollout through ``jit_rollout``: C-ADMM at 256 x
+    8 with the forest reference for LOG_STEPS high-level steps, the
+    substeps from the graph; every log leaf finite; the whole-solve kernel
+    launched once per consensus iteration run; the first 8 scenarios'
+    logs against the CPU's eager rollout (states 1e-4, forces 1e-2 N,
+    iteration counts equal)."""
+    import torch
+
+    from tpu_aerial_transport_torch.harness import rollout
+    from tpu_aerial_transport_torch.tree import leaves
+
+    def logged(device, S, **kw):
+        ctl = rollout.make_controller("cadmm", N_AGENTS, max_iter=20,
+                                      inner_iters=20, device=device, **kw)
+        run = rollout.jit_rollout(
+            ctl.control, ctl.ll.control, ctl.params, n_hl_steps=LOG_STEPS,
+            acc_des_fn=rollout.make_forest_acc_des(ctl.forest))
+        return (run, rollout.scenario_batch(ctl.state0, S),
+                rollout.stack_scenarios(ctl.cs0, S))
+
+    run, states, css = logged("cuda", N_SCENARIOS)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, logs = run(states, css)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    runs = int(logs.iters.max(dim=1).values.sum())
+    check_launches(launches, "fused_solve", runs, "the logged rollout")
+    for name, t in vars(logs).items():
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            fail(f"the logged rollout's {name} log is not finite")
+    g = run.substeps.graph
+    if (g.captures, g.replays) != (1, LOG_STEPS):
+        fail(f"the logged rollout's substeps: {g.captures} captures and "
+             f"{g.replays} replays, expected 1 and {LOG_STEPS}")
+    # The first call captured the graph; a second runs as a chained
+    # receding-horizon caller's calls do.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(states, css)
+    torch.cuda.synchronize()
+    secs2 = time.perf_counter() - t0
+    n_cpu = 8
+    run_c, states_c, css_c = logged("cpu", n_cpu, pad_operators=True)
+    _, _, logs_c = run_c(states_c, css_c)
+    cut = lambda t: t[:, :n_cpu].cpu()  # noqa: E731
+    errs = {f: float((getattr(logs_c, f) - cut(getattr(logs, f))).abs()
+                     .max()) for f in STATE_FIELDS + ("x_err", "v_err")}
+    f_err = float((logs_c.f_des - cut(logs.f_des)).abs().max())
+    it_card, it_cpu = cut(logs.iters).tolist(), logs_c.iters.tolist()
+    ok = (max(errs.values()) <= CPU_STATE_ATOL and f_err <= CPU_FORCE_ATOL
+          and it_card == it_cpu)
+    print(f"logged rollout (jit_rollout, C-ADMM {N_SCENARIOS} x {N_AGENTS}, "
+          f"forest reference, {LOG_STEPS} HL steps, graph substeps): "
+          f"{secs:.4f} s = {N_SCENARIOS * LOG_STEPS / secs:.2f} "
+          f"scenario-MPC-steps/s with the capture, {secs2:.4f} s = "
+          f"{N_SCENARIOS * LOG_STEPS / secs2:.2f} in a second call | "
+          f"{len(leaves(logs))} log leaves finite | "
+          f"launches {launches} = consensus iterations run {runs} | first "
+          f"{n_cpu} scenarios against the CPU's eager rollout: max|state or "
+          f"error err| {max(errs.values()):.2e} (atol {CPU_STATE_ATOL}), "
+          f"max|f_des err| {f_err:.2e} N (atol {CPU_FORCE_ATOL}), "
+          f"iterations card {it_card} CPU {it_cpu} "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    if not ok:
+        fail("the logged rollout on the card disagrees with the CPU")
+    report["logged_rollout"] = {
+        "seconds": secs, "seconds_second_call": secs2,
+        "scenario_mpc_steps_per_s": N_SCENARIOS * LOG_STEPS / secs2,
+        "launches": launches,
+        "card_vs_cpu": {"err": errs, "f_des_err": f_err,
+                        "iters_card": it_card, "iters_cpu": it_cpu}}
+
+
+def bucketing_phase(card, report, run, css0, states0):
+    """Phase 23, the bucketing A/B: ``buckets=0`` (the main path's ``run``)
+    and ``buckets=2`` at 256 x 8 in turns, BUCKET_STEPS steps each from the
+    seeded batch; per scenario the states, controller state and iteration
+    counts of the two must be equal, exactly, or (where a library path's
+    result depends on the batch size) with iteration counts equal and
+    states within 1e-6, the difference reported; the iterations each
+    bucket ran, step by step."""
+    import torch
+
+    from tpu_aerial_transport_torch.envs import forest as forest_mod
+    from tpu_aerial_transport_torch.harness import bucketing, rollout, setup
+    from tpu_aerial_transport_torch.tree import leaves
+
+    run2, _, _ = rollout.build(n=N_AGENTS, n_scenarios=N_SCENARIOS,
+                               max_iter=20, inner_iters=20, buckets=2)
+    run2(css0, states0, 1)  # warm-up: captures the B / 2 graph.
+    rates, outs = {0: [], 2: []}, {}
+    for arm in (0, 2, 2, 0):
+        fn = run if arm == 0 else run2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[arm] = fn(css0, states0, BUCKET_STEPS)
+        torch.cuda.synchronize()
+        rates[arm].append(N_SCENARIOS * BUCKET_STEPS
+                          / (time.perf_counter() - t0))
+    (css_a, st_a, it_a), (css_b, st_b, it_b) = outs[0], outs[2]
+    exact = torch.equal(it_a, it_b) and all(
+        torch.equal(x, y) for x, y in zip(leaves((css_a, st_a)),
+                                          leaves((css_b, st_b))))
+    diff = max(float((x - y).abs().max()) for x, y in
+               zip(leaves((css_a, st_a)), leaves((css_b, st_b)))
+               if x.is_floating_point())
+    ok = exact or (torch.equal(it_a, it_b) and diff <= BUCKET_STATE_ATOL)
+    # The iterations each bucket ran, step by step (the buckets' worst
+    # lanes), from the bucketed step run again.
+    _, col, _ = setup.rqp_setup(N_AGENTS, device="cpu")
+    metric = bucketing.env_congestion_metric(
+        forest_mod.make_forest(seed=0, device="cuda"),
+        col.collision_radius + rollout.BUCKET_METRIC_MARGIN)
+    per_bucket, css, st = [], css0, states0
+    half = N_SCENARIOS // 2
+    for _ in range(BUCKET_STEPS):
+        order = torch.argsort(metric(st), stable=True)
+        css, st, stats = run2.mpc_step(css, st)
+        # Each bucket's worst count and how many of its scenarios ran it.
+        per_bucket.append([])
+        for idx in (order[:half], order[half:]):
+            it = stats.iters[idx]
+            per_bucket[-1].append((int(it.max()),
+                                   int((it == it.max()).sum())))
+    unbucketed = it_a.max(dim=1).values.tolist()
+    print(f"bucketing A/B (buckets=0 and 2, {N_SCENARIOS} x {N_AGENTS}, "
+          f"{BUCKET_STEPS} MPC steps each, in turns 0, 2, 2, 0): buckets=0 "
+          f"{rates[0][0]:.2f} and {rates[0][1]:.2f}, buckets=2 "
+          f"{rates[2][0]:.2f} and {rates[2][1]:.2f} scenario-MPC-steps/s | "
+          f"consensus iterations a step: one batch {unbucketed}, the two "
+          f"buckets' (worst, scenarios at it) {per_bucket} | per-scenario "
+          f"results "
+          + ("exactly equal" if exact else
+             f"not bitwise equal: iterations equal {torch.equal(it_a, it_b)},"
+             f" max|state or controller-state diff| {diff:.3e} (atol "
+             f"{BUCKET_STATE_ATOL})") + (" ok" if ok else " FAIL")
+          + f" | {card}", flush=True)
+    if not ok:
+        fail("the bucketed step's per-scenario results differ from the "
+             "unbucketed step's")
+    report["bucketing"] = {
+        "rates_in_turns": {str(k): v for k, v in rates.items()},
+        "exact": exact, "max_abs_diff": diff,
+        "iters_per_step_unbucketed": unbucketed,
+        "iters_per_step_buckets": per_bucket,
+    }
+
+
+def padded_phase(card, report, args, kw):
+    """Phase 24, the padded tier on the card: ``solve_socp_padded`` on the
+    unpadded agent QPs captured from the headline set-up (nv = 12, m = 25,
+    padded to 16 and 32) on routes "kernel" and "pallas", against
+    ``solve_socp`` on the same unpadded QPs and route, within the kernel
+    bar (against the unpadded solve's own float32 rounding, its distance
+    from route "scan" in float64); the route the resolver takes, the
+    launched body by kernel name (the warp body on both routes, or the
+    phase fails), and both solves timed (CUDA graph)."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel, socp
+
+    x, y, z, _, _, A, P, q, _, lb, ub, shift = args
+    nv, n_box, soc = kw["nv"], kw["n_box"], tuple(kw["soc_dims"])
+    B, m = x.shape[0], y.shape[-1]
+    nv_p, n_box_p = socp.padded_dims(nv, n_box, soc)
+    zeros = torch.zeros(B, device=x.device)
+    warm = socp.SOCPSolution(x, y, z, zeros, zeros)
+    solve_kw = dict(n_box=n_box, soc_dims=soc, iters=kw["iters"],
+                    alpha=kw["alpha"], shift=shift, warm=warm)
+    pqp = socp.padded_kkt_operator(P, A, lb, ub, shift, n_box=n_box,
+                                   soc_dims=soc)
+    op = socp.kkt_operator(P, A, socp.make_rho_vec(m, n_box, lb, ub, 0.4))
+    ref64 = socp.solve_socp(
+        *in_float64([P, q, A, lb, ub]), fused="scan",
+        **dict(solve_kw, shift=shift.double(), warm=socp.SOCPSolution(
+            *in_float64(warm))))
+    names = ("x", "y", "z", "prim_res", "dual_res")
+    out = {}
+    for route in ("kernel", "pallas"):
+        resolved = socp.runtime_fused_mode(route, nv_p, n_box_p + sum(soc),
+                                           n_box_p, soc)
+        zero_launches()
+        got = socp.solve_socp_padded(P, q, A, lb, ub, pqp=pqp, fused=route,
+                                     **solve_kw)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        bodies = {k: v for k, v in {**admm_kernel.KERNEL_LAUNCHES,
+                                    **admm_kernel.CHUNK_LAUNCHES}.items()
+                  if v}
+        form = "fused_solve" if route == "kernel" else "admm_chunk"
+        what = f"the padded solve ({route})"
+        check_launches(launches, form, 1, what)
+        # A padded agent QP must reach the warp body, as an unpadded one
+        # does: a fall back to the shared-memory or block body fails.
+        if route == "kernel":
+            check_body(launches, form, "warp_solve_kernel", what)
+        elif admm_kernel.CHUNK_LAUNCHES != {"admm_chunk_kernel": 0,
+                                            "warp_chunk_kernel": 1}:
+            fail(f"{what} ran {admm_kernel.CHUNK_LAUNCHES}, expected "
+                 f"warp_chunk_kernel once")
+        ref = socp.solve_socp(P, q, A, lb, ub, op=op, fused=route, **solve_kw)
+        errs, noise, ok = agreement(names, got, ref, ref64)
+        padded_ms = cuda_ms(lambda: socp.solve_socp_padded(
+            P, q, A, lb, ub, pqp=pqp, fused=route, **solve_kw), 20)
+        flat_ms = cuda_ms(lambda: socp.solve_socp(
+            P, q, A, lb, ub, op=op, fused=route, **solve_kw), 20)
+        print(f"padded tier, route {route!r} (resolved {resolved!r}, "
+              f"launched {bodies}): B={B}, d = {nv + m} padded to "
+              f"{nv_p + n_box_p + sum(soc)}, {kw['iters']} iterations; "
+              f"against the unpadded solve max|err| "
+              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + "; unpadded float32 vs float64 "
+              + " ".join(f"{n}={e:.3e}" for n, e in noise.items())
+              + f" {'ok' if ok else 'FAIL'} | padded solve {padded_ms:.4f} "
+              f"ms, unpadded {flat_ms:.4f} ms (CUDA graph, pad and unpad "
+              f"included) | {card}", flush=True)
+        if not ok or resolved != route:
+            fail(f"the padded solve on route {route!r} disagrees with the "
+                 f"unpadded one (resolved {resolved!r})")
+        out[route] = {"resolved": resolved, "launched": bodies,
+                      "max_abs_err": errs, "plain_f32_vs_f64": noise,
+                      "padded_ms": padded_ms, "unpadded_ms": flat_ms}
+    report["padded"] = out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: the {PKG} package is not beside this script",
@@ -1818,6 +2214,11 @@ def main() -> int:
         fail("no fused_solve call captured in the warm-up step")
     main_name = entry_name(*captured[0])
     check_body(launches, "fused_solve", main_name, "the main path")
+    graph = run.mpc_step.substeps.graph
+    if (graph.captures, graph.replays) != (1, 1 + TIMED_STEPS):
+        fail(f"the main path's substeps: {graph.captures} captures and "
+             f"{graph.replays} graph replays, expected 1 and "
+             f"{1 + TIMED_STEPS}")
     for f in ("R", "w", "xl", "vl", "Rl", "wl"):
         if not bool(torch.isfinite(getattr(states, f)).all()):
             fail(f"non-finite state field {f} after the timed steps")
@@ -1830,7 +2231,8 @@ def main() -> int:
           f"scenario-MPC-steps/s | consensus iters/step mean "
           f"{float(it.mean()):.3f} max {int(iters.max())} | launches "
           f"{launches} = consensus iterations run {consensus_iters}, all "
-          f"{main_name} | {card}", flush=True)
+          f"{main_name} | substeps from the CUDA graph ({graph.replays} "
+          f"replays) | {card}", flush=True)
     report["main_path"] = {
         "scenario_mpc_steps_per_s": rate, "seconds": elapsed,
         "timed_steps": TIMED_STEPS, "iters_mean": float(it.mean()),
@@ -2230,6 +2632,16 @@ def main() -> int:
     phase_at["20"] = time.perf_counter() - t_start
     # 20. The centralized controller at n = 16 and 64: route "scan".
     centralized_scan_phase(card, report)
+    phase_at["21"] = time.perf_counter() - t_start
+    # 21-24. The CUDA-graph substeps, the logged rollout, the bucketing A/B
+    # and the padded tier.
+    graph_phase(card, report, run, css0, states0)
+    phase_at["22"] = time.perf_counter() - t_start
+    logged_rollout_phase(card, report)
+    phase_at["23"] = time.perf_counter() - t_start
+    bucketing_phase(card, report, run, css0, states0)
+    phase_at["24"] = time.perf_counter() - t_start
+    padded_phase(card, report, unpadded_args, unpadded_kw)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],

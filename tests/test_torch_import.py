@@ -14,7 +14,7 @@ import tpu_aerial_transport_torch
 from tpu_aerial_transport_torch import entry
 from tpu_aerial_transport_torch.control import cadmm, dd, lowlevel, types
 from tpu_aerial_transport_torch.envs import forest, spatial
-from tpu_aerial_transport_torch.harness import rollout, setup
+from tpu_aerial_transport_torch.harness import cuda_graph, rollout, setup
 from tpu_aerial_transport_torch.ops import admm_kernel, socp
 from tpu_aerial_transport_torch.parallel import ring
 
@@ -36,6 +36,9 @@ def test_import_leaves_jax_out_of_sys_modules():
     mods = ["tpu_aerial_transport_torch"] + _modules()
     assert "tpu_aerial_transport_torch.ops.admm_kernel" in mods
     assert "tpu_aerial_transport_torch.control.dd" in mods
+    for m in ("harness.bucketing", "harness.cuda_graph", "harness.rollout",
+              "tree"):
+        assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -79,8 +82,10 @@ def test_source_scan_covers_the_slice():
     rel = {os.path.relpath(p, REPO) for p in _sources()}
     for f in ("control/centralized.py", "control/dd.py", "csrc/admm_chunk.cu",
               "csrc/admm_common.cuh", "csrc/fused_solve.cu",
-              "csrc/ring_sum.cu", "entry.py", "ops/admm_kernel.py",
-              "ops/socp.py", "parallel/mesh.py", "parallel/ring.py"):
+              "csrc/ring_sum.cu", "entry.py", "harness/bucketing.py",
+              "harness/cuda_graph.py", "harness/rollout.py",
+              "ops/admm_kernel.py", "ops/socp.py", "parallel/mesh.py",
+              "parallel/ring.py", "tree.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
@@ -108,6 +113,10 @@ def test_entry_point_default_device_is_the_card():
         forest.make_forest(seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rollout.build(n=4, n_scenarios=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rollout.build(n=4, n_scenarios=2, buckets=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rollout.make_controller("cadmm", 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpu_aerial_transport_torch.resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -245,8 +254,9 @@ def test_left_out_call_paths_raise():
 
 
 def test_kernel_wrapper_refuses_other_devices():
-    """The wrapper runs the plain version only for CPU tensors; any other
-    device is the kernel's or an error, never a quiet fallback."""
+    """The kernel wrappers run the plain version, and the CUDA-graph
+    replay the plain calls, only for CPU tensors; any other device is the
+    kernel's (the graph's) or an error, never a quiet fallback."""
     x = torch.zeros((1, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         admm_kernel.fused_solve_lanes(
@@ -265,6 +275,8 @@ def test_kernel_wrapper_refuses_other_devices():
         )
     with pytest.raises(ValueError, match="unsupported device"):
         ring.ring_sum_shards(x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_graph.GraphedFn(lambda s, f: s)(x, x)
 
 
 def test_active_gate_needs_the_tolerance_path():

@@ -295,3 +295,168 @@ def test_scan_route_matches_jax_at_centralized_n64():
     a few iterations of route "scan" against the JAX package's."""
     ref, (auto, _, auto64) = _scan_pair(64, 1, dict(iters=4), seed=12)
     _close(ref, auto, auto64)
+
+
+def _solution(rng, B, nv, m):
+    """A seeded (x, y, z, prim, dual) for both packages."""
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return f(B, nv), f(B, m), f(B, m), f(B), f(B)
+
+
+@pytest.mark.parametrize("with_shift", [True, False],
+                         ids=["shift", "no_shift"])
+def test_kkt_residuals_match(with_shift):
+    """``kkt_residuals`` (stationarity, cone distance, complementarity) on
+    seeded QPs and seeded solutions, against the JAX package's vmapped:
+    float32 sums of up to 25 products in another order, so rtol 1e-5."""
+    nv, n_box, soc = 12, 17, (4, 4)
+    m = n_box + sum(soc)
+    P, q, A, lb, ub, shift = _problems(6, nv, n_box, soc, seed=21)
+    sol = _solution(np.random.default_rng(22), 6, nv, m)
+    s = shift if with_shift else None
+    ref = jax.vmap(lambda P_, q_, A_, l_, u_, s_, *sol_: jsocp.kkt_residuals(
+        P_, q_, A_, l_, u_, n_box, soc, jsocp.SOCPSolution(*sol_), shift=s_))(
+            P, q, A, lb, ub, s, *sol)
+    got = socp.kkt_residuals(
+        *map(_t, (P, q, A, lb, ub)), n_box, soc,
+        socp.SOCPSolution(*map(_t, sol)), shift=None if s is None else _t(s))
+    for a, b in zip(ref, got):
+        assert b.shape == (6,)
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_padded_tier_matches():
+    """The padded tier's pieces against the JAX package's, vmapped, at the
+    C-ADMM agent QP (nv = 12 -> 16, m = 25 -> 32, 7 pad box rows):
+    ``n_box_p_from``, ``pad_warm`` and ``unpad_solution`` exactly (zeros
+    and slices), ``padded_kkt_operator``'s data exactly and its operator
+    at the inverse's bar of the KKT-operator comparison above."""
+    nv, n_box, soc = 12, 17, (4, 4)
+    m = n_box + sum(soc)
+    nv_p, n_box_p = socp.padded_dims(nv, n_box, soc)
+    assert (nv_p, n_box_p) == jsocp.padded_dims(nv, n_box, soc) == (16, 24)
+    assert socp.n_box_p_from(m, 32, n_box) == jsocp.n_box_p_from(
+        m, 32, n_box) == n_box_p
+    P, q, A, lb, ub, shift = _problems(5, nv, n_box, soc, seed=23)
+    ref = jax.vmap(lambda P_, A_, l_, u_, s_: jsocp.padded_kkt_operator(
+        P_, A_, l_, u_, s_, n_box=n_box, soc_dims=soc))(P, A, lb, ub, shift)
+    got = socp.padded_kkt_operator(*map(_t, (P, A, lb, ub, shift)),
+                                   n_box=n_box, soc_dims=soc)
+    for name in ("P", "A", "lb", "ub", "shift"):
+        assert np.array_equal(getattr(got, name).numpy(),
+                              np.asarray(getattr(ref, name))), name
+    for name in ("Minv", "MinvAT", "K2"):
+        a = np.asarray(getattr(ref.op, name))
+        np.testing.assert_allclose(getattr(got.op, name).numpy(), a, rtol=0,
+                                   atol=1e-4 * np.abs(a).max())
+    sol = _solution(np.random.default_rng(24), 5, nv, m)
+    ref_w = jax.vmap(lambda *s_: jsocp.pad_warm(
+        jsocp.SOCPSolution(*s_), n_box=n_box, soc_dims=soc))(*sol)
+    got_w = socp.pad_warm(socp.SOCPSolution(*map(_t, sol)), n_box=n_box,
+                          soc_dims=soc)
+    ref_u = jax.vmap(lambda w: jsocp.unpad_solution(w, nv, n_box, n_box_p))(
+        ref_w)
+    got_u = socp.unpad_solution(got_w, nv, n_box, n_box_p)
+    for a, b, c, d, orig in zip(ref_w, got_w, ref_u, got_u, sol):
+        assert np.array_equal(b.numpy(), np.asarray(a))
+        assert np.array_equal(d.numpy(), np.asarray(c))
+        assert np.array_equal(d.numpy(), orig)
+
+
+@pytest.mark.parametrize("form", ["fixed", "chunked"])
+@pytest.mark.parametrize("route", socp.ROUTES)
+def test_solve_socp_padded_matches(route, form):
+    """``solve_socp_padded`` on each route against the JAX package's
+    (``fused="scan"``, vmapped), warm started, with the JAX-built padded
+    operator handed to both (``pqp=``): atol 1e-4, the bar of
+    :func:`test_solve_socp_matches_scan_path`; the chunked form's
+    effective iterations equal, the gate's off lanes at 0. Without
+    ``pqp`` (the port inverts its own padded matrix) the padded solve
+    matches the port's unpadded one to the same bar on problems without
+    boosted equality rows, as in :func:`test_solve_socp_builds_its_operator`
+    (with them, the two inverses of different sizes round ~1e-4 apart and
+    the duals carry that 400 times). The resolver keeps the route at the
+    padded shape."""
+    nv, n_box, soc = 12, 17, (4, 4)
+    m = n_box + sum(soc)
+    sol = _solution(np.random.default_rng(26), 6, nv, m)
+    warm = tuple(0.1 * a for a in sol)
+    kw = dict(n_box=n_box, soc_dims=soc, iters=30)
+    active = None
+    if form == "chunked":
+        kw.update(check_every=10, tol=1e-2, report_iters=True)
+        active = np.arange(6) % 3 != 0
+    t_kw = dict(kw, warm=socp.SOCPSolution(*map(_t, warm)), fused=route,
+                active=None if active is None else torch.as_tensor(active))
+
+    P, q, A, lb, ub, shift = _problems(6, nv, n_box, soc, seed=25)
+    pqp = jax.vmap(lambda P_, A_, l_, u_, s_: jsocp.padded_kkt_operator(
+        P_, A_, l_, u_, s_, n_box=n_box, soc_dims=soc))(P, A, lb, ub, shift)
+    ref = jax.vmap(lambda P_, q_, A_, l_, u_, s_, pqp_, a_, *w_:
+                   jsocp.solve_socp_padded(
+                       P_, q_, A_, l_, u_, shift=s_, pqp=pqp_,
+                       warm=jsocp.SOCPSolution(*w_), fused="scan",
+                       active=a_, **kw))(
+        P, q, A, lb, ub, shift, pqp, active, *warm)
+    t_pqp = socp.PaddedKKTOp(
+        *(_t(np.asarray(a)) for a in pqp[:5]),
+        op=socp.KKTOp(*(_t(np.asarray(getattr(pqp.op, k)))
+                        for k in ("Minv", "MinvAT", "K2"))))
+    got = socp.solve_socp_padded(*map(_t, (P, q, A, lb, ub)), pqp=t_pqp,
+                                 shift=_t(shift), **t_kw)
+
+    P, q, A, lb, ub, shift = _problems(6, nv, n_box, soc, seed=27, n_eq=0,
+                                       p_scale=1.0 / nv)
+    args = [*map(_t, (P, q, A, lb, ub))]
+    own = socp.solve_socp_padded(*args, shift=_t(shift), **t_kw)
+    flat = socp.solve_socp(*args, shift=_t(shift), **t_kw)
+    if form == "chunked":
+        (ref, ref_eff), (got, eff), (own, own_eff), (flat, flat_eff) = (
+            ref, got, own, flat)
+        assert eff.tolist() == np.asarray(ref_eff).tolist()
+        assert own_eff.tolist() == flat_eff.tolist()
+        assert eff[torch.as_tensor(~active)].tolist() == [0, 0]
+        assert own_eff[torch.as_tensor(~active)].tolist() == [0, 0]
+    for a, b in zip(ref, got):
+        assert b.shape == np.asarray(a).shape
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-4)
+    for a, b in zip(flat, own):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-4)
+    assert socp.runtime_fused_mode(route, 16, 32, 24, soc) == route
+
+
+def _oracle_qp(seed, nv=8, n_eq=3, n_ineq=6):
+    """tests/test_native_solver.py's random QP (3 equality rows, 6
+    one-sided inequalities), drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    L = rng.standard_normal((nv, nv)) * 0.5
+    P = L @ L.T + 0.5 * np.eye(nv)
+    q = rng.standard_normal(nv)
+    A = np.concatenate([rng.standard_normal((n_eq, nv)),
+                        rng.standard_normal((n_ineq, nv))])
+    b_eq = rng.standard_normal(n_eq) * 0.3
+    lb = np.concatenate([b_eq, np.full(n_ineq, -socp.INF)])
+    ub = np.concatenate([b_eq, np.ones(n_ineq)])
+    return P, q, A, lb, ub
+
+
+@pytest.mark.parametrize("route", socp.ROUTES)
+@pytest.mark.parametrize("seed", range(4))
+def test_solve_matches_float64_oracle(seed, route):
+    """The port's solve on each route against the float64 C++ oracle of
+    the JAX package (``tpu_aerial_transport.native``), with
+    tests/test_native_solver.py's bars: the oracle converges
+    (``prim < 1e-6``) and the port's float32 solution is within 5e-3."""
+    from tpu_aerial_transport import native
+
+    if not native.available():
+        pytest.skip("no C++ compiler (g++) to build the float64 oracle")
+    P, q, A, lb, ub = _oracle_qp(seed)
+    x, _, _, prim, _ = native.solve_socp_native(P, q, A, lb, ub, n_box=9,
+                                                iters=800)
+    got = socp.solve_socp(*(_t(a)[None] for a in (P, q, A, lb, ub)),
+                          n_box=9, iters=800, fused=route)
+    assert prim < 1e-6
+    assert np.abs(got.x[0].numpy() - x).max() < 5e-3

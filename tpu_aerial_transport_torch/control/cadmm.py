@@ -57,7 +57,7 @@ read that copy; the carried ``f_mean`` is shard 0's, as the JAX package's
 replicated ``out_specs`` gives. With ``shards=1`` no exchange runs.
 
 Not ported yet (each raises ``NotImplementedError``): ``health=`` and
-``env_query="bucketed"`` (ROADMAP Queue 1 items 10 and 11).
+``env_query="bucketed"`` (ROADMAP Queue 1 items 6 and 5).
 """
 
 from __future__ import annotations
@@ -939,14 +939,15 @@ def control(
 ):
     """One distributed control step for ``S`` scenarios at once:
     ``-> (f_app (S, n, 3), CADMMState, SolverStats)``. ``admm_state`` and
-    ``state`` carry the leading scenario axis; ``f_eq``, ``acc_des``,
-    ``forest`` and ``plan`` are shared. Pass ``plan=make_plan(...)`` to
+    ``state`` carry the leading scenario axis; ``f_eq``, ``forest`` and
+    ``plan`` are shared; ``acc_des`` is shared (``(3,)`` each) or per
+    scenario (``(S, 3)``). Pass ``plan=make_plan(...)`` to
     build the elimination cores once outside a rollout (None for the full
     QP). ``shards=d`` shards the agents into d blocks (see the module
     docstring; ``parallel.mesh.cadmm_control_sharded``); the state stays
     the global one."""
     if health is not None:
-        raise _missing("fault-aware control (health=)", "Queue 1 item 11")
+        raise _missing("fault-aware control (health=)", "Queue 1 item 6")
     n = params.n
     dtype, dev = state.xl.dtype, state.xl.device
     S = admm_state.f.shape[0]

@@ -351,7 +351,8 @@ def control(
 ):
     """One control step for ``S`` scenarios at once: ``-> (f_des (S, n, 3),
     CtrlState, SolverStats)``. ``ctrl_state``, ``state`` and ``env_cbf``
-    carry the leading scenario axis; ``f_eq`` and ``acc_des`` are shared.
+    carry the leading scenario axis; ``f_eq`` is shared, ``acc_des``
+    shared (``(3,)`` each) or per scenario (``(S, 3)``).
     The QP is solved warm-started from the previous step; a scenario whose
     solve misses ``solver_tol`` (or is not finite) keeps its previous
     forces and warm start. ``SolverStats.iters`` is -1 (no consensus)."""

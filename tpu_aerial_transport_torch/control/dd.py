@@ -35,7 +35,7 @@ The dual gradient is gathered (``consensus_gather``), and each shard takes
 its own rows of the 6n quasi-Newton step from its gathered copy.
 
 Not ported yet (raises ``NotImplementedError``): ``health=`` (ROADMAP
-Queue 1 item 11).
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -197,7 +197,8 @@ def _build_agent_qp(params: RQPParams, cfg: cadmm.RQPCADMMConfig,
     eye3 = torch.eye(3, **kw)
     e3 = torch.zeros(3, **kw)
     e3[2] = 1.0
-    dvl_des, dwl_des = acc_des
+    # Shared (3,) or per scenario (S, 3), as C-ADMM takes it.
+    dvl_des, dwl_des = (a.expand(S, 3)[:, None, :] for a in acc_des)
     Rl = state.Rl  # (S, 3, 3)
     Gi = lie.hat(params.r_com)[None] @ Rl.transpose(-1, -2)[:, None]
 
@@ -426,13 +427,14 @@ def control(
 ):
     """One DD control step for ``S`` scenarios at once: ``-> (f (S, n, 3),
     DDState, SolverStats)``. ``dd_state`` and ``state`` carry the leading
-    scenario axis; ``f_eq`` (n, 3), ``acc_des``, ``forest`` and ``plan``
-    are shared. Pass ``plan=make_dd_plan(...)`` to build the quasi-Newton
-    cores once outside a rollout. ``shards=d`` shards the agents into d
+    scenario axis; ``f_eq`` (n, 3), ``forest`` and ``plan`` are shared;
+    ``acc_des`` is shared (``(3,)`` each) or per scenario (``(S, 3)``).
+    Pass ``plan=make_dd_plan(...)`` to build the quasi-Newton cores once
+    outside a rollout. ``shards=d`` shards the agents into d
     blocks (the module docstring; ``parallel.mesh.dd_control_sharded``)."""
     if health is not None:
         raise cadmm._missing("fault-aware control (health=)",
-                             "Queue 1 item 11")
+                             "Queue 1 item 6")
     n = params.n
     base = cfg.base
     dtype, dev = state.xl.dtype, state.xl.device

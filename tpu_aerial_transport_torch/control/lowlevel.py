@@ -31,13 +31,13 @@ class LowLevelController:
 def make_lowlevel_controller(so3_controller_type: str,
                              params: RQPParams) -> LowLevelController:
     """The PD controller with the reference gains. The sliding-mode law
-    (``"sm"``) is not ported yet (ROADMAP Queue 1 item 3)."""
+    (``"sm"``) is not ported yet (ROADMAP Queue 1 item 4)."""
     if so3_controller_type == "pd":
         ll = so3_tracking.So3PDParams(k_R=0.25, k_Omega=0.075)
     elif so3_controller_type == "sm":
         raise NotImplementedError(
             "the sliding-mode SO(3) law is not ported yet (ROADMAP Queue 1 "
-            "item 3); use 'pd'"
+            "item 4); use 'pd'"
         )
     else:
         raise NotImplementedError(so3_controller_type)
@@ -62,7 +62,7 @@ def lowlevel_control(J, so3_params, state: RQPState, f_des,
     dwd = torch.zeros_like(state.w)
     if not isinstance(so3_params, so3_tracking.So3PDParams):
         raise NotImplementedError(
-            "only the PD SO(3) law is ported (ROADMAP Queue 1 item 3)"
+            "only the PD SO(3) law is ported (ROADMAP Queue 1 item 4)"
         )
     M = so3_tracking.so3_pd_tracking_control(
         state.R, Rd, state.w, wd, dwd, J, so3_params

@@ -2,7 +2,7 @@
 
 Counterpart of ``tpu_aerial_transport/control/so3_tracking.py``: the PD law
 (Lee, Leok, McClamroch, CDC 2010, Eqs. (10), (11), (16)). The sliding-mode law
-is not ported yet (ROADMAP Queue 1 item 3).
+is not ported yet (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ conic-QP controller (``solver_iters=120``), the PD low level and ten 1 kHz
 physics steps. One period: the forest's collision CBF rows, the centralized
 control step (one early-exit launch of the whole-solve kernel on the card,
 d = 67), the low-level control law once, then ten 1 ms steps with its
-thrusts and moments held.
+thrusts and moments held (replayed from a CUDA graph on the card).
 
     step, (cs0, state0, acc_des) = entry()
     cs, state, stats = step(cs0, state0, acc_des)
@@ -23,6 +23,7 @@ from tpu_aerial_transport_torch import resolve_device
 from tpu_aerial_transport_torch.control import centralized, lowlevel
 from tpu_aerial_transport_torch.envs import forest as forest_mod
 from tpu_aerial_transport_torch.harness import rollout, setup
+from tpu_aerial_transport_torch.harness.cuda_graph import GraphedFn
 from tpu_aerial_transport_torch.models import rqp
 from tpu_aerial_transport_torch.obs import phases
 
@@ -30,9 +31,12 @@ N_AGENTS = 3
 SOLVER_ITERS = 120
 
 
-def entry(device="cuda"):
+def entry(device="cuda", cuda_graph: bool = True):
     """``-> (step, (cs0, state0, acc_des))``: ``step(cs, state, acc_des) ->
-    (cs, state, stats)`` runs one MPC period on ``device``."""
+    (cs, state, stats)`` runs one MPC period on ``device``. The period's
+    physics (the law once, ten integrations) replays from a CUDA graph on
+    the card (``harness.cuda_graph.GraphedFn``, ``step.physics``) unless
+    ``cuda_graph=False``; on the CPU it runs as plain calls."""
     dev = resolve_device(device)
     params, col, state0 = setup.rqp_setup(N_AGENTS, device=dev)
     forest = forest_mod.make_forest(seed=0, device=dev)
@@ -44,6 +48,15 @@ def entry(device="cuda"):
     cs0 = centralized.init_ctrl_state(params, cfg, f_eq)
     ll = lowlevel.make_lowlevel_controller("pd", params)
 
+    def physics(state, f_des):
+        wrench = ll.control(state, f_des)
+        for _ in range(10):
+            state = rqp.integrate(params, state, wrench, 1e-3)
+        return state
+
+    if cuda_graph:
+        physics = GraphedFn(physics)
+
     def step(cs, state, acc_des):
         with phases.scope(phases.CBF_ROWS):
             env_cbf = forest_mod.collision_cbf_rows(
@@ -54,10 +67,10 @@ def entry(device="cuda"):
         f_des, cs, stats = centralized.control(
             params, cfg, f_eq, cs, state, acc_des, env_cbf)
         with phases.scope(phases.DYNAMICS):
-            f, M = ll.control(state, f_des)
-            for _ in range(10):
-                state = rqp.integrate(params, state, (f, M), 1e-3)
+            state = physics(state, f_des)
         return cs, state, stats
+
+    step.physics = physics
 
     dvl_des = torch.zeros(3, dtype=torch.float32, device=dev)
     dvl_des[0] = 0.2

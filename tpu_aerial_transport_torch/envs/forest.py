@@ -128,6 +128,18 @@ def forest_from_tree_pos(tree_pos, num_trees, max_trees: int = MAX_TREES,
     )
 
 
+def ground_height(forest: Forest, xy: torch.Tensor) -> torch.Tensor:
+    """Terrain height of the spherical-cap mountain at ``xy (..., 2)`` (0 on
+    flat ground), for the terrain-following reference trajectory. The
+    center enters as Python floats: no host-to-device copy a call."""
+    dx = xy[..., 0] - float(MOUNTAIN_CENTER[0])
+    dy = xy[..., 1] - float(MOUNTAIN_CENTER[1])
+    r2 = forest.mountain_sphere_radius**2
+    h = (torch.sqrt(torch.clamp(r2 - (dx * dx + dy * dy), min=0.0))
+         - forest.mountain_center_depth)
+    return torch.clamp(h, min=0.0)
+
+
 def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over the trailing axis as ``sqrt(sum(v * v))`` (the
     JAX package's ``jnp.linalg.norm`` reduction)."""

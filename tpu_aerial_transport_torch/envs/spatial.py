@@ -2,7 +2,7 @@
 
 Counterpart of the resolution half of ``tpu_aerial_transport/envs/spatial.py``.
 Only the dense sweep is ported: the spatial-hash ``"bucketed"`` tier raises
-(ROADMAP Queue 1 item 10). The paper-class forest (``MAX_TREES = 200`` slots)
+(ROADMAP Queue 1 item 5). The paper-class forest (``MAX_TREES = 200`` slots)
 resolves to dense under ``"auto"``.
 """
 
@@ -17,7 +17,7 @@ DENSE_AUTO_MAX_TREES = 200
 def _bucketed_missing():
     return NotImplementedError(
         "env_query='bucketed' (the spatial-hash query tier) is not ported "
-        "yet (ROADMAP Queue 1 item 10); use 'dense' or 'auto' on a world of "
+        "yet (ROADMAP Queue 1 item 5); use 'dense' or 'auto' on a world of "
         f"at most {DENSE_AUTO_MAX_TREES} tree slots"
     )
 

@@ -126,8 +126,11 @@ def forward_dynamics(params: RQPParams, state: RQPState, wrench):
     """Accelerations ``(dw (..., n, 3), dvl (..., 3), dwl (..., 3))`` from
     ``wrench = (f (..., n), M (..., n, 3))``."""
     f, M = wrench
-    gravity = torch.zeros(3, dtype=state.xl.dtype, device=state.xl.device)
-    gravity[2] = -GRAVITY
+    # (0, 0, -g) from a fill and a pad: no host-to-device copy, which a
+    # CUDA-graph capture of the substeps would refuse.
+    gravity = torch.nn.functional.pad(
+        torch.full((1,), -GRAVITY, dtype=state.xl.dtype,
+                   device=state.xl.device), (2, 0))
     Jw = _mv(params.J, state.w)
     dw = _mv(params.J_inv, M - lie.cross(state.w, Jw))
 

@@ -82,12 +82,31 @@ class SOCPSolution(NamedTuple):
     dual_res: torch.Tensor  # (...) inf-norm of P x + q + A^T y.
 
 
+class PaddedKKTOp(NamedTuple):
+    """A tile-aligned solve bundle (:func:`padded_kkt_operator`): the
+    padded problem data and the KKT operator built on it. Built once per
+    (P, A), solved many times with only ``q`` and the warm start moving."""
+
+    P: torch.Tensor  # (..., nv_p, nv_p) identity on the pad block.
+    A: torch.Tensor  # (..., m_p, nv_p) zero pad rows and columns.
+    lb: torch.Tensor  # (..., n_box_p) pad rows free.
+    ub: torch.Tensor  # (..., n_box_p)
+    shift: torch.Tensor  # (..., m_p) zero on the pad rows.
+    op: KKTOp  # built from the padded data.
+
+
 def padded_dims(nv: int, n_box: int, soc_dims: Sequence[int] = ()):
     """``(nv_p, n_box_p)``: ``nv`` and ``m = n_box + sum(soc_dims)`` rounded
-    up to :data:`SUBLANE_TILE`; the row padding goes into the box region."""
+    up to :data:`SUBLANE_TILE`; the row padding goes into the box region,
+    so the SOC blocks keep their exact dims."""
     m = n_box + sum(soc_dims)
-    n_box_p = n_box + bucket_dim(m, SUBLANE_TILE) - m
-    return bucket_dim(nv, SUBLANE_TILE), n_box_p
+    return (bucket_dim(nv, SUBLANE_TILE),
+            n_box_p_from(m, bucket_dim(m, SUBLANE_TILE), n_box))
+
+
+def n_box_p_from(m: int, m_p: int, n_box: int) -> int:
+    """Padded box-row count: all row padding lands in the box region."""
+    return n_box + (m_p - m)
 
 
 @phases.scoped(phases.PAD)
@@ -123,6 +142,43 @@ def pad_qp(P, q, A, lb, ub, shift=None, *, n_box: int,
              shift[..., n_box:]], dim=-1,
         )
     return P_p, q_p, A_p, lb_p, ub_p, shift_p
+
+
+@phases.scoped(phases.PAD)
+def pad_warm(warm: SOCPSolution, *, n_box: int,
+             soc_dims: Sequence[int] = ()) -> SOCPSolution:
+    """An unpadded (batched) warm start in the padded layout: zero pad
+    entries, the exact fixed point of the pad rows and variables."""
+    nv = warm.x.shape[-1]
+    nv_p, n_box_p = padded_dims(nv, n_box, soc_dims)
+    pad_b = n_box_p - n_box
+
+    def pad_rows(v):
+        zeros = torch.zeros(v.shape[:-1] + (pad_b,), dtype=v.dtype,
+                            device=v.device)
+        return torch.cat([v[..., :n_box], zeros, v[..., n_box:]], dim=-1)
+
+    return SOCPSolution(
+        x=torch.nn.functional.pad(warm.x, (0, nv_p - nv)),
+        y=pad_rows(warm.y), z=pad_rows(warm.z),
+        prim_res=warm.prim_res, dual_res=warm.dual_res,
+    )
+
+
+@phases.scoped(phases.PAD)
+def unpad_solution(sol: SOCPSolution, nv: int, n_box: int,
+                   n_box_p: int) -> SOCPSolution:
+    """A padded-layout solution in the unpadded layout: the pad variables
+    and rows dropped. The residuals are already exact: the pad rows add
+    exactly 0 to both inf-norms."""
+
+    def drop_rows(v):
+        return torch.cat([v[..., :n_box], v[..., n_box_p:]], dim=-1)
+
+    return SOCPSolution(
+        x=sol.x[..., :nv], y=drop_rows(sol.y), z=drop_rows(sol.z),
+        prim_res=sol.prim_res, dual_res=sol.dual_res,
+    )
 
 
 def project_soc(z: torch.Tensor) -> torch.Tensor:
@@ -221,6 +277,40 @@ def kkt_operator(P, A, rho_vec, sigma: float = 1e-6) -> KKTOp:
     K = torch.cat([sigma * Minv, MinvAT], dim=-1)
     K2 = torch.cat([K, A @ K], dim=-2)
     return KKTOp(Minv=Minv, MinvAT=MinvAT, K2=K2)
+
+
+def padded_kkt_operator(P, A, lb, ub, shift=None, *, n_box: int,
+                        soc_dims: Sequence[int] = (), rho: float = 0.4,
+                        sigma: float = 1e-6) -> PaddedKKTOp:
+    """The tile-aligned solve bundle of a (batched) QP: padded by
+    :func:`pad_qp` (with a zero ``q``: it moves per solve) and the KKT
+    operator built on the padded data. The padded system matrix is
+    block-diagonal, ``[[M, 0], [0, (1 + sigma) I]]``, so the real block of
+    ``Minv`` matches the unpadded operator to the inverse's rounding."""
+    nv = P.shape[-1]
+    q0 = torch.zeros(P.shape[:-1], dtype=P.dtype, device=P.device)
+    P_p, _, A_p, lb_p, ub_p, shift_p = pad_qp(
+        P, q0, A, lb, ub, shift, n_box=n_box, soc_dims=soc_dims)
+    n_box_p = padded_dims(nv, n_box, soc_dims)[1]
+    rho_vec = make_rho_vec(A_p.shape[-2], n_box_p, lb_p, ub_p, rho)
+    op = kkt_operator(P_p, A_p, rho_vec, sigma)
+    return PaddedKKTOp(P=P_p, A=A_p, lb=lb_p, ub=ub_p, shift=shift_p, op=op)
+
+
+def kkt_residuals(P, q, A, lb, ub, n_box, soc_dims, sol: SOCPSolution,
+                  shift=None):
+    """The KKT check of a (batched) solution: ``(stat, prim, comp)``, the
+    inf-norm of the stationarity residual ``P x + q + A^T y``, the
+    inf-norm distance of ``A x`` to the translated cone, and the
+    complementarity proxy ``|<y, A x - proj(A x)>|``; each ``(...)``."""
+    x, y = sol.x, sol.y
+    Ax = _mv(A, x)
+    gap = Ax - _project_cone(Ax, lb, ub, n_box, soc_dims, shift)
+    prim = torch.amax(torch.abs(gap), dim=-1)
+    stat = torch.amax(torch.abs(_mv(P, x) + q + _mv(A.transpose(-1, -2), y)),
+                      dim=-1)
+    comp = torch.abs(torch.sum(y * gap, dim=-1))
+    return stat, prim, comp
 
 
 def equilibrate_rows(A, lb, ub, shift, n_box: int, soc_dims):
@@ -570,3 +660,55 @@ def solve_socp(
     if eff is None:
         eff = torch.full(batch, iters, dtype=torch.int32, device=device)
     return sol, eff.reshape(batch)
+
+
+def solve_socp_padded(
+    P: torch.Tensor,
+    q: torch.Tensor,
+    A: torch.Tensor,
+    lb: torch.Tensor,
+    ub: torch.Tensor,
+    *,
+    n_box: int,
+    soc_dims: Sequence[int] = (),
+    iters: int = 200,
+    rho: float = 0.4,
+    sigma: float = 1e-6,
+    alpha: float = 1.6,
+    warm: SOCPSolution | None = None,
+    check_every: int = 0,
+    tol: float = 0.0,
+    shift: torch.Tensor | None = None,
+    pqp: PaddedKKTOp | None = None,
+    fused: str = "auto",
+    precision: str = "f32",
+    active: torch.Tensor | None = None,
+    report_iters: bool = False,
+):
+    """Tile-aligned :func:`solve_socp`: the (batched) QP padded to its
+    bucket (:func:`padded_dims`), solved on the padded layout through the
+    same route resolver as an unpadded solve, and the solution returned in
+    the unpadded layout. ``pqp`` is a prebuilt :class:`PaddedKKTOp` for
+    operator reuse across solves; ``warm`` is an unpadded warm start;
+    ``active`` and ``report_iters`` pass through to :func:`solve_socp`.
+    Agrees with the unpadded solve to the rounding of the matvecs' other
+    sums (the pad entries are exact zeros)."""
+    nv = P.shape[-1]
+    n_box_p = padded_dims(nv, n_box, soc_dims)[1]
+    if pqp is None:
+        pqp = padded_kkt_operator(P, A, lb, ub, shift, n_box=n_box,
+                                  soc_dims=soc_dims, rho=rho, sigma=sigma)
+    q_p = torch.nn.functional.pad(q, (0, pqp.P.shape[-1] - nv))
+    warm_p = None if warm is None else pad_warm(warm, n_box=n_box,
+                                                soc_dims=soc_dims)
+    out = solve_socp(
+        pqp.P, q_p, pqp.A, pqp.lb, pqp.ub, n_box=n_box_p,
+        soc_dims=tuple(soc_dims), iters=iters, rho=rho, sigma=sigma,
+        alpha=alpha, warm=warm_p, check_every=check_every, tol=tol,
+        shift=pqp.shift, op=pqp.op, fused=fused, precision=precision,
+        active=active, report_iters=report_iters,
+    )
+    if report_iters:
+        sol, eff = out
+        return unpad_solution(sol, nv, n_box, n_box_p), eff
+    return unpad_solution(out, nv, n_box, n_box_p)
