@@ -100,7 +100,24 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
 24. the padded tier: ``solve_socp_padded`` on the headline set-up's
    unpadded agent QPs on routes "kernel" and "pallas", against
    ``solve_socp`` on the same QPs, the resolved route and the launched
-   body by name, both timed.
+   body by name, both timed;
+25. the environment-query A/B (the JAX bench's env cells): 64 scenarios x
+   10 query steps through ``collision_cbf_rows`` at T = 200, 4096 and
+   65536 trees, dense and bucketed in turns; batched queries/s, the grid's
+   occupancy and build time, each arm's peak device memory, and the
+   bucketed rows bitwise equal to the dense rows at every step;
+26. the city world on the main path: the city example's 16384-tree world
+   with its grid, C-ADMM at 256 x 8 through ``jit_rollout`` with
+   ``env_query="auto"`` resolved to "bucketed", one whole-solve launch per
+   consensus iteration, against the CPU; the first step's bucketed
+   per-agent rows bitwise equal to the dense rows; one step profiled
+   (``tat.env_query``); DD likewise against the CPU;
+27. the sliding-mode SO(3) law: the graph replay of the headline's ten SM
+   substeps bitwise equal to the eager substeps, both timed in turns, and
+   3 MPC steps with the SM law against the CPU;
+28. ``jit_control_step`` of C-ADMM and DD at 256 x 8, 3 steps each:
+   outputs bitwise equal to ``control``, the donated state in the storage
+   passed in.
 
 The main path and every bench path replay the ten substeps of a step from
 a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
@@ -130,6 +147,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -218,6 +236,17 @@ GRAPH_STEPS, LOG_STEPS, BUCKET_STEPS = 5, 3, 3
 # B / 2 lanes): the iteration counts must still be equal and every state
 # and controller-state leaf within this.
 BUCKET_STATE_ATOL = 1e-6
+# Phase 25, the environment-query A/B at the JAX bench's env cells
+# (bench.py:1040-1140): world sizes, the city worlds' tree density
+# (ENV_CELL_DENSITY there), scenarios, query steps, timed runs of each arm.
+ENV_TREES = (200, 4096, 65536)
+ENV_CELL_DENSITY = 0.085
+ENV_SCENARIOS, ENV_STEPS, ENV_REPEATS = 64, 10, 3
+# Phase 26, the city example's default world (examples/city_forest.py), and
+# the high-level steps of its rollouts; phase 27's SM-law MPC steps; phase
+# 28's jit_control_step steps.
+CITY_TREES = 16384
+CITY_STEPS, SM_STEPS, JIT_STEPS = 3, 3, 3
 
 
 def fail(msg: str) -> None:
@@ -2126,6 +2155,435 @@ def padded_phase(card, report, args, kw):
     report["padded"] = out
 
 
+def env_world(n_trees, device="cuda"):
+    """``(forest, half_extent)``: the seed-0 mountain world at T = 200 (the
+    paper's size), a jittered grid at ENV_CELL_DENSITY above it with
+    ``world_size = (n_side + 0.5) * pitch`` (the JAX bench's ``_env_world``,
+    bench.py:1051-1071)."""
+    from tpu_aerial_transport_torch.envs import forest as forest_mod
+
+    if n_trees <= forest_mod.MAX_TREES:
+        return forest_mod.make_forest(seed=0, max_trees=n_trees,
+                                      device=device), 28.0
+    n_side = math.isqrt(n_trees)
+    world_size = (n_side + 0.5) / math.sqrt(ENV_CELL_DENSITY)
+    f = forest_mod.make_forest(seed=0, max_trees=n_trees, device=device,
+                               world_size=world_size,
+                               density=ENV_CELL_DENSITY)
+    return f, world_size / 2.0 * 0.9
+
+
+def env_query_phase(card, report):
+    """Phase 25, the environment-query A/B (the JAX bench's
+    ``_env_query_cell``, bench.py:1074-1140): at T = 200, 4096 and 65536
+    trees, 64 scenarios drawn from ``default_rng(0)`` as that cell draws
+    them, ENV_STEPS query steps through ``collision_cbf_rows`` (the batch
+    drifting by +0.05 m a step), dense and bucketed in turns (one warm-up
+    and ENV_REPEATS timed runs of each); batched queries/s, the grid's
+    occupancy and build time, the resolved tier, each arm's peak device
+    memory; the bucketed rows bitwise equal to the dense rows at every step
+    and every T, or the phase fails."""
+    import numpy as np
+    import torch
+
+    from tpu_aerial_transport_torch.envs import forest as forest_mod
+    from tpu_aerial_transport_torch.envs import spatial
+    from tpu_aerial_transport_torch.harness import setup
+
+    _, col, _ = setup.rqp_setup(4, device="cpu")
+    vision = col.collision_radius + 5.0
+    out = {}
+    for T in ENV_TREES:
+        t0 = time.perf_counter()
+        dense_f, half = env_world(T)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        buck_f = spatial.with_grid(dense_f, vision + dense_f.bark_radius)
+        grid_s = time.perf_counter() - t0
+        stats = spatial.grid_stats(buck_f.grid)
+        rng = np.random.default_rng(0)
+        xs = torch.tensor(np.concatenate(
+            [rng.uniform(-half, half, (ENV_SCENARIOS, 2))
+             + forest_mod.MOUNTAIN_CENTER,
+             np.full((ENV_SCENARIOS, 1), 2.0)], axis=1),
+            dtype=torch.float32, device="cuda")
+        vs = torch.tensor(rng.normal(size=(ENV_SCENARIOS, 3)) * 0.5,
+                          dtype=torch.float32, device="cuda")
+        arms = {"dense": dense_f, "bucketed": buck_f}
+        labels = {impl: spatial.runtime_env_query(impl, f)
+                  for impl, f in arms.items()}
+
+        def roll(impl):
+            x, rows = xs, []
+            for _ in range(ENV_STEPS):
+                cbf = forest_mod.collision_cbf_rows(
+                    arms[impl], x, vs, col.collision_radius,
+                    col.max_deceleration, vision, 0.1, 1.5, 10,
+                    env_query=impl)
+                rows.append(cbf)
+                x = x + 0.05
+            return rows
+
+        warm, peak = {}, {}
+        for impl in arms:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            warm[impl] = roll(impl)
+            torch.cuda.synchronize()
+            peak[impl] = torch.cuda.max_memory_allocated() - base
+        equal = all(
+            torch.equal(getattr(a, k), getattr(b, k))
+            for a, b in zip(warm["dense"], warm["bucketed"])
+            for k in ("lhs", "rhs", "collision", "min_dist"))
+        active = int(sum(int((r.lhs.abs().amax(-1) > 0).sum())
+                         for r in warm["dense"]))
+        del warm
+        secs = {"dense": [], "bucketed": []}
+        for impl in ("dense", "bucketed") * ENV_REPEATS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            roll(impl)
+            torch.cuda.synchronize()
+            secs[impl].append(time.perf_counter() - t0)
+        rate = {impl: ENV_SCENARIOS * ENV_STEPS / float(np.median(s))
+                for impl, s in secs.items()}
+        print(f"env query T={T} ({int(dense_f.num_trees)} trees, world "
+              f"generated in {gen_s:.2f} s, grid built in {grid_s:.2f} s: "
+              f"{stats}): {ENV_SCENARIOS} scenarios x {ENV_STEPS} steps, "
+              f"dense (resolved {labels['dense']!r}) "
+              f"{rate['dense']:.1f} and bucketed (resolved "
+              f"{labels['bucketed']!r}) {rate['bucketed']:.1f} batched "
+              f"queries/s (median of {ENV_REPEATS} in turns; seconds "
+              f"{ {k: [round(v, 5) for v in s] for k, s in secs.items()} }), "
+              f"bucketed/dense {rate['bucketed'] / rate['dense']:.3f}x | "
+              f"peak device memory above the run's start: dense "
+              f"{peak['dense'] / 2**20:.1f} MiB, bucketed "
+              f"{peak['bucketed'] / 2**20:.1f} MiB | {active} active rows, "
+              f"bucketed rows bitwise equal to dense at every step: {equal}"
+              f" | {card}", flush=True)
+        if not equal or labels != {"dense": "dense", "bucketed": "bucketed"}:
+            fail(f"env query T={T}: the bucketed rows differ from the dense "
+                 f"rows (or the tiers resolved {labels})")
+        out[str(T)] = {
+            "queries_per_s": rate, "seconds_in_turns": secs,
+            "peak_bytes": peak, "grid": stats, "grid_build_s": grid_s,
+            "world_gen_s": gen_s, "resolved": labels, "active_rows": active,
+            "bitwise_equal": equal}
+        del dense_f, buck_f, arms
+        torch.cuda.empty_cache()
+    report["env_query"] = out
+
+
+def city_forest(device="cuda"):
+    """The JAX package's ``examples/city_forest.py`` default world (16384
+    trees at 0.085 trees/m^2, seed 0) with its grid at the C-ADMM and DD
+    configs' vision radius + bark radius (n = 8): ``(forest, grid build s,
+    grid_stats)``."""
+    from tpu_aerial_transport_torch.envs import spatial
+    from tpu_aerial_transport_torch.harness import setup
+
+    forest, _ = env_world(CITY_TREES, device)
+    _, col, _ = setup.rqp_setup(N_AGENTS, device="cpu")
+    t0 = time.perf_counter()
+    forest = spatial.with_grid(forest, col.collision_radius + 5.0
+                               + forest.bark_radius)
+    return forest, time.perf_counter() - t0, spatial.grid_stats(forest.grid)
+
+
+def city_batch(state0, n_scenarios):
+    """The city example's start over the headline's batch: the xy offsets
+    of ``rollout.scenario_batch``'s draw (``default_rng(0)``, N(0, 2^2))
+    around (0, 0), z at BARK_HEIGHT + 1 m above the canopy, v = (0.5, 0,
+    0) m/s."""
+    import numpy as np
+    import torch
+
+    from tpu_aerial_transport_torch.envs import forest as forest_mod
+    from tpu_aerial_transport_torch.harness import rollout
+
+    xs = np.random.default_rng(0).normal(size=(n_scenarios, 3)) * 2.0
+    xs[:, 2] = forest_mod.BARK_HEIGHT + 1.0
+    states = rollout.scenario_batch(state0, n_scenarios)
+    return states.replace(xl=torch.as_tensor(xs, dtype=torch.float32,
+                                             device=state0.xl.device))
+
+
+def rollout_vs_cpu(what, controller, card, n_hl_steps, forest, ll_type="pd",
+                   n_cpu=8, batch=None, **kw):
+    """``n_hl_steps`` high-level steps of ``controller`` at 256 x 8 through
+    ``rollout.jit_rollout`` (the substeps from the graph) on the card, run
+    twice (the first call captures the graph) with every launch counter
+    zeroed before the second and read after it: one whole-solve launch
+    (the warp body) per consensus iteration run, every log leaf finite;
+    then the first ``n_cpu`` scenarios against the CPU's eager rollout of
+    the same set-up (states 1e-4, forces 1e-2 N, iteration counts equal).
+    ``batch(state0, S)`` makes the start (default: the headline's);
+    ``ll_type`` names the SO(3) law. Returns ``(report dict, ctl, run,
+    states, css)``."""
+    import torch
+
+    from tpu_aerial_transport_torch.control import lowlevel
+    from tpu_aerial_transport_torch.harness import rollout
+    from tpu_aerial_transport_torch.tree import tree_map
+
+    batch = batch or rollout.scenario_batch
+
+    def logged(device, S, f, **extra):
+        ctl = rollout.make_controller(controller, N_AGENTS, max_iter=20,
+                                      forest=f, device=device, **kw, **extra)
+        ll = lowlevel.make_lowlevel_controller(ll_type, ctl.params)
+        run = rollout.jit_rollout(
+            ctl.control, ll.control, ctl.params, n_hl_steps=n_hl_steps,
+            acc_des_fn=rollout.make_forest_acc_des(ctl.forest))
+        return (ctl, run, batch(ctl.state0, S),
+                rollout.stack_scenarios(ctl.cs0, S))
+
+    ctl, run, states, css = logged("cuda", N_SCENARIOS, forest)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(states, css)
+    torch.cuda.synchronize()
+    secs1 = time.perf_counter() - t0
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, logs = run(states, css)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    runs = int(logs.iters.max(dim=1).values.sum())
+    check_launches(launches, "fused_solve", runs, what)
+    check_body(launches, "fused_solve", "warp_solve_kernel", what)
+    for name, t in vars(logs).items():
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            fail(f"{what}: the {name} log is not finite")
+    g = run.substeps.graph
+    if (g.captures, g.replays) != (1, 2 * n_hl_steps):
+        fail(f"{what}: {g.captures} captures and {g.replays} replays, "
+             f"expected 1 and {2 * n_hl_steps}")
+    forest_c = None if forest is None else tree_map(lambda t: t.cpu(),
+                                                    forest)
+    _, run_c, states_c, css_c = logged("cpu", n_cpu, forest_c,
+                                       pad_operators=True)
+    _, _, logs_c = run_c(states_c, css_c)
+    cut = lambda t: t[:, :n_cpu].cpu()  # noqa: E731
+    errs = {f: float((getattr(logs_c, f) - cut(getattr(logs, f))).abs()
+                     .max()) for f in STATE_FIELDS + ("x_err", "v_err")}
+    f_err = float((logs_c.f_des - cut(logs.f_des)).abs().max())
+    it_card, it_cpu = cut(logs.iters).tolist(), logs_c.iters.tolist()
+    ok = (max(errs.values()) <= CPU_STATE_ATOL and f_err <= CPU_FORCE_ATOL
+          and it_card == it_cpu)
+    rate = N_SCENARIOS * n_hl_steps / secs
+    print(f"{what} (jit_rollout, {controller} {N_SCENARIOS} x {N_AGENTS}, "
+          f"{ll_type} law, {n_hl_steps} HL steps): first call (captures) "
+          f"{secs1:.4f} s, second {secs:.4f} s = {rate:.2f} "
+          f"scenario-MPC-steps/s | launches {launches} = consensus "
+          f"iterations run {runs}, all warp_solve_kernel | first {n_cpu} "
+          f"scenarios against the CPU's eager rollout: max|state or error "
+          f"err| {max(errs.values()):.2e} (atol {CPU_STATE_ATOL}), "
+          f"max|f_des err| {f_err:.2e} N (atol {CPU_FORCE_ATOL}), iterations"
+          f" card {it_card} CPU {it_cpu} " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    if not ok:
+        fail(f"{what}: the card disagrees with the CPU")
+    return ({"seconds_first_call": secs1, "seconds": secs,
+             "scenario_mpc_steps_per_s": rate, "launches": launches,
+             "card_vs_cpu": {"err": errs, "f_des_err": f_err,
+                             "iters_card": it_card, "iters_cpu": it_cpu}},
+            ctl, run, states, css)
+
+
+def city_phase(card, report):
+    """Phase 26, the city world on the main path: the city example's world
+    with its grid; C-ADMM at 256 x 8 through ``jit_rollout`` with the
+    forest reference and ``env_query="auto"`` (which must resolve to
+    "bucketed"), CITY_STEPS high-level steps, twice, against the CPU; on
+    the first step's inputs the bucketed per-agent rows bitwise equal to
+    the dense rows on the card; one profiled step's ``tat.env_query``; then
+    DD likewise."""
+    import dataclasses
+
+    import torch
+
+    from tpu_aerial_transport_torch.control import cadmm
+    from tpu_aerial_transport_torch.envs import spatial
+    from tpu_aerial_transport_torch.harness import rollout
+
+    t0 = time.perf_counter()
+    forest, grid_s, stats = city_forest()
+    print(f"city world: {int(forest.num_trees)} trees, built with its grid "
+          f"in {time.perf_counter() - t0:.2f} s (grid {grid_s:.2f} s): "
+          f"{stats} | {card}", flush=True)
+    out = {"grid": stats, "grid_build_s": grid_s}
+    out["cadmm"], ctl, run, states, css = rollout_vs_cpu(
+        "city C-ADMM", "cadmm", card, CITY_STEPS, forest, batch=city_batch,
+        inner_iters=20)
+    label = spatial.runtime_env_query(ctl.cfg.env_query, forest)
+    print(f"city C-ADMM: env_query {ctl.cfg.env_query!r} resolved "
+          f"{label!r} on {forest.tree_pos.shape[0]} tree slots | {card}",
+          flush=True)
+    if label != "bucketed":
+        fail(f"the city world resolved env_query {label!r}, not 'bucketed'")
+    rows, peak = {}, {}
+    for mode in ("dense", "bucketed"):
+        cfg = dataclasses.replace(ctl.cfg, env_query=mode)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rows[mode] = cadmm.agent_env_cbfs(ctl.params, cfg, forest, states)
+        torch.cuda.synchronize()
+        peak[mode] = torch.cuda.max_memory_allocated() - base
+    equal = all(torch.equal(getattr(rows["dense"], k),
+                            getattr(rows["bucketed"], k))
+                for k in ("lhs", "rhs", "collision", "min_dist"))
+    active = int((rows["dense"].lhs.abs().amax(-1) > 0).sum())
+    print(f"city C-ADMM first-step per-agent rows ({N_SCENARIOS} x "
+          f"{N_AGENTS} x {ctl.cfg.n_env_cbfs}, {active} active): bucketed "
+          f"bitwise equal to dense on the card: {equal} | peak device "
+          f"memory dense {peak['dense'] / 2**20:.1f} MiB, bucketed "
+          f"{peak['bucketed'] / 2**20:.1f} MiB | {card}", flush=True)
+    if not equal:
+        fail("the city world's bucketed rows differ from the dense rows")
+    acc_fn = rollout.make_forest_acc_des(ctl.forest)
+
+    def one_step():
+        acc, _, _ = acc_fn(states, 0.0)
+        f_des, _, _ = ctl.control(css, states, acc)
+        run.substeps(states, f_des)
+
+    wall, ph = profile_step(one_step)
+    print_profile("one city C-ADMM step (bucketed query, graph substeps; "
+                  "the mountain headline step's tat.env_query: 24.18 ms of "
+                  "host time, PERF.md section 5)", wall, ph, card)
+    out["cadmm"].update(
+        resolved=label, rows_bitwise_equal=equal, active_rows=active,
+        rows_peak_bytes=peak, profile={"wall_ms": wall, "phases": ph})
+    out["dd"] = rollout_vs_cpu("city DD", "dd", card, CITY_STEPS, forest,
+                               batch=city_batch)[0]
+    report["city"] = out
+
+
+def sm_phase(card, report, run, css0, states0):
+    """Phase 27, the sliding-mode law: the headline's ten substeps with
+    ``make_lowlevel_controller("sm")`` after one warm-up MPC step, the graph
+    replay bitwise equal to the eager substeps; eager and graph timed in
+    turns; then SM_STEPS MPC steps (C-ADMM 256 x 8, the SM law) through
+    ``jit_rollout`` against the CPU."""
+    import torch
+
+    from tpu_aerial_transport_torch.control import lowlevel
+    from tpu_aerial_transport_torch.harness import rollout
+
+    css1, states1, _ = run(css0, states0, 1)
+    ctl = rollout.make_controller("cadmm", N_AGENTS, max_iter=20,
+                                  inner_iters=20, device="cuda")
+    sm = lowlevel.make_lowlevel_controller("sm", ctl.params)
+    acc = (torch.tensor([0.3, 0.0, 0.0], device="cuda"),
+           torch.zeros(3, device="cuda"))
+    f_des = ctl.control(css1, states1, acc)[0]
+    eager = rollout.make_substeps(ctl.params, sm.control, cuda_graph=False)
+    graphed = rollout.make_substeps(ctl.params, sm.control)
+    ref = eager(states1, f_des)
+    first = graphed(states1, f_des)
+    again = graphed(states1, f_des)
+    torch.cuda.synchronize()
+    g = graphed.graph
+    equal = tree_equal(ref, first) and tree_equal(ref, again)
+    finite = all(bool(torch.isfinite(getattr(ref, f)).all())
+                 for f in STATE_FIELDS)
+    counts = (g.captures, g.replays)
+    turns = {"eager": [], "graph": []}
+    for arm in ("eager", "graph", "graph", "eager"):
+        fn = eager if arm == "eager" else graphed
+        turns[arm].append(event_ms(lambda: fn(states1, f_des), 20))
+    print(f"SM substeps (ten 1 kHz steps, {N_SCENARIOS} x {N_AGENTS}, after "
+          f"one warm-up step): replay bitwise equal to the eager substeps "
+          f"on every state leaf: {equal} ({counts[0]} capture, {counts[1]} "
+          f"replays), finite {finite} | in turns, CUDA events around 20 "
+          f"host-driven calls: eager {turns['eager'][0]:.4f} and "
+          f"{turns['eager'][1]:.4f} ms, graph {turns['graph'][0]:.4f} and "
+          f"{turns['graph'][1]:.4f} ms a call | {card}", flush=True)
+    if not (equal and finite) or counts != (1, 2):
+        fail("the SM substeps' graph replay is not bitwise equal to the "
+             "eager substeps")
+    steps = rollout_vs_cpu("SM law rollout", "cadmm", card, SM_STEPS, None,
+                           ll_type="sm", inner_iters=20)[0]
+    report["sm"] = {"substeps_bitwise_equal": equal,
+                    "substeps_ms_in_turns": turns, "rollout": steps}
+
+
+def control_step_phase(card, report):
+    """Phase 28, ``jit_control_step``: C-ADMM and DD at 256 x 8 for
+    JIT_STEPS steps each from the headline's batch (physics advanced by the
+    graph substeps): ``donate=True`` and ``donate=False`` outputs bitwise
+    equal to ``control`` on the same inputs, the donated state handed back
+    in the storage of the state passed in at every step, the undonated
+    input untouched; one whole-solve launch per iteration in the donated
+    chain."""
+    import torch
+
+    from tpu_aerial_transport_torch.control import cadmm, centralized, dd
+    from tpu_aerial_transport_torch.harness import rollout
+    from tpu_aerial_transport_torch.tree import leaves, tree_map
+
+    out = {}
+    for controller, mod in (("cadmm", cadmm), ("dd", dd)):
+        ctl = rollout.make_controller(controller, N_AGENTS, max_iter=20,
+                                      device="cuda")
+        f_eq = centralized.equilibrium_forces(ctl.params)
+        states = rollout.scenario_batch(ctl.state0, N_SCENARIOS)
+        css = rollout.stack_scenarios(ctl.cs0, N_SCENARIOS)
+        acc = (torch.tensor([0.3, 0.0, 0.0], device="cuda"),
+               torch.zeros(3, device="cuda"))
+        substeps = rollout.make_substeps(ctl.params, ctl.ll.control)
+        ref, seq, cs = [], [states], css
+        for _ in range(JIT_STEPS):
+            o = ctl.control(cs, seq[-1], acc)
+            ref.append(o)
+            cs = o[1]
+            seq.append(substeps(seq[-1], o[0]))
+        keep = mod.jit_control_step(ctl.params, ctl.cfg, f_eq, ctl.forest,
+                                    donate=False)
+        donate = mod.jit_control_step(ctl.params, ctl.cfg, f_eq, ctl.forest)
+        carry = tree_map(torch.clone, css)
+        ptrs = [t.data_ptr() for t in leaves(carry)]
+        cs_keep, equal, shared, untouched = css, True, True, True
+        zero_launches()
+        runs = 0
+        for k in range(JIT_STEPS):
+            before = tree_map(torch.clone, cs_keep)
+            o_keep = keep(cs_keep, seq[k], acc)
+            untouched &= tree_equal(before, cs_keep)
+            o_don = donate(carry, seq[k], acc)
+            runs += 2 * int(o_don[2].iters.max())
+            shared &= (o_don[1] is carry and [
+                t.data_ptr() for t in leaves(o_don[1])] == ptrs)
+            equal &= all(
+                tree_equal((o[0], o[1]), ref[k][:2])
+                and torch.equal(o[2].iters, ref[k][2].iters)
+                for o in (o_keep, o_don))
+            cs_keep = o_keep[1]
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        check_launches(launches, "fused_solve", runs,
+                       f"jit_control_step ({controller})")
+        print(f"jit_control_step ({controller}, {N_SCENARIOS} x {N_AGENTS}, "
+              f"{JIT_STEPS} steps, donate=True and False): outputs bitwise "
+              f"equal to control on the same inputs: {equal}; the donated "
+              f"state in the storage passed in at every step: {shared}; "
+              f"the undonated input untouched: {untouched} | launches "
+              f"{launches} = consensus iterations run {runs} | {card}",
+              flush=True)
+        if not (equal and shared and untouched):
+            fail(f"jit_control_step ({controller}) differs from control or "
+                 "does not share the donated storage")
+        out[controller] = {"bitwise_equal": equal, "storage_shared": shared,
+                           "input_untouched": untouched,
+                           "launches": launches}
+    report["jit_control_step"] = out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: the {PKG} package is not beside this script",
@@ -2642,6 +3100,16 @@ def main() -> int:
     bucketing_phase(card, report, run, css0, states0)
     phase_at["24"] = time.perf_counter() - t_start
     padded_phase(card, report, unpadded_args, unpadded_kw)
+    # 25-28. The environment-query A/B, the city world on the main path,
+    # the SM law and jit_control_step.
+    phase_at["25"] = time.perf_counter() - t_start
+    env_query_phase(card, report)
+    phase_at["26"] = time.perf_counter() - t_start
+    city_phase(card, report)
+    phase_at["27"] = time.perf_counter() - t_start
+    sm_phase(card, report, run, css0, states0)
+    phase_at["28"] = time.perf_counter() - t_start
+    control_step_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],

@@ -94,15 +94,17 @@ def _torch_step(n, pad, sc):
 
 
 @pytest.mark.parametrize("pad", [True, False], ids=["padded", "unpadded"])
-@pytest.mark.parametrize("n", [4, 8])
+@pytest.mark.parametrize("n", [4, 8, 16])
 def test_control_step_matches_vmapped_jax(n, pad):
-    sc = _scenarios(n)
+    # n = 16 on two scenarios, as few as keep the consensus loop iterating.
+    S = 2 if n == 16 else 3
+    sc = _scenarios(n, S)
     jf_app, jcs, jst = _jax_step(n, pad, sc)
     f_app, cs, st = _torch_step(n, pad, sc)
 
     np.testing.assert_array_equal(st.iters.numpy(), np.asarray(jst.iters))
     assert int(st.iters.max()) > 1  # the consensus loop really iterated.
-    assert f_app.shape == (3, n, 3)
+    assert f_app.shape == (S, n, 3)
     np.testing.assert_allclose(f_app.numpy(), np.asarray(jf_app), atol=1e-4,
                                rtol=0)
     np.testing.assert_allclose(cs.f.numpy(), np.asarray(jcs.f), atol=1e-4,

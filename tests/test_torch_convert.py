@@ -143,3 +143,41 @@ def test_step_from_converted_state_equals_own_setup():
     for a, b in ((css_c.f, css_o.f), (css_c.warm.x, css_o.warm.x),
                  (css_c.lam, css_o.lam)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("as_dict", [False, True], ids=["pytree", "dict"])
+def test_forest_carries_grid(as_dict):
+    """A JAX forest with its spatial-hash grid: the grid's index slabs (as
+    int64 holding the same values), flags, origin and ``inv_cell``, and its
+    static fields come across, and the port's bucketed rows on the
+    converted forest equal its rows on a grid the port built itself."""
+    from tpu_aerial_transport.envs import spatial as jspatial
+    from tpu_aerial_transport_torch.envs import spatial
+
+    jf = _np(jspatial.with_grid(jforest.make_forest(seed=0), 6.3))
+    if as_dict:
+        g = jf.grid
+        jf = {k: getattr(jf, k) for k in jf.__dataclass_fields__}
+        jf["grid"] = {k: getattr(g, k) for k in g.__dataclass_fields__}
+    f = convert.forest(jf, device="cpu")
+    src = jf["grid"] if as_dict else jf.grid
+    get = (lambda t, k: t[k]) if as_dict else getattr
+    assert isinstance(f.grid, spatial.SpatialGrid)
+    assert f.grid.cell_idx.dtype == torch.int64
+    np.testing.assert_array_equal(f.grid.cell_idx.numpy(),
+                                  get(src, "cell_idx").astype(np.int64))
+    np.testing.assert_array_equal(f.grid.cell_valid.numpy(),
+                                  get(src, "cell_valid"))
+    np.testing.assert_array_equal(f.grid.origin.numpy(), get(src, "origin"))
+    assert f.grid.inv_cell.numpy() == get(src, "inv_cell")
+    for k in ("nx", "ny", "k", "query_radius", "cell_size"):
+        assert getattr(f.grid, k) == get(src, k)
+    own = spatial.with_grid(forest.make_forest(seed=0, device="cpu"), 6.3)
+    xl = torch.tensor([[30.0, 0.0, 2.0], [20.0, 5.0, 2.5]])
+    vl = torch.tensor([[0.5, 0.0, 0.0], [0.0, 0.4, 0.0]])
+    kw = dict(collision_radius=1.0, max_deceleration=2.0, vision_radius=6.0,
+              dist_eps=0.1, alpha_env_cbf=1.5, n_rows=10,
+              env_query="bucketed")
+    a = forest.collision_cbf_rows(f, xl, vl, **kw)
+    b = forest.collision_cbf_rows(own, xl, vl, **kw)
+    assert torch.equal(a.lhs, b.lhs) and torch.equal(a.rhs, b.rhs)

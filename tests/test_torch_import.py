@@ -12,10 +12,16 @@ import torch
 
 import tpu_aerial_transport_torch
 from tpu_aerial_transport_torch import entry
-from tpu_aerial_transport_torch.control import cadmm, dd, lowlevel, types
+from tpu_aerial_transport_torch.control import (
+    cadmm,
+    centralized,
+    dd,
+    lowlevel,
+    types,
+)
 from tpu_aerial_transport_torch.envs import forest, spatial
 from tpu_aerial_transport_torch.harness import cuda_graph, rollout, setup
-from tpu_aerial_transport_torch.ops import admm_kernel, socp
+from tpu_aerial_transport_torch.ops import admm_kernel, lie, socp
 from tpu_aerial_transport_torch.parallel import ring
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -85,7 +91,8 @@ def test_source_scan_covers_the_slice():
               "csrc/ring_sum.cu", "entry.py", "harness/bucketing.py",
               "harness/cuda_graph.py", "harness/rollout.py",
               "ops/admm_kernel.py", "ops/socp.py", "parallel/mesh.py",
-              "parallel/ring.py", "tree.py"):
+              "parallel/ring.py", "tree.py", "envs/spatial.py",
+              "control/so3_tracking.py", "convert.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
@@ -123,6 +130,44 @@ def test_entry_point_default_device_is_the_card():
         entry.entry()
 
 
+def test_slice8_entry_points_default_to_the_card():
+    """The city forest, the cone sampler and a controller on a given forest
+    target the card unless asked for the CPU; a grid lives on its forest's
+    device, and ``jit_control_step`` runs where its inputs are."""
+    if torch.cuda.is_available():
+        city = forest.make_forest(seed=0, max_trees=400, world_size=60.0)
+        assert city.tree_pos.is_cuda
+        assert spatial.with_grid(city, 6.3).grid.cell_idx.is_cuda
+        assert lie.random_cone_vector(
+            torch.Generator(device="cuda"), 0.3).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forest.make_forest(seed=0, max_trees=400, world_size=60.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lie.random_cone_vector(torch.Generator(), 0.3)
+    city = forest.make_forest(seed=0, max_trees=400, world_size=60.0,
+                              device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rollout.make_controller("cadmm", 4, forest=city)
+    grid = spatial.with_grid(city, 6.3).grid
+    assert not any(t.is_cuda for t in (grid.cell_idx, grid.cell_valid,
+                                       grid.origin, grid.inv_cell))
+    ctl = rollout.make_controller("cadmm", 4, max_iter=2, inner_iters=4,
+                                  forest=spatial.with_grid(city, 6.3),
+                                  device="cpu")
+    assert ctl.forest.grid is not None
+    params, col, state = setup.rqp_setup(4, device="cpu")
+    cfg = cadmm.make_config(params, col.collision_radius,
+                            col.max_deceleration, max_iter=2, inner_iters=4,
+                            device="cpu")
+    f_eq = centralized.equilibrium_forces(params)
+    step = cadmm.jit_control_step(params, cfg, f_eq)
+    out = step(rollout.stack_scenarios(
+        cadmm.init_cadmm_state(params, cfg, f_eq), 1),
+        rollout.stack_scenarios(state, 1), (torch.zeros(3), torch.zeros(3)))
+    assert not out[0].is_cuda
+
+
 def test_inactive_env_cbf_defaults_to_the_card():
     """The no-environment CBF rows are built on the card unless the caller
     asks for the CPU."""
@@ -147,15 +192,10 @@ def _cfg(**kw):
     dict(inner_iters_warm=5),
 ], ids=lambda kw: next(iter(kw)))
 def test_left_out_options_raise(kw):
-    """What is still left out (the bucketed query) raises
-    NotImplementedError naming its ROADMAP item and never silently does
-    something else; the options the port has since taken up (the rho
-    schedule, bf16 storage, the full agent QP, the two-phase budget)
-    build and hold their values."""
-    if kw == dict(env_query="bucketed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _cfg(**kw)
-        return
+    """The options the port has taken up (the rho schedule, bf16 storage,
+    the bucketed environment query, the full agent QP, the two-phase
+    budget) build and hold their values; none of them is left out any
+    more."""
     cfg = _cfg(**kw)
     for k, v in kw.items():
         assert getattr(cfg, k) == v
@@ -204,21 +244,27 @@ def test_resolve_effort_and_route(monkeypatch):
 
 
 def test_left_out_call_paths_raise():
-    """The three paths still left out (the SM law, the bucketed query,
-    health=) raise NotImplementedError naming their ROADMAP item; n = 3
+    """The one path still left out (health=) raises NotImplementedError
+    naming its ROADMAP item; the SM law, the bucketed query, n = 3
     C-ADMM, bf16 solves, the centralized rollout and agent sharding,
-    ported since, run; junk option values are ValueErrors."""
+    ported since, run, and a world above 200 slots without a grid is the
+    JAX package's ValueError; junk option values are ValueErrors."""
     params, col, state = setup.rqp_setup(4, device="cpu")
     params3 = setup.rqp_setup(3, device="cpu")[0]
     cfg3 = cadmm.make_config(params3, col.collision_radius,
                              col.max_deceleration, device="cpu")
     assert not cadmm._use_reduced(cfg3, 3) and cadmm.make_plan(
         params3, cfg3) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lowlevel.make_lowlevel_controller("sm", params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spatial.runtime_env_query(
-            "auto", forest.make_forest(seed=0, max_trees=201, device="cpu"))
+    sm = lowlevel.make_lowlevel_controller("sm", params)
+    f, M = sm.control(state, torch.full((4, 3), 1.0))
+    assert torch.isfinite(f).all() and torch.isfinite(M).all()
+    with pytest.raises(ValueError, match="'pd' or 'sm'"):
+        lowlevel.make_lowlevel_controller("lqr", params)
+    big = forest.make_forest(seed=0, max_trees=201, device="cpu")
+    with pytest.raises(ValueError, match="no spatial grid"):
+        spatial.runtime_env_query("auto", big)
+    gridded = spatial.with_grid(big, 6.3)
+    assert spatial.runtime_env_query("auto", gridded) == "bucketed"
     x = torch.zeros((2, 4))
     eye = torch.eye(4).expand(2, 4, 4)
     sol = socp.solve_socp(eye, x, eye, -torch.ones(2, 4), torch.ones(2, 4),

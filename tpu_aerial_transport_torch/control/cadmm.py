@@ -56,8 +56,20 @@ keeps its own copy of an exchanged sum inside the step (under
 read that copy; the carried ``f_mean`` is shard 0's, as the JAX package's
 replicated ``out_specs`` gives. With ``shards=1`` no exchange runs.
 
-Not ported yet (each raises ``NotImplementedError``): ``health=`` and
-``env_query="bucketed"`` (ROADMAP Queue 1 items 6 and 5).
+Environment query (``env_query``, ``envs/spatial.py``): one braking-capsule
+sweep a scenario, over every tree slot ("dense") or over the forest grid's
+candidate slab ("bucketed"; "auto" picks by the world's slot count), then
+each agent's vision-cone mask and nearest rows; both tiers give the same
+bits.
+
+Runtime setters (:func:`set_leader`, :func:`unset_leader`,
+:func:`set_tolerance`, :func:`set_max_iter`) return a new config, for
+C-ADMM's and for DD's (through its ``base``). :func:`jit_control_step`
+builds the plan once and returns the step a receding-horizon caller calls
+period after period.
+
+Not ported yet (raises ``NotImplementedError``): ``health=`` (ROADMAP
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -65,7 +77,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -84,6 +96,7 @@ from tpu_aerial_transport_torch.models.rqp import GRAVITY, RQPParams, RQPState
 from tpu_aerial_transport_torch.obs import phases
 from tpu_aerial_transport_torch.ops import lie, socp
 from tpu_aerial_transport_torch.parallel import ring
+from tpu_aerial_transport_torch.tree import leaves
 
 
 @dataclass(frozen=True)
@@ -308,6 +321,38 @@ def make_base_config(
         env_query=spatial_mod.resolve_env_query(env_query),
         consensus_impl=ring.resolve_consensus(consensus_impl, dev),
     )
+
+
+def set_leader(cfg, leader_idx: int):
+    """The config with agent ``leader_idx`` alone carrying the tracking
+    cost; C-ADMM's config or DD's (through its ``base``)."""
+    if hasattr(cfg, "base"):
+        return dataclasses.replace(
+            cfg, base=dataclasses.replace(cfg.base, leader_idx=leader_idx))
+    return dataclasses.replace(cfg, leader_idx=leader_idx)
+
+
+def unset_leader(cfg):
+    """No agent carries the tracking cost: the team holds its formation."""
+    return set_leader(cfg, -1)
+
+
+def set_tolerance(cfg, res_tol: float):
+    """The consensus tolerance; on DD's config also its primal
+    infeasibility stop."""
+    if hasattr(cfg, "base"):
+        return dataclasses.replace(
+            cfg, base=dataclasses.replace(cfg.base, res_tol=res_tol),
+            prim_inf_tol=res_tol)
+    return dataclasses.replace(cfg, res_tol=res_tol)
+
+
+def set_max_iter(cfg, max_iter: int):
+    """The consensus iteration cap (it sizes ``SolverStats.err_seq``)."""
+    if hasattr(cfg, "base"):
+        return dataclasses.replace(
+            cfg, base=dataclasses.replace(cfg.base, max_iter=max_iter))
+    return dataclasses.replace(cfg, max_iter=max_iter)
 
 
 class CADMMState(NamedTuple):
@@ -782,7 +827,8 @@ def agent_env_cbfs_for(params: RQPParams, cfg: RQPCADMMConfig,
                        r_block: torch.Tensor) -> EnvCBF:
     """Vision-cone-masked collision CBF rows ``(S, n_block, k, ...)`` for the
     agents attached at ``r_block (n_block, 3)``: one braking-capsule sweep
-    per scenario, then each agent's camera cone mask and top-k rows."""
+    per scenario (dense or bucketed by ``cfg.env_query``), then each
+    agent's camera cone mask and top-k rows."""
     n = r_block.shape[0]
     xl, vl, Rl = state.xl, state.vl, state.Rl
     S = xl.shape[0]
@@ -798,11 +844,19 @@ def agent_env_cbfs_for(params: RQPParams, cfg: RQPCADMMConfig,
     cap_a, cap_b, cap_h, speed, cap_dir = forest_mod.braking_capsule(
         xl, vl, collision_radius, cfg.max_deceleration
     )
-    spatial_mod.runtime_env_query(cfg.env_query, forest)  # dense, or raises.
-    data = forest_mod.capsule_forest_distance(
-        forest, cap_a, cap_b, collision_radius, cfg.vision_radius
-    )
-    centers = forest.tree_pos
+    if spatial_mod.runtime_env_query(cfg.env_query, forest) == "bucketed":
+        # One slab gather a scenario; the cone masks run over its (S, K)
+        # candidates.
+        data, centers, _ = spatial_mod.bucketed_distance(
+            forest, cap_a, cap_b, collision_radius, cfg.vision_radius,
+            n_rows=cfg.n_env_cbfs,
+        )
+        centers = centers[:, None]  # (S, 1, K, 3) against (S, n) cameras.
+    else:
+        data = forest_mod.capsule_forest_distance(
+            forest, cap_a, cap_b, collision_radius, cfg.vision_radius
+        )
+        centers = forest.tree_pos
 
     camera = (xl[:, None] + _mv(Rl[:, None], r_block))[..., :2]  # (S, n, 2)
     d = camera - xl[:, None, :2]
@@ -826,6 +880,13 @@ def agent_env_cbfs_for(params: RQPParams, cfg: RQPCADMMConfig,
         cfg.dist_eps, cfg.alpha_env_cbf, cfg.n_env_cbfs, extra_mask=mask,
     )
     return cbf.replace(collision=cbf.collision | (norm == 0))
+
+
+def agent_env_cbfs(params: RQPParams, cfg: RQPCADMMConfig,
+                   forest: forest_mod.Forest | None,
+                   state: RQPState) -> EnvCBF:
+    """Per-agent vision-cone CBF rows ``(S, n, k, ...)`` of all n agents."""
+    return agent_env_cbfs_for(params, cfg, forest, state, params.r)
 
 
 def check_shards(n: int, shards: int) -> None:
@@ -1177,3 +1238,48 @@ def control(
                      torch.zeros((S, 0), dtype=torch.int32, device=dev)),
     )
     return f_app, new_state, stats
+
+
+def donated_step(control_fn: Callable, donate: bool) -> Callable:
+    """``step(state, *args) -> (out, new_state, stats)`` of ``control_fn``;
+    with ``donate`` every tensor of the new state is written into the
+    storage of the state passed in (``copy_``), and that state is returned:
+    the port's form of a donated carry. The state passed in must own its
+    storage (no expanded views) and must be threaded forward; its old
+    values are gone."""
+    if not donate:
+        return control_fn
+
+    def step(state, *args):
+        out, new_state, stats = control_fn(state, *args)
+        olds, news = leaves(state), leaves(new_state)
+        for old, new in zip(olds, news):
+            if old.shape != new.shape or old.dtype != new.dtype:
+                raise ValueError(
+                    f"donate=True: a state leaf {tuple(old.shape)} "
+                    f"{old.dtype} cannot take the step's "
+                    f"{tuple(new.shape)} {new.dtype}")
+            old.copy_(new)
+        return out, state, stats
+
+    return step
+
+
+def jit_control_step(params: RQPParams, cfg: RQPCADMMConfig,
+                     f_eq: torch.Tensor,
+                     forest: forest_mod.Forest | None = None,
+                     plan: SchurPlan | None = None, donate: bool = True):
+    """``step(admm_state, state, acc_des) -> (f_app, admm_state, stats)``,
+    :func:`control` with the plan built once (the JAX package's
+    ``jit_control_step``). With ``donate=True`` the returned state is the
+    state passed in, its tensors overwritten with the new values (see
+    :func:`donated_step`); with ``donate=False`` the input is untouched and
+    the new state is fresh tensors."""
+    if plan is None:
+        plan = make_plan(params, cfg)
+
+    def step(admm_state, state, acc_des):
+        return control(params, cfg, f_eq, admm_state, state, acc_des, forest,
+                       plan=plan)
+
+    return donated_step(step, donate)

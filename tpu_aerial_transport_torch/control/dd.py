@@ -34,6 +34,11 @@ each block of agents, then an exchange over the shard axis (JAX
 The dual gradient is gathered (``consensus_gather``), and each shard takes
 its own rows of the 6n quasi-Newton step from its gathered copy.
 
+The environment query resolves in ``control.cadmm.agent_env_cbfs_for``
+from ``cfg.base.env_query`` (dense, or the forest grid's bucketed tier).
+:func:`jit_control_step` is C-ADMM's twin with the quasi-Newton plan built
+once.
+
 Not ported yet (raises ``NotImplementedError``): ``health=`` (ROADMAP
 Queue 1 item 6).
 """
@@ -613,3 +618,19 @@ def control(
                      torch.zeros((S, 0), dtype=torch.int32, device=dev)),
     )
     return f, new_state, stats
+
+
+def jit_control_step(params: RQPParams, cfg: RQPDDConfig, f_eq: torch.Tensor,
+                     forest: forest_mod.Forest | None = None,
+                     plan: DDPlan | None = None, donate: bool = True):
+    """``step(dd_state, state, acc_des) -> (f, dd_state, stats)``,
+    :func:`control` with the plan built once; ``donate`` as in
+    ``control.cadmm.jit_control_step``."""
+    if plan is None:
+        plan = make_dd_plan(params, cfg)
+
+    def step(dd_state, state, acc_des):
+        return control(params, cfg, f_eq, dd_state, state, acc_des, forest,
+                       plan=plan)
+
+    return cadmm.donated_step(step, donate)

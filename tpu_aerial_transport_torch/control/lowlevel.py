@@ -2,7 +2,8 @@
 
 Counterpart of ``tpu_aerial_transport/control/lowlevel.py``: desired world
 forces ``f_des (..., n, 3)`` -> scalar thrusts along each body z-axis and body
-moments from the SO(3) PD law with ``wd = dwd = 0``.
+moments from the SO(3) PD or sliding-mode law (chosen by the gains' type)
+with ``wd = dwd = 0``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from tpu_aerial_transport_torch.ops import lie
 @dataclass(frozen=True)
 class LowLevelController:
     J: torch.Tensor  # (n, 3, 3) quad inertias.
-    so3_params: so3_tracking.So3PDParams
+    so3_params: so3_tracking.So3PDParams | so3_tracking.So3SMParams
 
     def control(self, state: RQPState, f_des: torch.Tensor,
                 thrust_scale: torch.Tensor | None = None):
@@ -30,17 +31,18 @@ class LowLevelController:
 
 def make_lowlevel_controller(so3_controller_type: str,
                              params: RQPParams) -> LowLevelController:
-    """The PD controller with the reference gains. The sliding-mode law
-    (``"sm"``) is not ported yet (ROADMAP Queue 1 item 4)."""
+    """The PD (``"pd"``) or sliding-mode (``"sm"``) controller with the
+    reference gains; another name is a ValueError."""
     if so3_controller_type == "pd":
         ll = so3_tracking.So3PDParams(k_R=0.25, k_Omega=0.075)
     elif so3_controller_type == "sm":
-        raise NotImplementedError(
-            "the sliding-mode SO(3) law is not ported yet (ROADMAP Queue 1 "
-            "item 4); use 'pd'"
+        ll = so3_tracking.So3SMParams(
+            r=0.5, k_R=1.415, l_R=0.707, k_s=0.113, l_s=0.057
         )
     else:
-        raise NotImplementedError(so3_controller_type)
+        raise ValueError(
+            f"so3_controller_type={so3_controller_type!r}: expected 'pd' or "
+            "'sm'")
     return LowLevelController(J=params.J, so3_params=ll)
 
 
@@ -60,13 +62,14 @@ def lowlevel_control(J, so3_params, state: RQPState, f_des,
 
     wd = torch.zeros_like(state.w)
     dwd = torch.zeros_like(state.w)
-    if not isinstance(so3_params, so3_tracking.So3PDParams):
-        raise NotImplementedError(
-            "only the PD SO(3) law is ported (ROADMAP Queue 1 item 4)"
+    if isinstance(so3_params, so3_tracking.So3PDParams):
+        M = so3_tracking.so3_pd_tracking_control(
+            state.R, Rd, state.w, wd, dwd, J, so3_params
         )
-    M = so3_tracking.so3_pd_tracking_control(
-        state.R, Rd, state.w, wd, dwd, J, so3_params
-    )
+    else:
+        M = so3_tracking.so3_sm_tracking_control(
+            state.R, Rd, state.w, wd, dwd, J, so3_params
+        )
     if thrust_scale is not None:
         f = f * thrust_scale
         M = M * thrust_scale[..., None]

@@ -1,21 +1,37 @@
 """Geometric SO(3) attitude tracking, batched over leading axes.
 
 Counterpart of ``tpu_aerial_transport/control/so3_tracking.py``: the PD law
-(Lee, Leok, McClamroch, CDC 2010, Eqs. (10), (11), (16)). The sliding-mode law
-is not ported yet (ROADMAP Queue 1 item 4).
+(Lee, Leok, McClamroch, CDC 2010, Eqs. (10), (11), (16)) and the finite-time
+sliding-mode law (Lee, TCST 2018, Eqs. (34)-(36)), the latter with the JAX
+package's fractional Jacobian ``l_R r diag((|e_R| + eps)^(r - 1))``. Gains
+and exponents enter the ops as Python floats, so neither law copies from
+the host (the substeps replay them from a CUDA graph).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from tpu_aerial_transport_torch.ops import lie
+
+_EPS = 1e-6
 
 
 @dataclass(frozen=True)
 class So3PDParams:
     k_R: float = 0.25
     k_Omega: float = 0.075
+
+
+@dataclass(frozen=True)
+class So3SMParams:
+    r: float = 0.5
+    k_R: float = 1.415
+    l_R: float = 0.707
+    k_s: float = 0.113
+    l_s: float = 0.057
 
 
 def _mv(M, v):
@@ -45,5 +61,31 @@ def so3_pd_tracking_control(R, Rd, w, wd, dwd, J, params: So3PDParams):
     return (
         -params.k_R * e_R
         - params.k_Omega * e_Omega
+        + _feedforward(RtRd, w, wd, dwd, J)
+    )
+
+
+def _sig(y: torch.Tensor, r: float) -> torch.Tensor:
+    """``|y|^r sign(y)``."""
+    return torch.pow(torch.abs(y), r) * torch.sign(y)
+
+
+def so3_sm_tracking_control(R, Rd, w, wd, dwd, J, params: So3SMParams):
+    r = float(params.r)
+    e_R, e_Omega, RtRd = _errors(R, Rd, w, wd)
+    trace = RtRd[..., 0, 0] + RtRd[..., 1, 1] + RtRd[..., 2, 2]
+    # 0.5 (tr(R^T Rd) I - R^T Rd), the eye from the trace (no constant).
+    E = 0.5 * (torch.diag_embed(trace[..., None].expand(e_R.shape)) - RtRd)
+    s = e_Omega + params.k_R * e_R + params.l_R * _sig(e_R, r)
+    # d/dt [l_R S(e_R)] = l_R r diag((|e_R| + eps)^(r - 1)) E e_Omega.
+    frac = torch.pow(torch.abs(e_R) + _EPS, r - 1.0)
+    E_eOm = _mv(E, e_Omega)
+    JE = _mv(J, E_eOm)
+    J_frac = _mv(J, frac * E_eOm)
+    return (
+        -params.k_s * s
+        - params.l_s * _sig(s, r)
+        - params.k_R * JE
+        - params.l_R * r * J_frac
         + _feedforward(RtRd, w, wd, dwd, J)
     )

@@ -17,6 +17,7 @@ import torch
 from tpu_aerial_transport_torch import resolve_device
 from tpu_aerial_transport_torch.control import cadmm, centralized, dd
 from tpu_aerial_transport_torch.envs import forest as forest_mod
+from tpu_aerial_transport_torch.envs import spatial as spatial_mod
 from tpu_aerial_transport_torch.models import rqp
 from tpu_aerial_transport_torch.ops import socp
 
@@ -92,14 +93,32 @@ def ctrl_state(src, device="cuda") -> centralized.CtrlState:
     )
 
 
+def spatial_grid(src, device="cuda") -> spatial_mod.SpatialGrid:
+    """A spatial-hash grid: its index slabs (int64 holding the source's
+    values), flags, ``origin`` and ``inv_cell``, and the static shape
+    fields as Python numbers."""
+    dev = resolve_device(device)
+    return spatial_mod.SpatialGrid(
+        cell_idx=_tensor(_get(src, "cell_idx"), dev),
+        cell_valid=_tensor(_get(src, "cell_valid"), dev),
+        origin=_tensor(_get(src, "origin"), dev),
+        inv_cell=_tensor(_get(src, "inv_cell"), dev),
+        nx=int(_get(src, "nx")), ny=int(_get(src, "ny")),
+        k=int(_get(src, "k")), query_radius=float(_get(src, "query_radius")),
+        cell_size=float(_get(src, "cell_size")),
+    )
+
+
 def forest(src, device="cuda") -> forest_mod.Forest:
-    """A dense-query forest (an attached spatial grid is not carried)."""
+    """A forest, with its spatial-hash grid where the source carries one."""
     dev = resolve_device(device)
     kw = {}
     for name in ("bark_radius", "bark_height"):
         if isinstance(src, Mapping) and name not in src:
             continue
         kw[name] = float(_get(src, name))
+    grid = (src.get("grid") if isinstance(src, Mapping)
+            else getattr(src, "grid", None))
     return forest_mod.Forest(
         tree_pos=_tensor(_get(src, "tree_pos"), dev),
         tree_valid=_tensor(_get(src, "tree_valid"), dev),
@@ -108,6 +127,7 @@ def forest(src, device="cuda") -> forest_mod.Forest:
                                        dev),
         mountain_center_depth=_tensor(_get(src, "mountain_center_depth"),
                                       dev),
+        grid=None if grid is None else spatial_grid(grid, dev),
         **kw,
     )
 

@@ -1,10 +1,18 @@
 """Procedural forest environment with closed-form collision distance queries.
 
-Counterpart of ``tpu_aerial_transport/envs/forest.py`` (the spatial-hash grid
-and the city-scale generator are not ported). Trees are z-aligned cylinders
-on a spherical-cap mountain, generated host-side with a seeded numpy RNG into a
-fixed ``(max_trees, 3)`` slot array (invalid slots parked at 1e6). Queries
-are batched over leading axes: a capsule per scenario against every tree.
+Counterpart of ``tpu_aerial_transport/envs/forest.py``. Trees are z-aligned
+cylinders on a spherical-cap mountain (or, for a city-scale world, on a
+seeded jittered grid around it), generated host-side with a seeded numpy RNG
+into a fixed ``(max_trees, 3)`` slot array (invalid slots parked at 1e6).
+Queries are batched over leading axes: a capsule per scenario against every
+tree (the dense sweep), or against the candidates of a spatial-hash grid
+(``envs/spatial.py``, the bucketed tier, which runs the same per-tree math).
+
+Per-tree values must not depend on how many trees a sweep holds or where a
+tree sits in memory (the bucketed rows are bitwise the dense rows): the
+norms and dot products over a tree's 2- or 3-vector are written as explicit
+products and adds, since a reduction kernel may group the terms by the
+row's alignment.
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ class Forest:
     mountain_center_depth: torch.Tensor  # ().
     bark_radius: float = BARK_RADIUS
     bark_height: float = BARK_HEIGHT
+    # The spatial-hash grid of the bucketed query tier
+    # (``envs.spatial.SpatialGrid``, attached by ``spatial.with_grid``);
+    # None leaves the dense sweep the only tier.
+    grid: object | None = None
 
 
 def _mountain_geometry():
@@ -78,27 +90,66 @@ def _forest_from_pos3(pos3, num, device) -> Forest:
 
 
 def make_forest(seed: int = 0, max_trees: int = MAX_TREES,
-                device="cuda") -> Forest:
-    """Seeded rejection sampling: up to ``max_trees`` trees at least 3.2 m
+                device="cuda", *, world_size: float | None = None,
+                density: float | None = None) -> Forest:
+    """Seeded forest, generated in float64 numpy with the JAX package's RNG
+    calls and rounded to float32, so the tree positions match it exactly.
+
+    Default: rejection sampling of up to ``max_trees`` trees at least 3.2 m
     apart inside the 25 m mountain disc, the first pinned at center +
-    (0.5, 0.5); center z = (ground height + bark height) / 2. Generated in
-    float64 numpy with the JAX package's RNG calls, then rounded to float32,
-    so the tree positions match it exactly."""
+    (0.5, 0.5); center z = (ground height + bark height) / 2.
+
+    City-scale (``world_size`` in m): a jittered grid of ``density``
+    trees/m^2 (default ``1 / MIN_DIST_BETWEEN_TREES^2``) over the
+    ``world_size`` square centred on the mountain, the jitter bounded so
+    every pair stays 3.2 m apart. Refused (ValueError): ``density`` without
+    ``world_size``, a grid pitch below 3.2 m, and a world of more trees
+    than ``max_trees``. A world above ``spatial.DENSE_AUTO_MAX_TREES``
+    slots wants a grid (``envs.spatial.with_grid``)."""
     rng = np.random.default_rng(seed)
-    tree_xy = [MOUNTAIN_CENTER + np.array([0.5, 0.5])]
-    for _ in range(max_trees * 50):
-        if len(tree_xy) >= max_trees:
-            break
-        pos = rng.random(2) - 0.5
-        norm = np.linalg.norm(pos)
-        if norm == 0:
-            continue
-        pos = pos / norm * rng.random() * MOUNTAIN_RADIUS + MOUNTAIN_CENTER
-        if np.min(np.linalg.norm(np.array(tree_xy) - pos, axis=1)) \
-                < MIN_DIST_BETWEEN_TREES:
-            continue
-        tree_xy.append(pos)
-    tree_xy = np.array(tree_xy)
+    if density is not None and world_size is None:
+        raise ValueError("density= requires world_size=")
+    if world_size is not None:
+        if density is None:
+            density = 1.0 / MIN_DIST_BETWEEN_TREES**2
+        pitch = 1.0 / np.sqrt(density)
+        if pitch < MIN_DIST_BETWEEN_TREES:
+            raise ValueError(
+                f"density={density} gives a grid pitch of {pitch:.2f} m, "
+                f"below the {MIN_DIST_BETWEEN_TREES} m minimum tree "
+                "spacing — reduce density to at most "
+                f"{1.0 / MIN_DIST_BETWEEN_TREES**2:.4f} trees/m^2"
+            )
+        n_side = max(int(np.floor(world_size / pitch)), 1)
+        num = n_side * n_side
+        if num > max_trees:
+            raise ValueError(
+                f"world_size={world_size} at density={density} needs "
+                f"{num} tree slots but max_trees={max_trees} — pass "
+                f"max_trees>={num} (refusing to silently truncate the "
+                "world to the first max_trees grid rows)"
+            )
+        jitter = max((pitch - MIN_DIST_BETWEEN_TREES) / 2.0, 0.0)
+        base = (np.arange(n_side) + 0.5) * pitch - world_size / 2.0
+        gx, gy = np.meshgrid(base, base, indexing="ij")
+        tree_xy = np.stack([gx.ravel(), gy.ravel()], axis=1)
+        tree_xy += rng.uniform(-jitter, jitter, size=tree_xy.shape)
+        tree_xy += MOUNTAIN_CENTER
+    else:
+        tree_xy = [MOUNTAIN_CENTER + np.array([0.5, 0.5])]
+        for _ in range(max_trees * 50):
+            if len(tree_xy) >= max_trees:
+                break
+            pos = rng.random(2) - 0.5
+            norm = np.linalg.norm(pos)
+            if norm == 0:
+                continue
+            pos = pos / norm * rng.random() * MOUNTAIN_RADIUS + MOUNTAIN_CENTER
+            if np.min(np.linalg.norm(np.array(tree_xy) - pos, axis=1)) \
+                    < MIN_DIST_BETWEEN_TREES:
+                continue
+            tree_xy.append(pos)
+        tree_xy = np.array(tree_xy)
     num = len(tree_xy)
     sphere_radius, center_depth = _mountain_geometry()
     pos3 = np.full((max_trees, 3), _FAR)
@@ -140,10 +191,21 @@ def ground_height(forest: Forest, xy: torch.Tensor) -> torch.Tensor:
     return torch.clamp(h, min=0.0)
 
 
+def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Dot product over the short trailing axis as explicit products and
+    adds, left to right (the module docstring says why)."""
+    us, vs = u.unbind(-1), v.unbind(-1)
+    acc = us[0] * vs[0]
+    for a, b in zip(us[1:], vs[1:]):
+        acc = acc + a * b
+    return acc
+
+
 def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
-    """Euclidean norm over the trailing axis as ``sqrt(sum(v * v))`` (the
-    JAX package's ``jnp.linalg.norm`` reduction)."""
-    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
+    """Euclidean norm over the trailing axis, ``sqrt(v . v)`` (the JAX
+    package's ``jnp.linalg.norm``)."""
+    out = torch.sqrt(_dot(v, v))
+    return out[..., None] if keepdim else out
 
 
 def point_cylinder_distance(p, center, radius, half_height):
@@ -304,9 +366,15 @@ def cone_mask_at(centers, camera_pos, direction, half_angle):
     d = centers[..., :2] - camera_pos[..., None, :2]
     norm = _norm(d)
     safe = torch.where(norm > 0, norm, torch.ones_like(norm))
-    cosang = torch.sum(d / safe[..., None] * direction[..., None, :2], dim=-1)
+    cosang = _dot(d / safe[..., None], direction[..., None, :2])
     cos_half = float(torch.cos(torch.tensor(half_angle, dtype=torch.float32)))
     return (norm == 0.0) | (cosang >= cos_half)
+
+
+def vision_cone_mask(forest: Forest, camera_pos, direction, half_angle):
+    """Per-agent 2-D vision-cone mask ``(..., max_trees)`` of every tree
+    slot (:func:`cone_mask_at` over the whole forest)."""
+    return cone_mask_at(forest.tree_pos, camera_pos, direction, half_angle)
 
 
 def braking_capsule(xl, vl, collision_radius, max_deceleration):
@@ -326,7 +394,10 @@ def collision_cbf_rows(forest: Forest | None, xl, vl, collision_radius,
                        max_deceleration, vision_radius, dist_eps,
                        alpha_env_cbf, n_rows: int, vision_mask=None,
                        env_query: str = "dense") -> EnvCBF:
-    """Backup-CBF rows for the nearest ``n_rows`` trees (dense sweep)."""
+    """Backup-CBF rows for the nearest ``n_rows`` trees. ``env_query``
+    ("auto" | "dense" | "bucketed", ``spatial.runtime_env_query``) picks the
+    sweep: every tree slot, or the forest grid's candidate slab of each
+    capsule (rows bitwise equal to the dense sweep's)."""
     from tpu_aerial_transport_torch.envs import spatial
 
     dtype = xl.dtype
@@ -342,13 +413,20 @@ def collision_cbf_rows(forest: Forest | None, xl, vl, collision_radius,
             min_dist=torch.full(batch, vision_radius, dtype=dtype,
                                 device=xl.device),
         )
-    spatial.runtime_env_query(env_query, forest)  # dense, or raises.
+    mode = spatial.runtime_env_query(env_query, forest)
     cap_a, cap_b, cap_h, speed, cap_dir = braking_capsule(
         xl, vl, collision_radius, max_deceleration
     )
-    data = capsule_forest_distance(
-        forest, cap_a, cap_b, collision_radius, vision_radius, vision_mask
-    )
+    if mode == "bucketed":
+        data = spatial.bucketed_distance(
+            forest, cap_a, cap_b, collision_radius, vision_radius,
+            vision_mask=vision_mask, n_rows=n_rows,
+        )[0]
+    else:
+        data = capsule_forest_distance(
+            forest, cap_a, cap_b, collision_radius, vision_radius,
+            vision_mask
+        )
     return cbf_rows_from_distance(
         data, xl, vl, cap_h, speed, cap_dir, max_deceleration,
         vision_radius, dist_eps, alpha_env_cbf, n_rows,
@@ -390,7 +468,7 @@ def cbf_rows_from_distance(data: DistanceData, xl, vl, cap_h, speed, cap_dir,
     d = torch.gather(dists, -1, idx)
     p1 = _take(data.pts_sys, idx)
 
-    proj = torch.sum((p1 - xl[..., None, :]) * cap_dir[..., None, :], dim=-1)
+    proj = _dot(p1 - xl[..., None, :], cap_dir[..., None, :])
     proj = torch.minimum(torch.clamp(proj, min=0.0), cap_h[..., None])
     brake = torch.sqrt(torch.clamp(
         2.0 * (cap_h[..., None] - proj) / max_deceleration, min=0.0
@@ -398,7 +476,7 @@ def cbf_rows_from_distance(data: DistanceData, xl, vl, cap_h, speed, cap_dir,
     min_time = torch.clamp(speed[..., None] / max_deceleration - brake,
                            min=0.0)
     normal = _take(data.normal_out, idx)
-    n_valid = torch.sum(normal * normal, dim=-1) > 0.5
+    n_valid = _dot(normal, normal) > 0.5
 
     # Near-contact hardening: inside dist_eps the braking time is floored
     # at NEAR_BRAKE_TIME, and near rows stay active at rest.
@@ -409,7 +487,7 @@ def cbf_rows_from_distance(data: DistanceData, xl, vl, cap_h, speed, cap_dir,
               & (near | (speed[..., None] > 0)))
     rhs_raw = (
         -alpha_env_cbf * (d - dist_eps)
-        - torch.sum(normal * vl[..., None, :], dim=-1)
+        - _dot(normal, vl[..., None, :])
     )
     # Rows are divided by min_time (> 0): the same halfspace at unit scale.
     has_time = min_time > 1e-6

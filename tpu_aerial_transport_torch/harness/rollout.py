@@ -87,6 +87,7 @@ class Controller(NamedTuple):
     ll: lowlevel.LowLevelController
     forest: forest_mod.Forest
     col: rqp.RQPCollision
+    cfg: object  # the controller's config (C-ADMM, DD or centralized).
 
 
 def make_controller(controller: str, n: int, max_iter: int = 20,
@@ -97,9 +98,13 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
                     tau_incr: float = 1.0, inner_iters_warm: int = 0,
                     reduced_qp: bool | None = None, shards: int = 1,
                     consensus_impl: str = "auto",
+                    forest: forest_mod.Forest | None = None,
                     device="cuda") -> Controller:
-    """The bench set-up's high-level controller: ``rqp_setup(n)``, forest
-    seed 0, the PD low level; ``controller`` ``"cadmm"``, ``"dd"`` (the
+    """The bench set-up's high-level controller: ``rqp_setup(n)``, the
+    forest given (None: the seed-0 mountain world; a city-scale world
+    carries its grid, ``envs.spatial.with_grid``, and C-ADMM and DD resolve
+    their environment query from the world under ``env_query="auto"``),
+    the PD low level; ``controller`` ``"cadmm"``, ``"dd"`` (the
     JAX bench's ``inner_iters`` 20 and 40; the solver knobs apply to these
     two, ``tau_incr`` and ``inner_iters_warm`` to C-ADMM only) or
     ``"centralized"`` (``solver_iters=120``); ``reduced_qp`` is C-ADMM's
@@ -129,7 +134,8 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
                          "1: a single program makes no exchange")
     dev = resolve_device(device)
     params, col, state0 = setup.rqp_setup(n, device=dev)
-    forest = forest_mod.make_forest(seed=0, device=dev)
+    if forest is None:
+        forest = forest_mod.make_forest(seed=0, device=dev)
     f_eq = centralized.equilibrium_forces(params)
     ll = lowlevel.make_lowlevel_controller("pd", params)
     if controller == "centralized":
@@ -147,7 +153,7 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
             return centralized.control(params, cfg, f_eq, css, states,
                                        acc_des, env_cbf)
 
-        return Controller(control, cs0, state0, params, ll, forest, col)
+        return Controller(control, cs0, state0, params, ll, forest, col, cfg)
     mod = cadmm if controller == "cadmm" else dd
     cfg = mod.make_config(
         params, col.collision_radius, col.max_deceleration,
@@ -172,7 +178,7 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
 
     if shards > 1:
         control = mesh_mod.sharded_step(control, n, shards)
-    return Controller(control, cs0, state0, params, ll, forest, col)
+    return Controller(control, cs0, state0, params, ll, forest, col, cfg)
 
 
 def make_mpc_step(controller: str, n: int, *, buckets: int = 0,

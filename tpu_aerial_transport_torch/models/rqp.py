@@ -176,6 +176,37 @@ def integrate(params: RQPParams, state: RQPState, wrench, dt,
     )
 
 
+def inverse_dynamics_error(state: RQPState, params: RQPParams, wrench,
+                           acc) -> torch.Tensor:
+    """Residual norm ``(...)`` of the full (per-quadrotor + payload)
+    Newton-Euler equations for ``wrench = (f, M)`` and ``acc = (dw, dvl,
+    dwl)``: about float32 rounding for a consistent triple (the test oracle
+    of :func:`forward_dynamics`)."""
+    f, M = wrench
+    dw, dvl, dwl = acc
+    gravity = torch.nn.functional.pad(
+        torch.full((1,), -GRAVITY, dtype=state.xl.dtype,
+                   device=state.xl.device), (2, 0))
+    # Quadrotor CoM accelerations from the payload's kinematics (..., n, 3).
+    kin = (lie.hat_square(state.wl, state.wl) + lie.hat(dwl)) @ params.r.T
+    dv_quad = (dvl[..., :, None] + state.Rl @ kin).transpose(-1, -2)
+    quad_force = state.R[..., :, 2] * f[..., None]
+    m = params.m[:, None]
+    internal_force = quad_force + gravity * m - m * dv_quad
+    com_acc_err = torch.linalg.vector_norm(
+        params.ml * dvl - params.ml * gravity
+        - torch.sum(internal_force, dim=-2), dim=-1)
+    load_moment = torch.sum(
+        lie.cross(params.r, internal_force @ state.Rl), dim=-2)
+    Jlwl = _mv(params.Jl, state.wl)
+    com_ang_err = torch.linalg.vector_norm(
+        _mv(params.Jl, dwl) + lie.cross(state.wl, Jlwl) - load_moment, dim=-1)
+    Jw = _mv(params.J, state.w)
+    quad_ang_res = _mv(params.J, dw) + lie.cross(state.w, Jw) - M
+    quad_ang_err_sq = torch.sum(quad_ang_res**2, dim=(-2, -1))
+    return torch.sqrt(com_acc_err**2 + com_ang_err**2 + quad_ang_err_sq)
+
+
 class RQPCollision:
     """Host-side collision metadata: bounding-sphere collision radius and the
     max braking deceleration the collision CBFs use."""

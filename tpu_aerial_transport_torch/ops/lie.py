@@ -2,13 +2,18 @@
 
 Counterpart of ``tpu_aerial_transport/ops/lie.py``: matrix arguments use the
 trailing two axes, vector arguments the trailing axis, and any leading axes
-broadcast (agents, scenarios). ``random_cone_vector`` and
-``polar_project_svd``'s in-loop use are not on the ported path.
+broadcast (agents, scenarios). ``random_cone_vector`` draws from an explicit
+``torch.Generator`` (the JAX package's is PRNG-keyed, so the two draw
+different bits from the same law).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from tpu_aerial_transport_torch import resolve_device
 
 __all__ = [
     "hat",
@@ -20,6 +25,7 @@ __all__ = [
     "polar_project_svd",
     "rotation_a_to_b",
     "rotation_from_z",
+    "random_cone_vector",
 ]
 
 _SMALL_ANGLE = 1e-6
@@ -135,3 +141,26 @@ def rotation_from_z(q: torch.Tensor) -> torch.Tensor:
     col0 = torch.stack([cos_y, zero, -sin_y], dim=-1)
     col1 = torch.stack([sin_x * sin_y, cos_x, cos_y * sin_x], dim=-1)
     return torch.stack([col0, col1, q], dim=-1)
+
+
+def random_cone_vector(generator: torch.Generator, theta: float, shape=(),
+                       device="cuda") -> torch.Tensor:
+    """Uniform random unit vectors ``(*shape, 3)`` within angle ``theta`` of
+    +z by tan-disc sampling: a radius ``tan(theta) sqrt(u1)`` and an angle
+    ``2 pi u2`` in the plane z = 1, normalised. ``theta`` must lie in (0,
+    89.99 deg); ``generator`` must live on ``device``."""
+    if not 0.0 < float(theta) < 89.99 * math.pi / 180.0:
+        raise ValueError(f"theta must be in (0, ~pi/2), got {theta}")
+    dev = resolve_device(device)
+    shape = tuple(shape)
+    tan_theta = float(torch.tan(torch.tensor(float(theta),
+                                             dtype=torch.float32)))
+    u1 = torch.rand(shape, generator=generator, dtype=torch.float32,
+                    device=dev)
+    u2 = torch.rand(shape, generator=generator, dtype=torch.float32,
+                    device=dev)
+    r = tan_theta * torch.sqrt(u1)
+    phi = 2.0 * math.pi * u2
+    v = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                     torch.ones_like(r)], dim=-1)
+    return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))

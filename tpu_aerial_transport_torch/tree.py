@@ -1,6 +1,8 @@
 """Maps over the port's state containers: a tensor, ``None``, or a
 dataclass, ``NamedTuple`` or tuple of them (the counterpart of
-``jax.tree.map`` over the JAX package's pytrees)."""
+``jax.tree.map`` over the JAX package's pytrees). Python numbers and
+strings inside a dataclass (a forest's bark size, a grid's shape) are
+static fields, carried unchanged as the JAX package's static fields are."""
 
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ def tree_map(fn, tree, *rest):
         return fn(tree, *rest)
     if tree is None:
         return None
+    if isinstance(tree, (bool, int, float, str)):
+        return tree
     if isinstance(tree, tuple):
         parts = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
         return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(
