@@ -117,7 +117,32 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    3 MPC steps with the SM law against the CPU;
 28. ``jit_control_step`` of C-ADMM and DD at 256 x 8, 3 steps each:
    outputs bitwise equal to ``control``, the donated state in the storage
-   passed in.
+   passed in;
+29. the resilient headline: C-ADMM at 256 x 8 in the seed-0 forest through
+   ``resilience.jit_resilient_rollout``, one fault schedule a scenario (by
+   index mod 4: none, agent 0 lost at step 3, 30% consensus dropout held 2
+   steps, agent 5 at 0.6 thrust with 0.01 sensor noise; the last scenario
+   an infinite thrust scale from step 4), 10 steps after a warm-up call:
+   the fault masks bitwise the CPU's, one ``warp_solve_kernel`` launch per
+   consensus iteration, the last scenario quarantined and frozen and every
+   other scenario bitwise a run whose last scenario is benign, lost agents'
+   forces exactly 0, the first 8 scenarios against the CPU, and
+   ``faults=None``/``no_faults`` bitwise ``jit_rollout``; each group's
+   rungs and carried load, the resilient and plain rates in turns, one
+   profiled step's ``tat.faults``/``tat.fallback``;
+30. DD (adaptive) with agent 0 lost at step 1 in every scenario, 3 steps
+   through ``make_dd_hl_step``: one ``warp_solve_early_kernel`` launch per
+   iteration, the first 8 scenarios against the CPU: counts and rungs
+   equal, step 0 within DD's 2e-3 N (after the loss DD does not converge,
+   in the JAX package as here, and the distance is printed);
+31. the run-health telemetry: the headline through ``jit_rollout`` with
+   ``TelemetryConfig(track_agents=True)``, 10 steps: the accumulator
+   against a host recount from the logs, the P² markers against a host
+   replay and its accuracy bound over a long stream on the card; ms a step
+   with telemetry on and off in turns;
+32. sharded health: phase 29's schedules over 8 shards with
+   ``pallas_ring``, 3 steps, against the single program; ring-sum launches
+   counted.
 
 The main path and every bench path replay the ten substeps of a step from
 a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
@@ -247,6 +272,23 @@ ENV_SCENARIOS, ENV_STEPS, ENV_REPEATS = 64, 10, 3
 # 28's jit_control_step steps.
 CITY_TREES = 16384
 CITY_STEPS, SM_STEPS, JIT_STEPS = 3, 3, 3
+# Phases 29-32, the resilience tier: high-level steps of the resilient
+# headline and of the telemetry run, of the resilient headline's CPU
+# comparison, of DD with a lost agent and of the sharded run with faults;
+# the step from which the last scenario's thrust scale is infinite.
+RES_STEPS, RES_CPU_STEPS, DD_FAULT_STEPS, SHARDED_FAULT_STEPS = 10, 4, 3, 3
+KILL_STEP = 4
+# Sensor noise on the card against the CPU: erf^-1's log1p and sqrt may
+# round an ulp apart (tests/test_torch_faults.py).
+NOISE_ATOL = 2e-6
+# DD's force bar (tests/test_torch_dd.py), and the sharded-against-single
+# bar of tests/test_torch_parallel.py for C-ADMM.
+DD_FORCE_BAR = 2e-3
+SHARDED_HEALTH_BAR = 1e-4
+# P²: the card's markers against a host replay of the estimator (float32
+# rounding), and the accuracy bound of tests/test_telemetry.py:97 against
+# np.percentile on that test's stream of P2_STREAM observations.
+P2_RTOL, P2_BOUND, P2_STREAM = 1e-5, 0.08, 4000
 
 
 def fail(msg: str) -> None:
@@ -2584,6 +2626,554 @@ def control_step_phase(card, report):
     report["jit_control_step"] = out
 
 
+def fault_schedules(S, killer=True):
+    """Phase 29's schedules, one per scenario on the CPU, each keyed
+    ``prng_key(s)``, by scenario index mod 4: no fault (but active), agent
+    0 lost at step 3, 30% consensus dropout held 2 steps, agent 5 degraded
+    to 0.6 thrust from step 2 with 0.01 sensor noise; with ``killer`` the
+    last scenario's agent 0 gets an infinite thrust scale from
+    KILL_STEP."""
+    from tpu_aerial_transport_torch.resilience import faults, prng
+
+    groups = (dict(), dict(t_fail={0: 3}), dict(drop_rate=0.3, drop_hold=2),
+              dict(t_degrade={5: 2}, thrust_scale=0.6, noise_std=0.01))
+    out = []
+    for s in range(S):
+        kw = groups[s % 4]
+        if killer and s == S - 1:
+            kw = dict(t_degrade={0: KILL_STEP}, thrust_scale=math.inf)
+        out.append(faults.make_schedule(N_AGENTS, key=prng.prng_key(s),
+                                        device="cpu", **kw))
+    return faults.stack_schedules(out)
+
+
+def on_card(tree):
+    from tpu_aerial_transport_torch.tree import tree_map
+
+    return tree_map(lambda t: t.cuda(), tree)
+
+
+def resilient_run(controller, device, S, sched, steps, shards=1,
+                  telemetry=None, **kw):
+    """``(ctl, run, states, css)``: ``controller`` at S x 8 on ``device``
+    through ``resilience.jit_resilient_rollout`` with the health-aware step
+    and the forest reference, ``steps`` high-level steps."""
+    from tpu_aerial_transport_torch.harness import rollout
+    from tpu_aerial_transport_torch.resilience import rollout as res
+
+    ctl = rollout.make_controller(controller, N_AGENTS, max_iter=20,
+                                  shards=shards, device=device, **kw)
+    make = (res.make_cadmm_hl_step if controller == "cadmm"
+            else res.make_dd_hl_step)
+    hl = make(ctl.params, ctl.cfg, ctl.forest, shards=shards)
+    run = res.jit_resilient_rollout(
+        hl, ctl.ll.control, ctl.params, n_hl_steps=steps,
+        acc_des_fn=rollout.make_forest_acc_des(ctl.forest), faults=sched,
+        telemetry=telemetry)
+    return (ctl, run, rollout.scenario_batch(ctl.state0, S),
+            rollout.stack_scenarios(ctl.cs0, S))
+
+
+def logs_vs_cpu(logs, logs_c, n_cpu, force_bar):
+    """The first ``n_cpu`` scenarios' logs against the CPU's: max state and
+    error difference, max force difference, iteration counts and rungs."""
+    cut = lambda t: t[:logs_c.xl.shape[0], :n_cpu].cpu()  # noqa: E731
+    errs = {f: float((getattr(logs_c, f) - cut(getattr(logs, f))).abs()
+                     .max()) for f in STATE_FIELDS + ("x_err", "v_err")}
+    f_err = float((logs_c.f_des - cut(logs.f_des)).abs().max())
+    same = (cut(logs.iters).tolist() == logs_c.iters.tolist()
+            and cut(logs.fallback_rung).tolist()
+            == logs_c.fallback_rung.tolist())
+    ok = max(errs.values()) <= CPU_STATE_ATOL and f_err <= force_bar and same
+    return ok, {"err": errs, "f_des_err": f_err,
+                "iters_card": cut(logs.iters).tolist(),
+                "iters_cpu": logs_c.iters.tolist(), "counts_equal": same}
+
+
+def timed_call(run, states, css):
+    """``(seconds, outputs)`` of one ``run`` call, ending in a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(states, css)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def resilient_phase(card, report):
+    """Phase 29, the resilient headline: C-ADMM at 256 x 8 in the seed-0
+    forest through ``jit_resilient_rollout`` with phase 29's per-scenario
+    schedules (``fault_schedules``), RES_STEPS steps after one warm-up
+    call. Checks: the fault masks on the card bitwise the CPU's (and the
+    sensor noise within NOISE_ATOL); one ``warp_solve_kernel`` launch per
+    consensus iteration run; the scaled substeps' graph replay bitwise the
+    eager substeps, the killer's infinite scale included; the killer
+    scenario quarantined from KILL_STEP with its state frozen, no other
+    scenario quarantined; every other scenario's logs bitwise equal to a
+    run whose last scenario has a benign schedule; lost agents' forces exactly zero from their death
+    step; every state finite; the first 8 scenarios against the CPU over
+    RES_CPU_STEPS steps (phase 22's bars, rungs and counts equal); and
+    ``faults=None`` and ``no_faults(8)`` bitwise ``jit_rollout`` with the
+    same launch count. Prints each group's rung histogram and carried load,
+    the resilient and plain rates in turns, one profiled step's host time
+    in ``tat.faults`` and ``tat.fallback``, and the cost of the masked
+    equilibrium's pseudo-inverse. Returns the CPU schedules and the
+    timed run's logs (phase 32 compares with them)."""
+    import torch
+
+    from tpu_aerial_transport_torch.control import centralized
+    from tpu_aerial_transport_torch.harness import rollout
+    from tpu_aerial_transport_torch.models.rqp import GRAVITY
+    from tpu_aerial_transport_torch.resilience import faults
+    from tpu_aerial_transport_torch.resilience import rollout as res
+
+    S = N_SCENARIOS
+    sched_c = fault_schedules(S)
+    sched = on_card(sched_c)
+    masks_equal, noise_err = True, 0.0
+    ctl, run, states, css = resilient_run("cadmm", "cuda", S, sched,
+                                          RES_STEPS)
+    for t in range(RES_STEPS):
+        a, b = faults.fault_step(sched, t), faults.fault_step(sched_c, t)
+        masks_equal &= all(torch.equal(getattr(a, k).cpu(), getattr(b, k))
+                           for k in ("alive", "thrust_scale", "msg_ok"))
+    states_c = states.replace(**{k: getattr(states, k).cpu() for k in (
+        "xl", "vl", "w")})
+    for t in (0, RES_STEPS - 1):
+        na = faults.apply_sensor_noise(sched, t, states)
+        nb = faults.apply_sensor_noise(sched_c, t, states_c)
+        noise_err = max(noise_err, *(float((getattr(na, k).cpu()
+                                            - getattr(nb, k)).abs().max())
+                                     for k in ("xl", "vl", "w")))
+    print(f"fault masks on the card ({S} per-scenario schedules, "
+          f"{RES_STEPS} steps) bitwise the CPU's: {masks_equal}; sensor "
+          f"noise max|card - CPU| {noise_err:.2e} (atol {NOISE_ATOL}) | "
+          f"{card}", flush=True)
+    if not masks_equal or noise_err > NOISE_ATOL:
+        fail("the fault draws on the card differ from the CPU's")
+
+    warm_s, _ = timed_call(run, states, css)
+    zero_launches()
+    secs, (state, _, logs) = timed_call(run, states, css)
+    launches = launch_counts()
+    runs = int(logs.iters.max(dim=1).values.sum())
+    what = "the resilient headline"
+    check_launches(launches, "fused_solve", runs, what)
+    check_body(launches, "fused_solve", "warp_solve_kernel", what)
+    g = run.substeps.graph
+    if (g.captures, g.replays) != (1, 2 * RES_STEPS):
+        fail(f"{what}: {g.captures} captures and {g.replays} replays, "
+             f"expected 1 and {2 * RES_STEPS}")
+    for f in STATE_FIELDS + ("f_des",):
+        if not bool(torch.isfinite(getattr(logs, f)).all()):
+            fail(f"{what}: the {f} log is not finite")
+    # The scaled substeps' replay bitwise the eager substeps, on the last
+    # step's forces and thrust scales (the killer's +inf among them).
+    scale = faults.fault_step(sched, RES_STEPS - 1).thrust_scale
+    eager = rollout.make_substeps(ctl.params, ctl.ll.control,
+                                  cuda_graph=False, scaled=True)
+    replay_bits = tree_bits_equal(run.substeps(states, logs.f_des[-1], scale),
+                                  eager(states, logs.f_des[-1], scale))
+    quar = logs.quarantined
+    K = S - 1
+    q_steps = torch.nonzero(quar[:, K]).flatten().tolist()
+    if (not q_steps or q_steps[0] != KILL_STEP
+            or q_steps != list(range(KILL_STEP, RES_STEPS))
+            or bool(quar[:, :K].any())):
+        fail(f"{what}: quarantine steps of scenario {K}: {q_steps}, others "
+             f"flagged: {int(quar[:, :K].any(dim=0).sum())}")
+    frozen = bool((logs.xl[KILL_STEP:, K] == logs.xl[KILL_STEP - 1, K])
+                  .all())
+    g1 = [s for s in range(S) if s % 4 == 1]
+    dead_zero = bool((logs.f_des[3:, g1, 0] == 0.0).all())
+    # The same batch with a benign last scenario: every other lane bitwise.
+    _, run_b, _, _ = resilient_run("cadmm", "cuda", S,
+                                   on_card(fault_schedules(S, False)),
+                                   RES_STEPS)
+    _, _, logs_b = run_b(states, css)
+    keys = STATE_FIELDS + ("f_des", "x_err", "v_err", "iters", "solve_res",
+                           "fallback_rung")
+    leak = [k for k in keys if not torch.equal(getattr(logs, k)[:, :K],
+                                               getattr(logs_b, k)[:, :K])]
+    n_cpu = 8
+    _, run_c, states_c8, css_c = resilient_run(
+        "cadmm", "cpu", n_cpu, tree_rows(sched_c, n_cpu), RES_CPU_STEPS,
+        pad_operators=True)
+    _, _, logs_c = run_c(states_c8, css_c)
+    cpu_ok, cpu = logs_vs_cpu(logs, logs_c, n_cpu, CPU_FORCE_ATOL)
+    print(f"{what} (jit_resilient_rollout, C-ADMM {S} x {N_AGENTS}, forest "
+          f"reference, {RES_STEPS} HL steps): {secs:.4f} s = "
+          f"{S * RES_STEPS / secs:.2f} scenario-MPC-steps/s (warm-up call "
+          f"{warm_s:.4f} s) | launches {launches} = consensus iterations "
+          f"run {runs}, all warp_solve_kernel | the scaled substeps' graph "
+          f"replay bitwise the eager ones (+inf scale included): "
+          f"{replay_bits} | scenario {K} quarantined at "
+          f"steps {q_steps}, xl frozen: {frozen}; no other flagged | the "
+          f"other {K} scenarios bitwise the benign run's in {len(keys)} "
+          f"log leaves: {not leak} | lost agents' forces exactly 0: "
+          f"{dead_zero} | first {n_cpu} scenarios over {RES_CPU_STEPS} "
+          f"steps against the CPU: max|state or error err| "
+          f"{max(cpu['err'].values()):.2e} (atol {CPU_STATE_ATOL}), "
+          f"max|f_des err| {cpu['f_des_err']:.2e} N (atol {CPU_FORCE_ATOL})"
+          f", counts and rungs equal: {cpu['counts_equal']} "
+          + ("ok" if cpu_ok else "FAIL") + f" | {card}", flush=True)
+    if not (frozen and dead_zero and not leak and cpu_ok and replay_bits):
+        fail(f"{what}: frozen {frozen}, lost agents zero {dead_zero}, lane "
+             f"leakage in {leak}, CPU agreement {cpu_ok}, graph replay "
+             f"bitwise {replay_bits}")
+
+    # Each group's rungs and carried load (sum of f_z over m_T g).
+    mtg = float(ctl.params.mT) * GRAVITY
+    groups = {}
+    names = ("nominal", "agent 0 lost at 3", "30% dropout",
+             "agent 5 at 0.6 + noise")
+    for gi, name in enumerate(names):
+        lanes = [s for s in range(S) if s % 4 == gi and s != K]
+        rungs = torch.bincount(logs.fallback_rung[:, lanes].flatten().cpu(),
+                               minlength=4).tolist()
+        load = (logs.f_des[..., 2].sum(-1)[:, lanes] / mtg).cpu()
+        groups[name] = {"rung_hist": rungs, "load_mean": float(load.mean()),
+                        "load_min": float(load.min()),
+                        "load_max": float(load.max())}
+        print(f"  group {name!r} ({len(lanes)} scenarios): rung histogram "
+              f"{rungs}, sum f_z / m_T g mean {float(load.mean()):.4f} "
+              f"(min {float(load.min()):.4f}, max {float(load.max()):.4f})",
+              flush=True)
+    rungs_k = logs.fallback_rung[:, K].tolist()
+    print(f"  killer scenario {K}: rungs {rungs_k}", flush=True)
+
+    # Zero cost when off: faults=None and no_faults(8) against jit_rollout.
+    plain = rollout.jit_rollout(
+        ctl.control, ctl.ll.control, ctl.params, n_hl_steps=RES_STEPS,
+        acc_des_fn=rollout.make_forest_acc_des(ctl.forest))
+    nominal = {}
+    for name, f in (("jit_rollout", None), ("faults=None", None),
+                    ("no_faults", faults.no_faults(N_AGENTS))):
+        r = plain if name == "jit_rollout" else resilient_run(
+            "cadmm", "cuda", S, f, RES_STEPS)[1]
+        zero_launches()
+        out = r(states, css)
+        torch.cuda.synchronize()
+        nominal[name] = (out, launch_counts())
+    ref, ref_l = nominal["jit_rollout"]
+    same = {name: (tree_equal(o[0], ref[0])
+                   and torch.equal(o[2].f_des, ref[2].f_des) and l == ref_l)
+            for name, (o, l) in nominal.items() if name != "jit_rollout"}
+    print(f"zero cost when off: faults=None and no_faults({N_AGENTS}) "
+          f"against jit_rollout ({RES_STEPS} steps): every state leaf and "
+          f"f_des bitwise equal and the same launches ({ref_l}): {same} | "
+          f"{card}", flush=True)
+    if not all(same.values()):
+        fail("the nominal resilient rollout differs from jit_rollout")
+
+    # Rates in turns: resilient, plain, plain, resilient.
+    turns = {"resilient": [S * RES_STEPS / secs], "plain": []}
+    for arm in ("plain", "plain", "resilient"):
+        r = plain if arm == "plain" else run
+        turns[arm].append(S * RES_STEPS / timed_call(r, states, css)[0])
+    print(f"scenario-MPC-steps/s in turns (resilient, plain, plain, "
+          f"resilient; {RES_STEPS} steps each): resilient "
+          f"{turns['resilient'][0]:.2f} and {turns['resilient'][1]:.2f}, "
+          f"plain {turns['plain'][0]:.2f} and {turns['plain'][1]:.2f}: "
+          f"ratio {sum(turns['resilient']) / sum(turns['plain']):.3f} | "
+          f"{card}", flush=True)
+
+    # One profiled step, and the masked equilibrium's pseudo-inverse.
+    run1 = res.jit_resilient_rollout(
+        res.make_cadmm_hl_step(ctl.params, ctl.cfg, ctl.forest),
+        ctl.ll.control, ctl.params, n_hl_steps=1,
+        acc_des_fn=rollout.make_forest_acc_des(ctl.forest), faults=sched)
+    run1(states, css)
+    wall, ph = profile_step(lambda: run1(states, css))
+    print_profile("one resilient headline step (faults active, graph "
+                  "substeps)", wall, ph, card)
+    alive = faults.fault_step(sched, RES_STEPS - 1).alive
+    pinv_ms = event_ms(
+        lambda: centralized.equilibrium_forces(ctl.params, alive), 20)
+    print(f"the masked equilibrium forces ({S} x {N_AGENTS} masks, batched "
+          f"SVD pseudo-inverse, a host synchronisation): {pinv_ms:.4f} ms a "
+          f"call, twice a step (the hl_step's and rung 3's) | {card}",
+          flush=True)
+    report["resilient"] = {
+        "seconds": secs, "warmup_seconds": warm_s,
+        "scenario_mpc_steps_per_s": S * RES_STEPS / secs,
+        "launches": launches, "iterations_run": runs,
+        "quarantined_steps": q_steps, "groups": groups,
+        "killer_rungs": rungs_k, "card_vs_cpu": cpu,
+        "noise_err": noise_err, "nominal_bitwise": same,
+        "rates_in_turns": turns, "pinv_ms": pinv_ms,
+        "profile": {"wall_ms": wall, "phases": ph}}
+    return sched_c, logs
+
+
+def tree_bits_equal(a, b) -> bool:
+    """Every leaf of two state trees equal bit for bit, NaNs included."""
+    import torch
+
+    from tpu_aerial_transport_torch.tree import leaves
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return all(torch.equal(bits(x), bits(y))
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def tree_rows(tree, n):
+    """The first ``n`` entries of every leaf's leading axis."""
+    from tpu_aerial_transport_torch.tree import tree_map
+
+    return tree_map(lambda t: t[:n], tree)
+
+
+def dd_fault_phase(card, report):
+    """Phase 30, DD with a lost agent: DD (adaptive effort, the early-exit
+    kernel) at 256 x 8 through ``make_dd_hl_step`` for DD_FAULT_STEPS
+    steps, agent 0 lost at step 1 in every scenario: one
+    ``warp_solve_early_kernel`` launch per dual-ascent iteration, agent
+    0's forces exactly zero from step 1, every state finite, and the first
+    8 scenarios against the CPU: iteration counts and rungs equal at every
+    step, and step 0 (every agent alive) within CPU_STATE_ATOL and
+    DD_FORCE_BAR. After the loss DD does not converge, in the JAX package
+    as here (the quasi-Newton step keeps its all-healthy cores; the JAX
+    package's own n = 8 run ends each step at its 21-iteration cap with a
+    consensus residual of ~21 N), and its last iterate turns on which
+    agent solves pass ``solver_tol``, so the later steps' distance from the
+    CPU is printed, not held to a bar."""
+    import torch
+
+    from tpu_aerial_transport_torch.resilience import faults
+
+    sched_c = faults.make_schedule(N_AGENTS, t_fail={0: 1}, device="cpu")
+    _, run, states, css = resilient_run(
+        "dd", "cuda", N_SCENARIOS, on_card(sched_c), DD_FAULT_STEPS,
+        effort="adaptive")
+    zero_launches()
+    secs, (_, _, logs) = timed_call(run, states, css)
+    launches = launch_counts()
+    runs = int(logs.iters.max(dim=1).values.sum())
+    what = "DD with a lost agent"
+    check_launches(launches, "fused_solve_early", runs, what)
+    check_body(launches, "fused_solve_early", "warp_solve_early_kernel",
+               what)
+    for f in STATE_FIELDS + ("f_des",):
+        if not bool(torch.isfinite(getattr(logs, f)).all()):
+            fail(f"{what}: the {f} log is not finite")
+    dead_zero = bool((logs.f_des[1:, :, 0] == 0.0).all())
+    n_cpu = 8
+    _, run_c, states_c, css_c = resilient_run(
+        "dd", "cpu", n_cpu, sched_c, DD_FAULT_STEPS, effort="adaptive",
+        pad_operators=True)
+    _, _, logs_c = run_c(states_c, css_c)
+    _, cpu_all = logs_vs_cpu(logs, logs_c, n_cpu, math.inf)
+    ok0, cpu0 = logs_vs_cpu(logs, tree_rows(logs_c, 1), n_cpu,
+                            DD_FORCE_BAR)
+    ok = ok0 and cpu_all["counts_equal"]
+    rungs = torch.bincount(logs.fallback_rung.flatten().cpu(),
+                           minlength=4).tolist()
+    res_max = float(logs.solve_res[1:].max())
+    print(f"{what} (jit_resilient_rollout, DD adaptive {N_SCENARIOS} x "
+          f"{N_AGENTS}, agent 0 lost at step 1, {DD_FAULT_STEPS} steps, "
+          f"the capture included): {secs:.4f} s | launches {launches} = "
+          f"dual-ascent iterations run {runs}, all warp_solve_early_kernel "
+          f"| agent 0's forces exactly 0 from step 1: {dead_zero} | rung "
+          f"histogram {rungs}, worst final residual after the loss "
+          f"{res_max:.3e} N | first {n_cpu} scenarios against the CPU: "
+          f"counts and rungs equal at every step: "
+          f"{cpu_all['counts_equal']}; step 0 max|state or error err| "
+          f"{max(cpu0['err'].values()):.2e} (atol {CPU_STATE_ATOL}), "
+          f"max|f_des err| {cpu0['f_des_err']:.2e} N (atol {DD_FORCE_BAR}) "
+          + ("ok" if ok else "FAIL") + f"; after the loss (unconverged, "
+          f"not held) max|state err| {max(cpu_all['err'].values()):.2e}, "
+          f"max|f_des err| {cpu_all['f_des_err']:.2e} N | {card}",
+          flush=True)
+    if not (ok and dead_zero):
+        fail(f"{what}: CPU agreement {ok}, lost agent zero {dead_zero}")
+    report["dd_fault"] = {"seconds": secs, "launches": launches,
+                          "iterations_run": runs, "rung_hist": rungs,
+                          "res_max_after_loss": res_max,
+                          "card_vs_cpu_step0": cpu0,
+                          "card_vs_cpu_all_steps": cpu_all}
+
+
+def telemetry_phase(card, report):
+    """Phase 31, telemetry: the headline through ``jit_rollout`` with
+    ``TelemetryConfig(track_agents=True)`` and ``track_agent_stats=True``,
+    RES_STEPS steps. The accumulator's counts (``steps``, ``rung_hist``,
+    ``iters_sum``, ``consensus_hist``, ``collision_steps``,
+    ``agent_fail_steps``) equal a host recount from the logs and the
+    recorded per-agent residuals exactly; ``res_min``/``res_max`` exact,
+    ``res_sum`` to float32; the P² markers equal a host replay of the
+    estimator over each scenario's logged residuals (P2_RTOL). Ten
+    observations a scenario are too few for P²'s accuracy bound, so the
+    estimator also folds a P2_STREAM-observation lognormal stream a
+    scenario on the card: scenario 0's is the stream of
+    ``tests/test_telemetry.py:77-97``, held to its bound (P2_BOUND of
+    ``np.percentile``); the worst scenario's deviation is printed. Prints ms a step with telemetry on and off in turns."""
+    import numpy as np
+    import torch
+
+    from tpu_aerial_transport_torch.harness import rollout
+    from tpu_aerial_transport_torch.obs import telemetry as tel_mod
+
+    S = N_SCENARIOS
+    ctl = rollout.make_controller("cadmm", N_AGENTS, max_iter=20,
+                                  track_agent_stats=True, device="cuda")
+    agent_res = []
+
+    def recording(css, states, acc):
+        out = ctl.control(css, states, acc)
+        agent_res.append(out[2].agent_solve_res)
+        return out
+
+    tcfg = tel_mod.TelemetryConfig(track_agents=True)
+    acc_fn = rollout.make_forest_acc_des(ctl.forest)
+    run_rec = rollout.jit_rollout(recording, ctl.ll.control, ctl.params,
+                                  n_hl_steps=RES_STEPS, acc_des_fn=acc_fn,
+                                  telemetry=tcfg)
+    states = rollout.scenario_batch(ctl.state0, S)
+    css = rollout.stack_scenarios(ctl.cs0, S)
+    _, _, logs, tel = run_rec(states, css)
+    host = {k: getattr(tel, k).cpu() for k in tel_mod.LEAF_FIELDS}
+    it = logs.iters.cpu()
+    res = logs.solve_res.cpu()
+    ares = torch.stack(agent_res).cpu()
+    fin = torch.isfinite(res)
+    recount = {
+        "steps": torch.full((S,), RES_STEPS, dtype=torch.int32),
+        "rung_hist": torch.stack([torch.bincount(
+            logs.fallback_rung[:, s].cpu(), minlength=4)
+            for s in range(S)]).to(torch.int32),
+        "iters_sum": it.clamp(min=0).sum(0).to(torch.int32),
+        "consensus_hist": torch.as_tensor(np.stack([
+            tel_mod.iter_histogram(it[:, s].numpy())
+            for s in range(S)])).to(torch.int32),
+        "collision_steps": logs.collision.cpu().sum(0).to(torch.int32),
+        "agent_fail_steps": ((~torch.isfinite(ares))
+                             | (ares >= tcfg.solver_tol)).sum(0).to(
+                                 torch.int32),
+    }
+    counts_ok = {k: torch.equal(host[k], v) for k, v in recount.items()}
+    inf = torch.full_like(res, math.inf)
+    res_min_ok = torch.equal(host["res_min"],
+                             torch.where(fin, res, inf).amin(0))
+    res_max_ok = torch.equal(host["res_max"],
+                             torch.where(fin, res, -inf).amax(0))
+    res_sum_ref = torch.where(fin, res, 0.0).double().sum(0)
+    res_sum_err = float(((host["res_sum"].double() - res_sum_ref).abs()
+                         / res_sum_ref.abs().clamp(min=1e-30)).max())
+    # The estimator replayed on the host over the logged residuals.
+    rep = tel_mod.init_telemetry(tcfg, N_AGENTS, device="cpu", batch=(S,))
+    q, npos, count = rep.p2_q, rep.p2_n, rep.res_count
+    for t in range(RES_STEPS):
+        q2, n2 = tel_mod._p2_update(tcfg, q, npos, count, res[t])
+        f = fin[t][:, None, None]
+        q, npos = torch.where(f, q2, q), torch.where(f, n2, npos)
+        count = count + fin[t].to(torch.int32)
+    p2_err = float(((host["p2_q"] - q).abs()
+                    / q.abs().clamp(min=1e-30)).nan_to_num(0.0).max())
+    p2_pos_ok = torch.equal(host["p2_n"], npos)
+    # A long stream a scenario folded on the card; scenario 0's is the
+    # stream of tests/test_telemetry.py:77-97, held to its accuracy bound.
+    xs = np.concatenate([
+        np.random.default_rng(0).lognormal(-3.0, 1.0, (P2_STREAM, 1)),
+        np.random.default_rng(1).lognormal(-3.0, 1.0, (P2_STREAM, S - 1)),
+    ], axis=1).astype(np.float32)
+    lane = tel_mod.init_telemetry(tcfg, device="cuda", batch=(S,))
+    q_l, n_l, c_l = lane.p2_q, lane.p2_n, lane.res_count
+    for x in torch.as_tensor(xs).cuda():
+        q_l, n_l = tel_mod._p2_update(tcfg, q_l, n_l, c_l, x)
+        c_l = c_l + 1
+    est = q_l[..., 2].cpu().numpy()
+    dev = np.stack([np.abs(est[:, i] - np.percentile(xs, p * 100, axis=0))
+                    / np.percentile(xs, p * 100, axis=0)
+                    for i, p in enumerate(tcfg.quantiles)], axis=1)
+    test_dev, worst = float(dev[0].max()), float(dev.max())
+    ok = (all(counts_ok.values()) and res_min_ok and res_max_ok
+          and res_sum_err <= 1e-5 and p2_err <= P2_RTOL and p2_pos_ok
+          and test_dev < P2_BOUND)
+    summary = tel_mod.summary(tel)
+    print(f"telemetry (jit_rollout, C-ADMM {S} x {N_AGENTS}, track_agents, "
+          f"{RES_STEPS} steps): counts equal to the host recount "
+          f"{counts_ok}; res_min/res_max exact {res_min_ok}/{res_max_ok}, "
+          f"res_sum rel err {res_sum_err:.2e}; P² markers against the host "
+          f"replay rel err {p2_err:.2e} (rtol {P2_RTOL}), positions equal "
+          f"{p2_pos_ok}; P² on the card over {P2_STREAM} lognormal "
+          f"observations a scenario: the test's stream (scenario 0) "
+          f"p50/p90/p99 within {test_dev:.4f} of np.percentile (bound "
+          f"{P2_BOUND}), the worst of the {S} streams {worst:.4f} | "
+          f"summary: "
+          f"rungs {summary['rung_hist']}, residual p50/p90/p99 "
+          f"{summary['residual']['p50']:.3e}/{summary['residual']['p90']:.3e}"
+          f"/{summary['residual']['p99']:.3e}, agent_fail_steps "
+          f"{summary['agent_fail_steps']} " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    if not ok:
+        fail("the telemetry accumulator disagrees with the logs")
+    # ms a step with telemetry on (the recording run, its graph captured)
+    # and off, in turns.
+    run_on = run_rec
+    run_off = rollout.jit_rollout(ctl.control, ctl.ll.control, ctl.params,
+                                  n_hl_steps=RES_STEPS, acc_des_fn=acc_fn)
+    run_off(states, css)
+    turns = {"on": [], "off": []}
+    for arm in ("on", "off", "off", "on"):
+        r = run_on if arm == "on" else run_off
+        turns[arm].append(1e3 * timed_call(r, states, css)[0] / RES_STEPS)
+    print(f"ms a step with telemetry on and off in turns (on, off, off, "
+          f"on; {RES_STEPS} steps each): on {turns['on'][0]:.2f} and "
+          f"{turns['on'][1]:.2f}, off {turns['off'][0]:.2f} and "
+          f"{turns['off'][1]:.2f} | {card}", flush=True)
+    report["telemetry"] = {
+        "counts_equal": counts_ok, "res_sum_rel_err": res_sum_err,
+        "p2_replay_rel_err": p2_err, "p2_test_stream_dev": test_dev, "p2_stream_worst_dev": worst,
+        "summary": summary, "ms_per_step_in_turns": turns}
+
+
+def sharded_fault_phase(card, report, sched_c, logs_single):
+    """Phase 32, sharded health: C-ADMM at 256 x 8 over SHARDS shards with
+    ``pallas_ring`` and phase 29's schedules for SHARDED_FAULT_STEPS steps:
+    one whole-solve launch per consensus iteration and two ring sums an
+    iteration plus one a step (the alive count); against the single
+    program's first steps of phase 29 (the same schedules): iteration
+    counts equal in SHARDED_EQUAL_SHARE of the scenarios, forces within
+    SHARDED_HEALTH_BAR on those."""
+    import torch
+
+    _, run, states, css = resilient_run(
+        "cadmm", "cuda", N_SCENARIOS, on_card(sched_c), SHARDED_FAULT_STEPS,
+        shards=SHARDS, consensus_impl="pallas_ring")
+    zero_launches()
+    secs, (_, _, logs) = timed_call(run, states, css)
+    launches = launch_counts()
+    runs = int(logs.iters.max(dim=1).values.sum())
+    what = "sharded C-ADMM with faults"
+    check_launch_counts(launches, {
+        "fused_solve": runs, "ring_sum": 2 * runs + SHARDED_FAULT_STEPS},
+        what)
+    single = tree_rows(logs_single, SHARDED_FAULT_STEPS)
+    same = (logs.iters == single.iters).all(dim=0)
+    share = float(same.float().mean())
+    f_err = (float((logs.f_des - single.f_des)[:, same].abs().max())
+             if bool(same.any()) else math.inf)
+    ok = share >= SHARDED_EQUAL_SHARE and f_err <= SHARDED_HEALTH_BAR
+    print(f"{what} ({SHARDS} shards, pallas_ring, {N_SCENARIOS} x "
+          f"{N_AGENTS}, phase 29's schedules, {SHARDED_FAULT_STEPS} steps, "
+          f"the capture included): {secs:.4f} s | launches {launches}: "
+          f"whole-solve = iterations run {runs}, ring sums = 2 x {runs} + "
+          f"{SHARDED_FAULT_STEPS} | against the single program: counts "
+          f"equal in {100 * share:.2f}% (bar {100 * SHARDED_EQUAL_SHARE:.0f}"
+          f"%), max|f_des err| on those {f_err:.3e} N (bar "
+          f"{SHARDED_HEALTH_BAR}) " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    if not ok:
+        fail(f"{what} disagrees with the single program")
+    report["sharded_fault"] = {"seconds": secs, "launches": launches,
+                               "iterations_run": runs, "equal_share": share,
+                               "f_des_err": f_err}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: the {PKG} package is not beside this script",
@@ -3110,6 +3700,16 @@ def main() -> int:
     sm_phase(card, report, run, css0, states0)
     phase_at["28"] = time.perf_counter() - t_start
     control_step_phase(card, report)
+    # 29-32. The resilience tier: the resilient headline, DD with a lost
+    # agent, the run-health telemetry and sharded health.
+    phase_at["29"] = time.perf_counter() - t_start
+    sched_c, res_logs = resilient_phase(card, report)
+    phase_at["30"] = time.perf_counter() - t_start
+    dd_fault_phase(card, report)
+    phase_at["31"] = time.perf_counter() - t_start
+    telemetry_phase(card, report)
+    phase_at["32"] = time.perf_counter() - t_start
+    sharded_fault_phase(card, report, sched_c, res_logs)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],

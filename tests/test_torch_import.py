@@ -21,8 +21,11 @@ from tpu_aerial_transport_torch.control import (
 )
 from tpu_aerial_transport_torch.envs import forest, spatial
 from tpu_aerial_transport_torch.harness import cuda_graph, rollout, setup
+from tpu_aerial_transport_torch.obs import telemetry
 from tpu_aerial_transport_torch.ops import admm_kernel, lie, socp
 from tpu_aerial_transport_torch.parallel import ring
+from tpu_aerial_transport_torch.resilience import faults, prng
+from tpu_aerial_transport_torch.resilience import rollout as resilient
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tpu_aerial_transport_torch")
@@ -43,7 +46,9 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert "tpu_aerial_transport_torch.ops.admm_kernel" in mods
     assert "tpu_aerial_transport_torch.control.dd" in mods
     for m in ("harness.bucketing", "harness.cuda_graph", "harness.rollout",
-              "tree"):
+              "tree", "resilience.faults", "resilience.prng",
+              "resilience.quarantine", "resilience.rollout",
+              "obs.telemetry", "utils.stats"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -92,7 +97,10 @@ def test_source_scan_covers_the_slice():
               "harness/cuda_graph.py", "harness/rollout.py",
               "ops/admm_kernel.py", "ops/socp.py", "parallel/mesh.py",
               "parallel/ring.py", "tree.py", "envs/spatial.py",
-              "control/so3_tracking.py", "convert.py"):
+              "control/so3_tracking.py", "convert.py",
+              "resilience/faults.py", "resilience/prng.py",
+              "resilience/quarantine.py", "resilience/rollout.py",
+              "obs/telemetry.py", "utils/stats.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
@@ -166,6 +174,39 @@ def test_slice8_entry_points_default_to_the_card():
         cadmm.init_cadmm_state(params, cfg, f_eq), 1),
         rollout.stack_scenarios(state, 1), (torch.zeros(3), torch.zeros(3)))
     assert not out[0].is_cuda
+
+
+def test_slice9_entry_points_default_to_the_card():
+    """A fault schedule, a telemetry accumulator and the resilient rollout's
+    controller target the card unless asked for the CPU; the schedule's
+    draws run on its key's device."""
+    if torch.cuda.is_available():
+        assert faults.make_schedule(4).t_fail.is_cuda
+        assert faults.no_faults(4).key.is_cuda
+        assert telemetry.init_telemetry(telemetry.TelemetryConfig()
+                                        ).steps.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        faults.make_schedule(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        faults.no_faults(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        telemetry.init_telemetry(telemetry.TelemetryConfig())
+    sched = faults.make_schedule(4, drop_rate=0.5, device="cpu")
+    assert not faults.fault_step(sched, 3).msg_ok.is_cuda
+    assert not prng.bits32(prng.prng_key(0), (3,)).is_cuda
+    # The resilient rollout runs where its inputs are.
+    params, col, state = setup.rqp_setup(4, device="cpu")
+    cfg = cadmm.make_config(params, col.collision_radius,
+                            col.max_deceleration, max_iter=2, inner_iters=4,
+                            device="cpu")
+    hl = resilient.make_cadmm_hl_step(params, cfg)
+    ll = lowlevel.make_lowlevel_controller("pd", params)
+    out = resilient.jit_resilient_rollout(
+        hl, ll.control, params, n_hl_steps=1, faults=sched)(
+        rollout.stack_scenarios(state, 1),
+        rollout.stack_scenarios(cadmm.init_cadmm_state(params, cfg), 1))
+    assert not out[0].xl.is_cuda and out[1].held is not None
 
 
 def test_inactive_env_cbf_defaults_to_the_card():
@@ -244,11 +285,11 @@ def test_resolve_effort_and_route(monkeypatch):
 
 
 def test_left_out_call_paths_raise():
-    """The one path still left out (health=) raises NotImplementedError
-    naming its ROADMAP item; the SM law, the bucketed query, n = 3
-    C-ADMM, bf16 solves, the centralized rollout and agent sharding,
-    ported since, run, and a world above 200 slots without a grid is the
-    JAX package's ValueError; junk option values are ValueErrors."""
+    """No call path of the slice is left out: fault-aware control
+    (``health=``, C-ADMM and DD), the SM law, the bucketed query, n = 3
+    C-ADMM, bf16 solves, the centralized rollout and agent sharding run,
+    and a world above 200 slots without a grid is the JAX package's
+    ValueError; junk option values are ValueErrors."""
     params, col, state = setup.rqp_setup(4, device="cpu")
     params3 = setup.rqp_setup(3, device="cpu")[0]
     cfg3 = cadmm.make_config(params3, col.collision_radius,
@@ -270,15 +311,26 @@ def test_left_out_call_paths_raise():
     sol = socp.solve_socp(eye, x, eye, -torch.ones(2, 4), torch.ones(2, 4),
                           n_box=4, iters=5, precision="bf16")
     assert torch.isfinite(sol.x).all()
-    cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cadmm.control(params, cfg, None, None, state, None, health=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dd.control(params, None, None, None, state, None, health=object())
-    # Agent sharding is ported: the shard count must divide n.
+    # Fault-aware control runs: agent 1 dead, agent 2 dropped.
+    health = faults.FaultStep(
+        alive=torch.tensor([[True, False, True, True]]),
+        thrust_scale=torch.tensor([[1.0, 0.0, 1.0, 1.0]]),
+        msg_ok=torch.tensor([[True, False, False, True]]))
+    f_eq = centralized.equilibrium_forces(params, health.alive)
+    acc = (torch.zeros(3), torch.zeros(3))
+    c_cfg = cadmm.make_config(params, col.collision_radius,
+                              col.max_deceleration, max_iter=3,
+                              inner_iters=5, device="cpu")
+    c_cs = rollout.stack_scenarios(cadmm.init_cadmm_state(params, c_cfg), 1)
     dd_cfg = dd.make_config(params, col.collision_radius,
                             col.max_deceleration, device="cpu")
     dd_cs = rollout.stack_scenarios(dd.init_dd_state(params, dd_cfg), 1)
+    states1 = rollout.stack_scenarios(state, 1)
+    for mod, cfg_h, cs_h in ((cadmm, c_cfg, c_cs), (dd, dd_cfg, dd_cs)):
+        f_h, _, _ = mod.control(params, cfg_h, f_eq, cs_h, states1, acc,
+                                health=health)
+        assert torch.isfinite(f_h).all() and torch.all(f_h[0, 1] == 0.0)
+    # Agent sharding is ported: the shard count must divide n.
     with pytest.raises(ValueError, match="divide"):
         dd.control(params, dd_cfg, dd_cs.f[0], dd_cs,
                    rollout.stack_scenarios(state, 1), None, shards=3)

@@ -129,7 +129,10 @@ def test_sharded_step_matches_jax(jax_sharded, ctrl, n, d, impl):
                     np.asarray(jst.solve_res)[None])
     assert int(out[2].iters[0]) > 1
     for name in out[1]._fields:
-        if name != "warm":
+        if getattr(jcs, name) is None:
+            # The fault path's held snapshots: None in both packages.
+            assert getattr(out[1], name) is None, name
+        elif name != "warm":
             assert getattr(out[1], name).shape[1:] == getattr(jcs, name).shape
     if ctrl == "cadmm":
         np.testing.assert_allclose(out[1].f_mean[0].numpy(), jcs.f_mean,

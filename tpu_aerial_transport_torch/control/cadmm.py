@@ -68,8 +68,15 @@ C-ADMM's and for DD's (through its ``base``). :func:`jit_control_step`
 builds the plan once and returns the step a receding-horizon caller calls
 period after period.
 
-Not ported yet (raises ``NotImplementedError``): ``health=`` (ROADMAP
-Queue 1 item 6).
+Fault-aware control (``health=``, a ``resilience.faults.FaultStep`` with
+``(S, n)`` or shared ``(n,)`` masks; JAX ``cadmm.py:1094-1120``,
+``:1339-1410``, ``:1466-1477``): dead agents' columns are zeroed in every
+copy and their rows, duals and warm starts frozen; a dropped agent's peers
+read its ``held`` copy (its last delivered one); the mean divides by the
+alive count; the residual is taken over the fresh delivered copies only;
+dead agents apply no force; ``held`` is updated at the end of the step.
+``f_eq`` may then be per scenario, ``(S, n, 3)``. With
+``track_agent_stats`` the stats carry every agent's exit-time QP residual.
 """
 
 from __future__ import annotations
@@ -165,6 +172,9 @@ class RQPCADMMConfig:
     # (parallel/ring.py resolve_consensus); single-program steps never
     # exchange.
     consensus_impl: str = "allreduce"
+    # SolverStats.agent_solve_res carries every agent's exit-time QP
+    # residual (the run-health telemetry's per-agent view).
+    track_agent_stats: bool = False
 
 
 def _cos32(x: float) -> torch.Tensor:
@@ -193,10 +203,6 @@ def _use_reduced(cfg: RQPCADMMConfig, n: int) -> bool:
     return cfg.reduced_qp if cfg.reduced_qp is not None else n >= 4
 
 
-def _missing(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def make_config(
     params: RQPParams,
     collision_radius: float,
@@ -221,6 +227,7 @@ def make_config(
     effort: str = "auto",
     env_query: str = "auto",
     consensus_impl: str = "auto",
+    track_agent_stats: bool = False,
     device="cuda",
 ) -> RQPCADMMConfig:
     """Controller config for the C-ADMM path on ``device``.
@@ -242,7 +249,7 @@ def make_config(
         inner_check_every=inner_check_every,
         solve_retry_iters=solve_retry_iters, pad_operators=pad_operators,
         effort=effort, env_query=env_query, consensus_impl=consensus_impl,
-        device=device,
+        track_agent_stats=track_agent_stats, device=device,
     )
     cfg = dataclasses.replace(
         base, tau_incr=tau_incr, rho_max=rho_max,
@@ -273,6 +280,7 @@ def make_base_config(
     effort: str = "auto",
     env_query: str = "auto",
     consensus_impl: str = "auto",
+    track_agent_stats: bool = False,
     device="cuda",
 ) -> RQPCADMMConfig:
     """The constants C-ADMM and DD share (DD's ``base``), without C-ADMM's
@@ -320,6 +328,7 @@ def make_base_config(
         else bool(pad_operators),
         env_query=spatial_mod.resolve_env_query(env_query),
         consensus_impl=ring.resolve_consensus(consensus_impl, dev),
+        track_agent_stats=track_agent_stats,
     )
 
 
@@ -363,6 +372,10 @@ class CADMMState(NamedTuple):
     lam: torch.Tensor  # (..., n, n, 3) duals.
     f_mean: torch.Tensor  # (..., n, 3) consensus mean.
     warm: socp.SOCPSolution  # (..., n, ...) per-agent warm starts.
+    # The copies last delivered to the peers (fault-aware control only;
+    # None in nominal use): under message dropout the peers read a dropped
+    # agent's copy from here, frozen until its next delivered step.
+    held: torch.Tensor | None = None  # (..., n, n, 3).
 
 
 def _qp_dims(cfg: RQPCADMMConfig, n: int):
@@ -748,7 +761,7 @@ def _build_agent_qp(params: RQPParams, cfg: RQPCADMMConfig,
     P[..., 9:, 9:] += Pff + smooth
     q[..., 9:] += (
         -2.0 * cfg.k_f * (params.mT * GRAVITY * e3).repeat(n)
-        - 2.0 * cfg.k_feq * own * f_eq.reshape(-1)
+        - 2.0 * cfg.k_feq * own * f_eq.flatten(-2).unsqueeze(-2)
     )
 
     n_box = 13 + cfg.n_env_cbfs
@@ -969,6 +982,11 @@ class _AgentBlocks:
                 torch.int32)
         return counts[:, 0]
 
+    def agent_values(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-agent values ``(S, n)`` as the whole fleet's table: under
+        shards, shard 0's gathered copy (JAX ``cadmm.py:1497-1507``)."""
+        return self.gather(x)[0] if self.sharded else x
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Per-agent blocks ``(S, n, ...)`` -> ``(d, S, n, ...)``: each
         shard's gathered copy of every agent's block."""
@@ -1006,14 +1024,32 @@ def control(
     build the elimination cores once outside a rollout (None for the full
     QP). ``shards=d`` shards the agents into d blocks (see the module
     docstring; ``parallel.mesh.cadmm_control_sharded``); the state stays
-    the global one."""
-    if health is not None:
-        raise _missing("fault-aware control (health=)", "Queue 1 item 6")
+    the global one. ``health``: a ``resilience.faults.FaultStep`` (masks
+    ``(S, n)`` or ``(n,)``), the fault-aware consensus of the module
+    docstring; ``f_eq`` may then be ``(S, n, 3)``. ``health=None`` runs the
+    nominal program."""
     n = params.n
     dtype, dev = state.xl.dtype, state.xl.device
     S = admm_state.f.shape[0]
     blocks = _AgentBlocks(n, shards, cfg.consensus_impl)
     agent_ids = torch.arange(n, device=dev)
+
+    if health is not None:
+        # The fault masks (JAX cadmm.py:1094-1120).
+        alive = health.alive.expand(S, n)
+        msg_ok = health.msg_ok.expand(S, n)
+        w_alive = alive.to(dtype)  # (S, n)
+        contrib = alive & msg_ok  # copies entering mean/residual fresh.
+        # Each shard's copy of the alive count, (S, d).
+        n_alive = torch.clamp(blocks.sum(w_alive), min=1.0)
+        # Dead agents anchor to zero force.
+        f_eq = f_eq * w_alive[..., None]
+        # The peers' view of a dropped agent: its last delivered copy, with
+        # dead agents' columns zeroed.
+        f_stale = (admm_state.held if admm_state.held is not None
+                   else admm_state.f) * w_alive[:, None, :, None]
+    # The equilibrium as every agent's copy: (n, 3) or (S, 1, n, 3).
+    f_eq_copy = f_eq if f_eq.dim() == 2 else f_eq[:, None]
 
     with phases.scope(phases.CBF_ROWS):
         env_cbfs = agent_env_cbfs_for(params, cfg, forest, state, params.r)
@@ -1155,10 +1191,19 @@ def control(
         ok = (sols.prim_res < cfg.solver_tol)[..., None, None] & torch.all(
             torch.isfinite(f_new).flatten(-2), dim=-1
         )[..., None, None]
-        f_new = torch.where(ok, f_new, f_eq)
+        f_new = torch.where(ok, f_new, f_eq_copy)
+        if health is not None:
+            # Dead agents: their columns zeroed in every copy, their own
+            # rows frozen at the last pre-death copy.
+            f_new = f_new * w_alive[:, None, :, None]
+            f_new = torch.where(alive[..., None, None], f_new, f)
         # Warm starts keep any finite iterate (tolerance-missed included).
         ok_flat = ok[..., 0, 0]
         finite_flat = socp.solution_is_finite(sols)
+        if health is not None:
+            # The dead never trigger retries and keep frozen warm starts.
+            ok_flat = ok_flat | ~alive
+            finite_flat = finite_flat & alive
         sols = socp.SOCPSolution(*(
             torch.where(finite_flat.reshape(
                 finite_flat.shape + (1,) * (a.dim() - 2)), a, b)
@@ -1167,9 +1212,23 @@ def control(
         with phases.scope(phases.CONSENSUS):
             # Each shard's copy of the mean (S, d, n, 3); the residual is
             # exact, so it is the same on every shard.
-            f_mean_new = blocks.sum(f_new) / n
-            spread = f_new - blocks.per_agent(f_mean_new)
-            res_new = blocks.max(torch.abs(spread))
+            if health is None:
+                f_mean_new = blocks.sum(f_new) / n
+                spread = f_new - blocks.per_agent(f_mean_new)
+                res_new = blocks.max(torch.abs(spread))
+            else:
+                # Masked consensus: dropped agents contribute their held
+                # copy, the dead nothing, the mean divides by the alive
+                # count, and the residual reads the fresh delivered copies
+                # only.
+                f_eff = torch.where(msg_ok[..., None, None], f_new, f_stale)
+                f_mean_new = (blocks.sum(f_eff * w_alive[..., None, None])
+                              / n_alive[..., None, None])
+                mean_a = blocks.per_agent(f_mean_new)
+                res_new = blocks.max(torch.where(
+                    contrib[..., None, None], torch.abs(f_eff - mean_a),
+                    0.0))
+                spread = f_new - mean_a
         err_buf = torch.where(steps[None] == it[:, None], res_new[:, None],
                               err_buf)
         it = it + 1
@@ -1182,6 +1241,9 @@ def control(
                 do_dual[:, None, None, None],
                 lam + rhos[min(k + 1, n_rho - 1)] * spread, lam,
             )
+            if health is not None:
+                # Frozen duals for dead agents.
+                lam_new = torch.where(alive[..., None, None], lam_new, lam)
         # A sum of 0/1 flags: exact, the same on every shard.
         ok_last = blocks.sum(ok_flat.to(dtype))[:, 0] / n
         okf = torch.minimum(okf, ok_last)
@@ -1225,8 +1287,16 @@ def control(
     f, lam, f_mean, warm, iters, res, err_buf, ok_frac, _, _ = carry[:10]
 
     f_app = f[:, agent_ids, agent_ids, :]
+    if health is not None:
+        f_app = f_app * w_alive[..., None]  # dead agents actuate nothing.
+        # Delivered agents publish their final copies; dropped agents'
+        # snapshots stay frozen for the peers.
+        held = torch.where(msg_ok[..., None, None], f, f_stale)
+    else:
+        held = admm_state.held
     # The carried mean is shard 0's copy.
-    new_state = CADMMState(f=f, lam=lam, f_mean=f_mean[:, 0], warm=warm)
+    new_state = CADMMState(f=f, lam=lam, f_mean=f_mean[:, 0], warm=warm,
+                           held=held)
     stats = SolverStats(
         iters=iters,
         solve_res=res,
@@ -1234,9 +1304,14 @@ def control(
         min_env_dist=blocks.min(env_cbfs.min_dist),
         err_seq=err_buf,
         ok_frac=ok_frac,
+        fallback_rung=torch.zeros((S,), dtype=torch.int32, device=dev),
+        agent_solve_res=torch.zeros((S, 0), dtype=dtype, device=dev),
         inner_iters=(blocks.total(carry[10]) if adaptive else
                      torch.zeros((S, 0), dtype=torch.int32, device=dev)),
     )
+    if cfg.track_agent_stats:
+        stats = stats.replace(agent_solve_res=blocks.agent_values(
+            warm.prim_res))
     return f_app, new_state, stats
 
 
@@ -1253,6 +1328,11 @@ def donated_step(control_fn: Callable, donate: bool) -> Callable:
     def step(state, *args):
         out, new_state, stats = control_fn(state, *args)
         olds, news = leaves(state), leaves(new_state)
+        if len(olds) != len(news):
+            raise ValueError(
+                "donate=True: the step filled a state leaf that was None "
+                "(seed it first, e.g. the resilient hl_step's "
+                "prepare_ctrl_state)")
         for old, new in zip(olds, news):
             if old.shape != new.shape or old.dtype != new.dtype:
                 raise ValueError(

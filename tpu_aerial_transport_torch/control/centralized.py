@@ -144,11 +144,17 @@ def equilibrium_forces(params: RQPParams, alive=None) -> torch.Tensor:
     ``fz = W^T (W W^T)^-1 rhs`` (``W W^T`` is a well-conditioned 3 x 3), not
     with ``torch.linalg.lstsq``, which on CUDA (``gels`` only) does not
     return it.
-    ``alive`` (optional (n,) mask) zeroes dead agents' columns and takes the
-    pseudo-inverse, so the survivors carry the load."""
+    ``alive`` (optional ``(..., n)`` mask, e.g. one row per scenario) zeroes
+    dead agents' columns and takes the pseudo-inverse, so the survivors
+    carry the load; the result is then ``(..., n, 3)``. The pseudo-inverse
+    is ``jnp.linalg.pinv``'s: singular values at most ``10 max(3, n) eps``
+    of the largest are dropped, which decides the rank with two or fewer
+    survivors (and gives zero thrusts when every agent is dead)."""
     n = params.n
     dtype, dev = params.r.dtype, params.r.device
-    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
+    # (0, 0, 1) from a fill and a pad: no host-to-device copy a call.
+    e3 = torch.nn.functional.pad(
+        torch.ones((1,), dtype=dtype, device=dev), (2, 0))
     rxe = lie.cross(params.r_com, e3)
     wrench = torch.cat(
         [torch.ones((n, 1), dtype=dtype, device=dev), rxe[:, :2]], dim=1
@@ -161,10 +167,21 @@ def equilibrium_forces(params: RQPParams, alive=None) -> torch.Tensor:
         fz = wrench.T @ torch.linalg.solve(wrench @ wrench.T, rhs)
     else:
         w = torch.as_tensor(alive, device=dev).to(dtype)
-        fz = w * (torch.linalg.pinv(wrench * w[None, :]) @ rhs)
+        fz = w * (_pinv(wrench * w[..., None, :]) @ rhs)
     return torch.cat(
-        [torch.zeros((n, 2), dtype=dtype, device=dev), fz[:, None]], dim=1
+        [torch.zeros(fz.shape + (2,), dtype=dtype, device=dev),
+         fz[..., None]], dim=-1
     )
+
+
+def _pinv(a: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.pinv(a)`` of a batch ``(..., m, k)``: its SVD with the
+    singular values at or below ``10 max(m, k) eps`` times the largest
+    dropped. On the card the SVD synchronises the host."""
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    rtol = 10.0 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
+    s = torch.where(s > rtol * s[..., 0:1], s, torch.full_like(s, math.inf))
+    return vh.mT @ (u.mT / s[..., None])
 
 
 def qp_dims(n: int, n_env_cbfs: int):
@@ -395,6 +412,8 @@ def control(
         min_env_dist=env_cbf.min_dist,
         err_seq=torch.zeros((S, 0), dtype=dtype, device=dev),
         ok_frac=ok.to(dtype),
+        fallback_rung=torch.zeros((S,), dtype=torch.int32, device=dev),
+        agent_solve_res=torch.zeros((S, 0), dtype=dtype, device=dev),
         inner_iters=torch.zeros((S, 0), dtype=torch.int32, device=dev),
     )
     return f_out, CtrlState(prev_f=f_out, warm=warm), stats

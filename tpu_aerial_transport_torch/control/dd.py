@@ -39,8 +39,13 @@ from ``cfg.base.env_query`` (dense, or the forest grid's bucketed tier).
 :func:`jit_control_step` is C-ADMM's twin with the quasi-Newton plan built
 once.
 
-Not ported yet (raises ``NotImplementedError``): ``health=`` (ROADMAP
-Queue 1 item 6).
+Fault-aware control (``health=``; JAX ``dd.py:556-575``, ``:704-810``,
+``:853-865``): each agent's network-visible price and force contributions
+are its held values while its message is dropped and zero while it is
+dead; the dead agents' primal, duals and warm starts freeze and their
+violations are zeroed; dead agents apply no force; the ``held_*``
+snapshots are updated at the end of the step. The quasi-Newton
+preconditioner keeps its all-healthy cores.
 """
 
 from __future__ import annotations
@@ -103,6 +108,7 @@ def make_config(
     effort: str = "auto",
     env_query: str = "auto",
     consensus_impl: str = "auto",
+    track_agent_stats: bool = False,
     device="cuda",
 ) -> RQPDDConfig:
     """DD config on ``device``; the knobs resolve as in
@@ -115,7 +121,7 @@ def make_config(
         inner_tol=inner_tol, inner_check_every=inner_check_every,
         solve_retry_iters=solve_retry_iters, pad_operators=pad_operators,
         effort=effort, env_query=env_query, consensus_impl=consensus_impl,
-        device=device,
+        track_agent_stats=track_agent_stats, device=device,
     )
     return RQPDDConfig(base=base, prim_inf_tol=prim_inf_tol)
 
@@ -130,6 +136,11 @@ class DDState(NamedTuple):
     lam_F: torch.Tensor  # (..., n, 3) duals of the force consensus rows.
     lam_M: torch.Tensor  # (..., n, 3) duals of the moment consensus rows.
     warm: socp.SOCPSolution  # (..., n, ...) per-agent warm starts.
+    # The values last delivered to the peers (fault-aware control only;
+    # None in nominal use; see ``cadmm.CADMMState.held``).
+    held_f: torch.Tensor | None = None  # (..., n, 3).
+    held_lam_F: torch.Tensor | None = None
+    held_lam_M: torch.Tensor | None = None
 
 
 def _qp_dims(cfg: RQPDDConfig):
@@ -436,16 +447,31 @@ def control(
     ``acc_des`` is shared (``(3,)`` each) or per scenario (``(S, 3)``).
     Pass ``plan=make_dd_plan(...)`` to build the quasi-Newton cores once
     outside a rollout. ``shards=d`` shards the agents into d
-    blocks (the module docstring; ``parallel.mesh.dd_control_sharded``)."""
-    if health is not None:
-        raise cadmm._missing("fault-aware control (health=)",
-                             "Queue 1 item 6")
+    blocks (the module docstring; ``parallel.mesh.dd_control_sharded``).
+    ``health``: a ``resilience.faults.FaultStep`` (masks ``(S, n)`` or
+    ``(n,)``), the fault-aware step of the module docstring; ``f_eq`` may
+    then be ``(S, n, 3)``."""
     n = params.n
     base = cfg.base
     dtype, dev = state.xl.dtype, state.xl.device
     S = dd_state.f.shape[0]
     blocks = cadmm._AgentBlocks(n, shards, base.consensus_impl)
     agent_ids = torch.arange(n, device=dev)
+
+    if health is not None:
+        # The fault masks (JAX dd.py:556-575).
+        alive = health.alive.expand(S, n)
+        msg_ok = health.msg_ok.expand(S, n)
+        w_alive = alive.to(dtype)[..., None]  # (S, n, 1)
+        # Dead agents anchor to zero force; their aggregates follow.
+        f_eq = f_eq * w_alive
+        # The peers' view of a dropped agent: its last delivered values.
+        lamF_stale = (dd_state.held_lam_F if dd_state.held_lam_F is not None
+                      else dd_state.lam_F)
+        lamM_stale = (dd_state.held_lam_M if dd_state.held_lam_M is not None
+                      else dd_state.lam_M)
+        f_stale = (dd_state.held_f if dd_state.held_f is not None
+                   else dd_state.f)
 
     with phases.scope(phases.CBF_ROWS):
         env_cbfs = cadmm.agent_env_cbfs_for(params, base, forest, state,
@@ -488,7 +514,7 @@ def control(
 
     # Solver-failure fallbacks: equilibrium forces and the aggregates they
     # imply.
-    fallback_F = torch.sum(f_eq, dim=0)[None, :] - f_eq  # (n, 3)
+    fallback_F = torch.sum(f_eq, dim=-2, keepdim=True) - f_eq
     fallback_M = _moments_of(params.JT_inv, G, f_eq)  # (S, n, 3)
 
     retry_cap = base.solve_retry_iters or base.max_iter
@@ -506,10 +532,19 @@ def control(
          fail_count) = carry[:12]
         # Price assembly: the sums of the other agents' duals.
         with phases.scope(phases.CONSENSUS):
-            # Each agent reads its own shard's copy of the sums.
-            sum_lF = blocks.per_agent(blocks.sum(lam_F))
-            sum_lM = blocks.per_agent(blocks.sum(lam_M))
-            c_f = -(sum_lF - lam_F) + _mv(Rl_hat, sum_lM - lam_M)
+            # Each agent reads its own shard's copy of the sums. Under
+            # faults an agent's network-visible price is its held value
+            # while dropped and zero while dead.
+            if health is None:
+                lamF_eff, lamM_eff = lam_F, lam_M
+            else:
+                lamF_eff = torch.where(msg_ok[..., None], lam_F,
+                                       lamF_stale) * w_alive
+                lamM_eff = torch.where(msg_ok[..., None], lam_M,
+                                       lamM_stale) * w_alive
+            sum_lF = blocks.per_agent(blocks.sum(lamF_eff))
+            sum_lM = blocks.per_agent(blocks.sum(lamM_eff))
+            c_f = -(sum_lF - lamF_eff) + _mv(Rl_hat, sum_lM - lamM_eff)
             q = q0.clone()
             q[..., 9:12] += c_f
             q[..., 12:15] += lam_F
@@ -531,8 +566,18 @@ def control(
         f_new = torch.where(okc, x[..., 9:12], f_eq)
         F_new = torch.where(okc, x[..., 12:15], fallback_F)
         M_new = torch.where(okc, x[..., 15:18], fallback_M)
+        if health is not None:
+            # The dead freeze at their last pre-death primal and never
+            # trigger retries; their warm starts freeze too.
+            dead_keep = alive[..., None]
+            f_new = torch.where(dead_keep, f_new, f)
+            F_new = torch.where(dead_keep, F_new, F)
+            M_new = torch.where(dead_keep, M_new, M)
+            ok = ok | ~alive
         # Warm starts keep any finite iterate (tolerance-missed included).
         finite = socp.solution_is_finite(sols)
+        if health is not None:
+            finite = finite & alive
         warm_new = socp.SOCPSolution(*(
             torch.where(finite.reshape(finite.shape + (1,) * (a.dim() - 2)),
                         a, b)
@@ -540,11 +585,21 @@ def control(
         ))
         # Primal infeasibility: the consensus violations.
         with phases.scope(phases.CONSENSUS):
-            moments = _mv(G, f_new)
-            sum_f = blocks.per_agent(blocks.sum(f_new))
+            # Under faults the sums read each agent's network-visible
+            # force, and the dead's violations are zeroed.
+            if health is None:
+                f_c = f_new
+            else:
+                f_c = torch.where(msg_ok[..., None], f_new, f_stale) \
+                    * w_alive
+            moments = _mv(G, f_c)
+            sum_f = blocks.per_agent(blocks.sum(f_c))
             sum_m = blocks.per_agent(blocks.sum(moments))
-            err_F = F_new - (sum_f - f_new)
+            err_F = F_new - (sum_f - f_c)
             err_M = M_new - (sum_m - moments)
+            if health is not None:
+                err_F = err_F * w_alive
+                err_M = err_M * w_alive
             # Exact: the same on every shard.
             err_new = blocks.max(torch.maximum(torch.abs(err_F),
                                                torch.abs(err_M)))
@@ -571,6 +626,10 @@ def control(
             lam_F_new = torch.where(do_dual, lam_F + step[..., :3] @ RlT,
                                     lam_F)
             lam_M_new = torch.where(do_dual, lam_M + step[..., 3:], lam_M)
+            if health is not None:
+                # Frozen duals for dead agents.
+                lam_F_new = torch.where(alive[..., None], lam_F_new, lam_F)
+                lam_M_new = torch.where(alive[..., None], lam_M_new, lam_M)
         # A sum of 0/1 flags: exact, the same on every shard.
         ok_last = blocks.sum(ok.to(dtype))[:, 0] / n
         okf = torch.minimum(okf, ok_last)
@@ -606,7 +665,19 @@ def control(
     (f, F, M, lam_F, lam_M, warm, iters, err, err_buf, ok_frac, _,
      _) = carry[:12]
 
-    new_state = DDState(f=f, F=F, M=M, lam_F=lam_F, lam_M=lam_M, warm=warm)
+    if health is not None:
+        # The delivered-snapshot update (see control.cadmm).
+        ok_m = msg_ok[..., None]
+        held = (torch.where(ok_m, f, f_stale),
+                torch.where(ok_m, lam_F, lamF_stale),
+                torch.where(ok_m, lam_M, lamM_stale))
+    else:
+        held = (dd_state.held_f, dd_state.held_lam_F, dd_state.held_lam_M)
+    new_state = DDState(f=f, F=F, M=M, lam_F=lam_F, lam_M=lam_M, warm=warm,
+                        held_f=held[0], held_lam_F=held[1],
+                        held_lam_M=held[2])
+    if health is not None:
+        f = f * w_alive  # dead agents actuate nothing.
     stats = SolverStats(
         iters=iters,
         solve_res=err,
@@ -614,9 +685,14 @@ def control(
         min_env_dist=blocks.min(env_cbfs.min_dist),
         err_seq=err_buf,
         ok_frac=ok_frac,
+        fallback_rung=torch.zeros((S,), dtype=torch.int32, device=dev),
+        agent_solve_res=torch.zeros((S, 0), dtype=dtype, device=dev),
         inner_iters=(blocks.total(carry[12]) if adaptive else
                      torch.zeros((S, 0), dtype=torch.int32, device=dev)),
     )
+    if base.track_agent_stats:
+        stats = stats.replace(agent_solve_res=blocks.agent_values(
+            warm.prim_res))
     return f, new_state, stats
 
 

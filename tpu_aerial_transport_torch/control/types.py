@@ -19,9 +19,13 @@ class SolverStats:
     iterations, final consensus residual, any-collision flag, min env
     distance, the NaN-padded per-iteration residual sequence, the
     worst-iteration fraction of agent solves that met ``solver_tol``, and
-    the total effective inner ADMM iterations of the step (summed over
-    agents and consensus iterations; set only under ``effort="adaptive"``,
-    empty ``(..., 0)`` otherwise, as in the JAX package)."""
+    the fallback-ladder rung the resilient rollout stamps on the step
+    (controllers leave it 0), every agent's exit-time QP residual (set
+    only under the controllers' ``track_agent_stats``, empty ``(..., 0)``
+    otherwise) and the total effective inner ADMM iterations of the step
+    (summed over agents and consensus iterations; set only under
+    ``effort="adaptive"``, empty ``(..., 0)`` otherwise, as in the JAX
+    package). An empty sentinel means "not tracked"."""
 
     iters: torch.Tensor  # (...) int32.
     solve_res: torch.Tensor  # (...).
@@ -29,8 +33,16 @@ class SolverStats:
     min_env_dist: torch.Tensor  # (...).
     err_seq: torch.Tensor  # (..., max_iter + 1).
     ok_frac: torch.Tensor  # (...).
+    # 0 clean, 1 retried, 2 held previous force, 3 equilibrium forces.
+    fallback_rung: torch.Tensor = field(  # (...) int32.
+        default_factory=lambda: torch.zeros((), dtype=torch.int32))
+    agent_solve_res: torch.Tensor = field(  # (..., n), or (..., 0).
+        default_factory=lambda: torch.zeros((0,)))
     inner_iters: torch.Tensor = field(  # (...) int32, or (..., 0).
         default_factory=lambda: torch.zeros((0,), dtype=torch.int32))
+
+    def replace(self, **kw) -> "SolverStats":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)

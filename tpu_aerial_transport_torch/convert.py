@@ -19,7 +19,9 @@ from tpu_aerial_transport_torch.control import cadmm, centralized, dd
 from tpu_aerial_transport_torch.envs import forest as forest_mod
 from tpu_aerial_transport_torch.envs import spatial as spatial_mod
 from tpu_aerial_transport_torch.models import rqp
+from tpu_aerial_transport_torch.obs import telemetry as telemetry_mod
 from tpu_aerial_transport_torch.ops import socp
+from tpu_aerial_transport_torch.resilience import faults as faults_mod
 
 
 def _get(src, name):
@@ -33,6 +35,19 @@ def _tensor(a, dev) -> torch.Tensor:
     if np.issubdtype(a.dtype, np.integer):
         return torch.as_tensor(a.astype(np.int64), device=dev)
     return torch.as_tensor(a.astype(np.float32), device=dev)
+
+
+def _static(src, name, default):
+    if isinstance(src, Mapping):
+        return src.get(name, default)
+    return getattr(src, name, default)
+
+
+def _optional(src, name, dev):
+    """A leaf the source may lack or hold as None (the fault path's
+    ``held`` snapshots)."""
+    v = _static(src, name, None)
+    return None if v is None else _tensor(v, dev)
 
 
 def _fields(cls, src, dev, ints=()):
@@ -59,28 +74,31 @@ def socp_solution(src, device="cuda") -> socp.SOCPSolution:
 
 
 def cadmm_state(src, device="cuda") -> cadmm.CADMMState:
-    """``f``, ``lam``, ``f_mean`` and the ``warm`` solution, in whichever
-    layout the source has: ``(n, nv_p)``/``(n, m_p)`` warm starts of the
-    Schur-reduced or of the full agent QP alike (the JAX package's ``held``
-    snapshot belongs to the unported fault path). An agent-sharded step
+    """``f``, ``lam``, ``f_mean``, the ``warm`` solution and the ``held``
+    snapshot (None where the source has none), in whichever layout the
+    source has: ``(n, nv_p)``/``(n, m_p)`` warm starts of the
+    Schur-reduced or of the full agent QP alike. An agent-sharded step
     takes and returns the same global state."""
     dev = resolve_device(device)
     return cadmm.CADMMState(
         f=_tensor(_get(src, "f"), dev), lam=_tensor(_get(src, "lam"), dev),
         f_mean=_tensor(_get(src, "f_mean"), dev),
         warm=socp_solution(_get(src, "warm"), dev),
+        held=_optional(src, "held", dev),
     )
 
 
 def dd_state(src, device="cuda") -> dd.DDState:
-    """``f``, ``F``, ``M``, ``lam_F``, ``lam_M`` and the ``warm`` solution
-    (the JAX package's ``held_*`` snapshots belong to the unported fault
-    path). An agent-sharded step takes and returns the same global state."""
+    """``f``, ``F``, ``M``, ``lam_F``, ``lam_M``, the ``warm`` solution and
+    the ``held_*`` snapshots (None where the source has none). An
+    agent-sharded step takes and returns the same global state."""
     dev = resolve_device(device)
     return dd.DDState(
         **{k: _tensor(_get(src, k), dev)
            for k in ("f", "F", "M", "lam_F", "lam_M")},
         warm=socp_solution(_get(src, "warm"), dev),
+        **{k: _optional(src, k, dev)
+           for k in ("held_f", "held_lam_F", "held_lam_M")},
     )
 
 
@@ -135,3 +153,41 @@ def forest(src, device="cuda") -> forest_mod.Forest:
 def schur_plan(src, device="cuda") -> cadmm.SchurPlan:
     return cadmm.SchurPlan(**_fields(cadmm.SchurPlan, src,
                                      resolve_device(device)))
+
+
+def fault_schedule(src, device="cuda") -> faults_mod.FaultSchedule:
+    """A fault schedule, one for every scenario or stacked one per scenario
+    (leading axis): the step and scale leaves, the key's two uint32 words
+    (as ``jax.random.PRNGKey`` holds them) as int64, and the static
+    ``active``/``noisy`` flags (True where the source has none)."""
+    dev = resolve_device(device)
+    leaves = {k: _tensor(_get(src, k), dev) for k in (
+        "t_fail", "t_degrade", "thrust_scale", "drop_rate", "drop_hold",
+        "noise_std", "key")}
+    for k in ("t_fail", "t_degrade", "drop_hold"):
+        leaves[k] = leaves[k].to(torch.int32)
+    return faults_mod.FaultSchedule(
+        **leaves, active=bool(_static(src, "active", True)),
+        noisy=bool(_static(src, "noisy", True)))
+
+
+def fault_step(src, device="cuda") -> faults_mod.FaultStep:
+    """One step's evaluated health (``alive``, ``thrust_scale``,
+    ``msg_ok``), in the source's layout."""
+    return faults_mod.FaultStep(**_fields(faults_mod.FaultStep, src,
+                                          resolve_device(device)))
+
+
+def telemetry_state(src, device="cuda") -> telemetry_mod.TelemetryState:
+    """A run-health accumulator (one run's, or batched with a leading
+    scenario axis): the counts as int32, the rest float32, and the static
+    ``quantiles``/``n_agents``."""
+    dev = resolve_device(device)
+    return telemetry_mod.TelemetryState(
+        **{k: (_tensor(_get(src, k), dev).to(torch.int32)
+               if k in telemetry_mod.INT_FIELDS
+               else _tensor(_get(src, k), dev))
+           for k in telemetry_mod.LEAF_FIELDS},
+        quantiles=tuple(float(q) for q in _get(src, "quantiles")),
+        n_agents=int(_get(src, "n_agents")),
+    )

@@ -9,8 +9,8 @@ solving: :func:`bucketed_step` sorts the batch by a cheap congestion metric
 (:func:`env_congestion_metric`), runs the step once per contiguous group of
 ``B / n_buckets`` scenarios, and scatters the results back to input order.
 Per-scenario results are the unbucketed ones: the same solves on the same
-data, grouped. ``quarantine_guarded_metric`` comes with the NaN
-quarantine it wraps (ROADMAP Queue 1 item 6).
+data, grouped. :func:`quarantine_guarded_metric` keeps a quarantined
+scenario's non-finite state out of the sort.
 """
 
 from __future__ import annotations
@@ -53,6 +53,24 @@ def env_congestion_metric(forest, vision_radius: float) -> Callable:
                               device=forest.tree_pos.device)
                  < forest.num_trees)
         return torch.sum((d < vision_radius) & alive, dim=-1)
+
+    return metric
+
+
+def quarantine_guarded_metric(metric_fn: Callable) -> Callable:
+    """``metric_fn`` with every scenario whose state holds a non-finite
+    leaf mapped to -1: a quarantined or diverged scenario sorts into the
+    quietest bucket on a well-defined key instead of feeding NaN distances
+    to the sort."""
+    # Imported here: the resilience package imports the controllers, which
+    # import this module.
+    from tpu_aerial_transport_torch.resilience.quarantine import (
+        tree_all_finite,
+    )
+
+    def metric(states):
+        m = metric_fn(states)
+        return torch.where(tree_all_finite(states), m, torch.full_like(m, -1))
 
     return metric
 

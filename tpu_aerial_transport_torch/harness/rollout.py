@@ -20,7 +20,10 @@ reference trajectory (:func:`make_forest_acc_des`) and one
 :func:`jit_rollout` replay the substeps from a CUDA graph
 (``harness.cuda_graph``), the counterpart of the JAX package's compiled
 scan; ``cuda_graph=False`` on :func:`build` runs them eagerly, as
-:func:`rollout` does.
+:func:`rollout` does. Both rollouts take ``telemetry=`` (``obs.telemetry``):
+the run-health accumulator folded each step, returned as a fourth value.
+The fault-aware rollout with its fallback ladder and NaN quarantine is
+``resilience.rollout``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from tpu_aerial_transport_torch.harness import bucketing, setup
 from tpu_aerial_transport_torch.harness.cuda_graph import GraphedFn
 from tpu_aerial_transport_torch.models import rqp
 from tpu_aerial_transport_torch.obs import phases
+from tpu_aerial_transport_torch.obs import telemetry as telemetry_mod
 from tpu_aerial_transport_torch.parallel import mesh as mesh_mod
 from tpu_aerial_transport_torch.tree import tree_map
 
@@ -54,24 +58,36 @@ BUCKET_METRIC_MARGIN = 5.0
 
 
 def make_substeps(params, ll_control: Callable, n_sub: int = 10,
-                  dt: float = 1e-3, cuda_graph: bool = True) -> Callable:
+                  dt: float = 1e-3, cuda_graph: bool = True,
+                  scaled: bool = False) -> Callable:
     """``substeps(state, f_des) -> state``: ``n_sub`` steps of 1 kHz
     low-level control ``ll_control(state, f_des) -> (f, M)`` + physics, in
     the ``tat.dynamics`` scope. With ``cuda_graph`` the loop is a
     :class:`GraphedFn` (replayed from a CUDA graph for states on the card,
     called as it is on the CPU), reachable as ``substeps.graph`` (None
-    without)."""
+    without). ``scaled``: ``substeps(state, f_des, thrust_scale)`` with
+    ``ll_control(state, f_des, thrust_scale)``, the fault-aware form; the
+    scale is an input of the graph, as the forces are."""
 
     def body(state, f_des):
         for _ in range(n_sub):
             state = rqp.integrate(params, state, ll_control(state, f_des), dt)
         return state
 
-    fn = GraphedFn(body) if cuda_graph else body
+    def scaled_body(state, inputs):
+        f_des, thrust_scale = inputs
+        for _ in range(n_sub):
+            state = rqp.integrate(
+                params, state, ll_control(state, f_des, thrust_scale), dt)
+        return state
 
-    def substeps(state, f_des):
+    fn = scaled_body if scaled else body
+    if cuda_graph:
+        fn = GraphedFn(fn)
+
+    def substeps(state, f_des, thrust_scale=None):
         with phases.scope(phases.DYNAMICS):
-            return fn(state, f_des)
+            return fn(state, (f_des, thrust_scale) if scaled else f_des)
 
     substeps.graph = fn if cuda_graph else None
     return substeps
@@ -99,6 +115,7 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
                     reduced_qp: bool | None = None, shards: int = 1,
                     consensus_impl: str = "auto",
                     forest: forest_mod.Forest | None = None,
+                    track_agent_stats: bool = False,
                     device="cuda") -> Controller:
     """The bench set-up's high-level controller: ``rqp_setup(n)``, the
     forest given (None: the seed-0 mountain world; a city-scale world
@@ -113,7 +130,9 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
     that many blocks (``n % shards == 0``), the exchanges by
     ``consensus_impl`` (``parallel.ring.resolve_consensus``); ``shards=1``
     is the single program, which takes no ``consensus_impl`` but
-    ``"auto"``. ``control`` takes and returns batched states and an
+    ``"auto"``. ``track_agent_stats`` (C-ADMM and DD) puts every agent's
+    exit-time QP residual on the stats, for the run-health telemetry's
+    ``track_agents``. ``control`` takes and returns batched states and an
     ``acc_des`` shared (``(3,)`` each) or per scenario (``(S, 3)``)."""
     if controller not in CONTROLLERS:
         raise ValueError(
@@ -123,6 +142,9 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
     if controller != "cadmm" and (tau_incr != 1.0 or inner_iters_warm
                                   or reduced_qp is not None):
         raise ValueError(f"{cadmm_kw} are C-ADMM options, not {controller}'s")
+    if controller == "centralized" and track_agent_stats:
+        raise ValueError("track_agent_stats: the centralized controller "
+                         "has no agent solves")
     if controller == "centralized" and (shards != 1
                                         or consensus_impl != "auto"):
         raise ValueError("the centralized controller has no agents to "
@@ -162,8 +184,8 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
                      else INNER_ITERS[controller]),
         pad_operators=pad_operators, socp_fused=socp_fused,
         inner_tol=inner_tol, effort=effort, socp_precision=socp_precision,
-        consensus_impl=consensus_impl, device=dev,
-        **(cadmm_kw if controller == "cadmm" else {}),
+        consensus_impl=consensus_impl, track_agent_stats=track_agent_stats,
+        device=dev, **(cadmm_kw if controller == "cadmm" else {}),
     )
     if controller == "cadmm":
         cs0 = cadmm.init_cadmm_state(params, cfg, f_eq)
@@ -303,7 +325,7 @@ class RQPLogStep:
     collision: torch.Tensor
     min_env_dist: torch.Tensor
     # The fallback-ladder rung taken and the sticky NaN-quarantine flag:
-    # zero until the resilience tier (ROADMAP Queue 1 item 6) fills them.
+    # zero here; ``resilience.rollout`` fills them.
     fallback_rung: torch.Tensor = field(
         default_factory=lambda: torch.zeros((), dtype=torch.int32))
     quarantined: torch.Tensor = field(
@@ -345,7 +367,9 @@ def make_forest_acc_des(forest: forest_mod.Forest) -> Callable:
 def rollout(hl_step: Callable, ll_control: Callable, params: rqp.RQPParams,
             state0: rqp.RQPState, ctrl_state0, n_hl_steps: int,
             hl_rel_freq: int = 10, dt: float = 1e-3,
-            acc_des_fn: Callable | None = None, step_offset: int = 0):
+            acc_des_fn: Callable | None = None, step_offset: int = 0,
+            telemetry: telemetry_mod.TelemetryConfig | None = None,
+            telem0: telemetry_mod.TelemetryState | None = None):
     """``n_hl_steps`` high-level control periods of every scenario: the
     reference example's two-rate loop, a high-level step then
     ``hl_rel_freq`` substeps of ``dt``.
@@ -359,33 +383,51 @@ def rollout(hl_step: Callable, ll_control: Callable, params: rqp.RQPParams,
     ``t = i * hl_rel_freq * dt`` (a Python float) for global step ``i =
     step_offset + k``; default: hover at the initial position. The
     substeps run as plain calls (:func:`jit_rollout` replays them from a
-    CUDA graph).
+    CUDA graph). ``telemetry``: an active ``obs.telemetry.TelemetryConfig``
+    folds every step's stats into an accumulator with ``(S, ...)`` leaves,
+    starting from ``telem0`` (default: a fresh one); None or an inactive
+    config runs the telemetry-less loop.
 
-    Returns ``(final_state, final_ctrl_state, logs)``; every leaf of
-    ``logs`` (:class:`RQPLogStep`) is ``(T, S, ...)``: time first, then
-    scenario (``jax.vmap`` of the JAX rollout gives ``(S, T, ...)``)."""
+    Returns ``(final_state, final_ctrl_state, logs)``, plus the final
+    accumulator with telemetry active; every leaf of ``logs``
+    (:class:`RQPLogStep`) is ``(T, S, ...)``: time first, then scenario
+    (``jax.vmap`` of the JAX rollout gives ``(S, T, ...)``)."""
     substeps = make_substeps(params, ll_control, hl_rel_freq, dt,
                              cuda_graph=False)
     return _rollout(hl_step, substeps, state0, ctrl_state0, n_hl_steps,
-                    hl_rel_freq, dt, acc_des_fn, step_offset)
+                    hl_rel_freq, dt, acc_des_fn, step_offset, telemetry,
+                    telem0, params.n)
+
+
+def hover_acc_des(state0: rqp.RQPState) -> Callable:
+    """The rollouts' default reference: hover at ``state0``'s payload
+    positions (PD on position and velocity)."""
+    x0 = state0.xl
+
+    def acc_des_fn(states, t):
+        del t
+        dvl_des = -1.0 * states.vl - 1.0 * (states.xl - x0)
+        return ((dvl_des, torch.zeros_like(dvl_des)), x0,
+                torch.zeros(3, dtype=x0.dtype, device=x0.device))
+
+    return acc_des_fn
 
 
 def _rollout(hl_step, substeps, state0, ctrl_state0, n_hl_steps,
-             hl_rel_freq, dt, acc_des_fn, step_offset):
+             hl_rel_freq, dt, acc_des_fn, step_offset, telemetry=None,
+             telem0=None, n_agents=0):
     """:func:`rollout`'s loop with ``substeps(states, f_des) -> states``
     given, built by :func:`make_substeps` with ``hl_rel_freq`` and
     ``dt``."""
     if acc_des_fn is None:
-        x0 = state0.xl
-
-        def acc_des_fn(states, t):
-            del t
-            dvl_des = -1.0 * states.vl - 1.0 * (states.xl - x0)
-            return ((dvl_des, torch.zeros_like(dvl_des)), x0,
-                    torch.zeros(3, dtype=x0.dtype, device=x0.device))
-
+        acc_des_fn = hover_acc_des(state0)
     S = state0.xl.shape[0]
     dev = state0.xl.device
+    tel_on = telemetry is not None and telemetry.active
+    tel = telem0
+    if tel_on and tel is None:
+        tel = telemetry_mod.init_telemetry(telemetry, n_agents,
+                                           state0.xl.dtype, dev, batch=(S,))
     state, cs, logs = state0, ctrl_state0, []
     for k in range(n_hl_steps):
         t = (step_offset + k) * hl_rel_freq * dt
@@ -401,15 +443,24 @@ def _rollout(hl_step, substeps, state0, ctrl_state0, n_hl_steps,
             fallback_rung=torch.zeros((S,), dtype=torch.int32, device=dev),
             quarantined=torch.zeros((S,), dtype=torch.bool, device=dev),
         ))
-    return state, cs, tree_map(lambda *ts: torch.stack(ts), *logs)
+        if tel_on:
+            with phases.scope(phases.TELEMETRY):
+                tel = telemetry_mod.update(telemetry, tel, stats)
+    logs = tree_map(lambda *ts: torch.stack(ts), *logs)
+    if tel_on:
+        return state, cs, logs, tel
+    return state, cs, logs
 
 
 def jit_rollout(hl_step: Callable, ll_control: Callable,
                 params: rqp.RQPParams, *, n_hl_steps: int,
                 hl_rel_freq: int = 10, dt: float = 1e-3,
-                acc_des_fn: Callable | None = None) -> Callable:
+                acc_des_fn: Callable | None = None,
+                telemetry: telemetry_mod.TelemetryConfig | None = None
+                ) -> Callable:
     """The port's counterpart of the JAX package's ``jit_rollout``:
-    ``run(state0, ctrl_state0) -> (final_state, final_ctrl_state, logs)``,
+    ``run(state0, ctrl_state0) -> (final_state, final_ctrl_state, logs)``
+    (plus the final accumulator with ``telemetry`` active),
     :func:`rollout` with the substeps replayed from one CUDA graph a batch
     shape (captured at the first call, kept across calls) for states on
     the card; on the CPU they run as plain calls. For eager substeps on
@@ -420,7 +471,8 @@ def jit_rollout(hl_step: Callable, ll_control: Callable,
 
     def run(state0, ctrl_state0):
         return _rollout(hl_step, substeps, state0, ctrl_state0, n_hl_steps,
-                        hl_rel_freq, dt, acc_des_fn, 0)
+                        hl_rel_freq, dt, acc_des_fn, 0, telemetry, None,
+                        params.n)
 
     run.substeps = substeps
     return run

@@ -26,6 +26,9 @@ DUAL_UPDATE = "dual_update"    # dual ascent step.
 DYNAMICS = "dynamics"          # low-level control + physics substeps.
 PAD = "pad"                    # tile pad of operators.
 SHARDED_STEP = "sharded_step"  # an agent-sharded step's plumbing.
+FAULTS = "faults"              # fault-schedule evaluation + sensor noise.
+FALLBACK = "fallback"          # force-fallback ladder + NaN quarantine.
+TELEMETRY = "telemetry"        # run-health accumulator update.
 
 
 def scope(phase: str) -> torch.profiler.record_function:
