@@ -142,7 +142,20 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    with telemetry on and off in turns;
 32. sharded health: phase 29's schedules over 8 shards with
    ``pallas_ring``, 3 steps, against the single program; ring-sum launches
-   counted.
+   counted;
+33. chunked rollouts and crash recovery at 256 x 8: ``make_chunked_rollout``
+   (12 steps in 4 chunks) bitwise ``jit_rollout`` with one substeps capture
+   and equal ``warp_solve_kernel`` launches, the two rates in turns and the
+   cost of a boundary publish; a child process (this script with
+   ``--recovery-child preempt``) runs it through ``run_chunks`` and stops
+   at chunk 1's boundary on its own SIGTERM, the parent flips a payload
+   byte of that boundary's carry snapshot, and a second child
+   (``--recovery-child resume``) resumes past it, bitwise the
+   uninterrupted run by per-leaf sha256; the resilient headline with phase
+   29's schedules through ``make_chunked_resilient_rollout``, bitwise
+   ``jit_resilient_rollout``, preempted and resumed in-process with the
+   NaN scenario's quarantine flag in the carry; the journal's events and
+   the metrics file checked.
 
 The main path and every bench path replay the ten substeps of a step from
 a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
@@ -161,6 +174,9 @@ The kernel bar is 1e-4 x max(1, |ref|) for every output, or twice the
 plain version's own float32 rounding (its distance from the same plain
 version run in float64) where that is larger: DD's duals carry 400 times
 the rounding of A x (``ROUNDING_FACTOR``).
+
+The children of phase 33 print one ``recovery-child`` record each and
+never the result line.
 
 Output: timing lines carry the card's name and power limit; a ``kernels``
 JSON line, the ``nvidia-smi`` name/power-limit line, and last
@@ -285,6 +301,10 @@ NOISE_ATOL = 2e-6
 # bar of tests/test_torch_parallel.py for C-ADMM.
 DD_FORCE_BAR = 2e-3
 SHARDED_HEALTH_BAR = 1e-4
+# Phase 33, chunked rollouts and crash recovery: high-level steps and chunks
+# of every chunked run, the chunk whose boundary the preempted child stops
+# at, and the timed boundary publishes.
+REC_STEPS, REC_CHUNKS, REC_STOP_CHUNK, REC_PUBLISHES = 12, 4, 1, 3
 # P²: the card's markers against a host replay of the estimator (float32
 # rounding), and the accuracy bound of tests/test_telemetry.py:97 against
 # np.percentile on that test's stream of P2_STREAM observations.
@@ -2642,8 +2662,9 @@ def fault_schedules(S, killer=True):
         kw = groups[s % 4]
         if killer and s == S - 1:
             kw = dict(t_degrade={0: KILL_STEP}, thrust_scale=math.inf)
-        out.append(faults.make_schedule(N_AGENTS, key=prng.prng_key(s),
-                                        device="cpu", **kw))
+        out.append(faults.make_schedule(
+            N_AGENTS, key=prng.prng_key(s, device="cpu"), device="cpu",
+            **kw))
     return faults.stack_schedules(out)
 
 
@@ -3174,7 +3195,364 @@ def sharded_fault_phase(card, report, sched_c, logs_single):
                                "f_des_err": f_err}
 
 
+def recovery_setup(S):
+    """Phase 33's set-up, the same in the parent and in its children: the
+    headline's C-ADMM at S x 8 (``max_iter=20``, ``inner_iters=20``, fixed
+    effort, forest seed 0, the forest reference, the ``default_rng(0)``
+    batch) chunked by ``make_chunked_rollout`` (REC_STEPS steps in
+    REC_CHUNKS chunks), and the run's config hash. Returns ``(ctl, run,
+    states, css, acc, config_hash)``."""
+    from tpu_aerial_transport_torch.harness import checkpoint, rollout
+
+    ctl = rollout.make_controller("cadmm", N_AGENTS, max_iter=20,
+                                  inner_iters=20, effort="fixed",
+                                  device="cuda")
+    acc = rollout.make_forest_acc_des(ctl.forest)
+    run = rollout.make_chunked_rollout(
+        ctl.control, ctl.ll.control, ctl.params, n_hl_steps=REC_STEPS,
+        n_chunks=REC_CHUNKS, acc_des_fn=acc)
+    config_hash = checkpoint.config_fingerprint(
+        params=ctl.params, n=N_AGENTS, scenarios=S, max_iter=20,
+        inner_iters=20, forest_seed=0, n_hl_steps=REC_STEPS,
+        n_chunks=REC_CHUNKS)
+    return (ctl, run, rollout.scenario_batch(ctl.state0, S),
+            rollout.stack_scenarios(ctl.cs0, S), acc, config_hash)
+
+
+def leaf_digests(tree) -> list:
+    """The sha256 of every leaf's bytes, in tree order."""
+    import hashlib
+
+    import numpy as np
+
+    from tpu_aerial_transport_torch.tree import leaves
+
+    return [hashlib.sha256(np.ascontiguousarray(
+        t.detach().cpu().numpy()).tobytes()).hexdigest()
+        for t in leaves(tree)]
+
+
+def recovery_child(mode: str, run_dir: str, S: int) -> int:
+    """Phase 33's child process. ``preempt``: the chunked headline through
+    ``run_chunks`` into ``run_dir`` under ``GracefulInterrupt``, sending
+    itself SIGTERM during chunk REC_STOP_CHUNK, so the run stops at that
+    chunk's boundary. ``resume``: ``resume_run`` on ``run_dir`` with a
+    tracer on the metrics file (its ``resume`` span times the walk over
+    the snapshots). Prints one ``recovery-child {json}`` line: the status,
+    the chunks, the seconds, and for ``resume`` the per-leaf digests of
+    the final carry and the concatenated logs. Never prints the final
+    result line."""
+    import signal
+
+    import torch
+
+    from tpu_aerial_transport_torch.obs import export, trace
+    from tpu_aerial_transport_torch.resilience import recovery
+
+    t0 = time.perf_counter()
+    ctl, run, states, css, _, config_hash = recovery_setup(S)
+    metrics = os.path.join(run_dir, "run.metrics.jsonl")
+    if mode == "preempt":
+        plan = recovery.RunPlan(
+            run_dir=run_dir, n_hl_steps=REC_STEPS, n_chunks=REC_CHUNKS,
+            seed=0, config_hash=config_hash,
+            meta={"controller": "cadmm", "n": N_AGENTS, "scenarios": S})
+
+        def chunk(carry, i0):
+            out = run.chunk_jit(carry, i0)
+            if i0 == REC_STOP_CHUNK * run.chunk_len:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        with recovery.GracefulInterrupt() as interrupt:
+            res = recovery.run_chunks(plan, chunk,
+                                      run.init_carry(states, css),
+                                      interrupt=interrupt, metrics=metrics)
+        out = {"status": res.status, "chunks_done": res.chunks_done,
+               "signal": interrupt.triggered}
+    else:
+        tracer = trace.Tracer(export.MetricsWriter(metrics), track="resume")
+        res = recovery.resume_run(run_dir, run.chunk_jit,
+                                  run.init_carry(states, css),
+                                  config_hash=config_hash, metrics=metrics,
+                                  tracer=tracer)
+        out = {"status": res.status, "chunks_done": res.chunks_done,
+               "resumed_from_chunk": res.resumed_from_chunk,
+               "digests": leaf_digests((res.carry, res.logs))}
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    print("recovery-child " + json.dumps(out), flush=True)
+    return 0
+
+
+# The command of phase 33's children (this script in its child mode).
+CHILD_CMD = [sys.executable, os.path.abspath(__file__)]
+
+
+def spawn_recovery_child(mode: str, run_dir: str, S: int):
+    """``(wall seconds, the child's recovery-child record)``; fails the
+    phase if the child fails, prints no record, or prints a result
+    line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        CHILD_CMD + ["--recovery-child", mode, run_dir, str(S)],
+        capture_output=True, text=True, timeout=300, cwd=HERE)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    recs = [json.loads(line.split(" ", 1)[1]) for line in lines
+            if line.startswith("recovery-child ")]
+    if proc.returncode != 0 or len(recs) != 1 or any(
+            '"ok"' in line for line in lines):
+        fail(f"phase 33's {mode} child exited {proc.returncode}: stdout "
+             f"{proc.stdout[-2000:]!r} stderr {proc.stderr[-4000:]!r}")
+    return wall, recs[0]
+
+
+def flip_payload_byte(path: str) -> None:
+    """Rewrite a snapshot with one byte of its first leaf's payload flipped
+    and the stale manifest kept: the zip container stays valid, so only
+    the per-leaf digest can catch it."""
+    import numpy as np
+
+    raw = dict(np.load(path, allow_pickle=False))
+    leaf = raw["leaf_000000"]
+    flipped = np.frombuffer(leaf.tobytes(), np.uint8).copy()
+    flipped[0] ^= 1
+    raw["leaf_000000"] = flipped.view(leaf.dtype).reshape(leaf.shape)
+    with open(path, "wb") as fh:
+        np.savez(fh, **raw)
+
+
+def recovery_phase(card, report):
+    """Phase 33, chunked rollouts and crash recovery at the headline's
+    N_SCENARIOS x 8 (``recovery_setup``):
+
+    (a) ``make_chunked_rollout`` (REC_STEPS steps in REC_CHUNKS chunks)
+    against ``jit_rollout``: final state, controller state and every log
+    leaf bitwise equal, one substeps capture and REC_STEPS replays across
+    the chunks, equal ``warp_solve_kernel`` launches; the two rates in
+    turns (chunked, plain, plain, chunked); the cost of one boundary
+    publish (``host_copy`` + the carry and log snapshots).
+    (b) a child process runs it through ``run_chunks`` and SIGTERMs itself
+    during chunk REC_STOP_CHUNK: ``preempted`` with REC_STOP_CHUNK + 1
+    chunks done; the parent flips a payload byte of that chunk's carry
+    snapshot; a second child ``resume_run``s, skips the snapshot as
+    ``corrupt`` and starts a chunk earlier; its final carry and logs,
+    leaf by leaf by sha256, are the uninterrupted run's.
+    (c) the resilient headline with phase 29's schedules (the last
+    scenario's thrust scale +inf from KILL_STEP) through
+    ``make_chunked_resilient_rollout``: bitwise ``jit_resilient_rollout``,
+    the quarantine flag in the carry from the first boundary after
+    KILL_STEP, the other scenarios bitwise a benign run's; preempted after
+    chunk REC_STOP_CHUNK and resumed in-process, bitwise the uninterrupted
+    chunked run.
+    (d) the metrics file passes ``validate_file``; the journal holds
+    ``run_start``, the chunks, ``preempted``, ``resume``, the rest of the
+    chunks and ``done``."""
+    import shutil
+
+    import torch
+
+    from tpu_aerial_transport_torch.harness import checkpoint, rollout
+    from tpu_aerial_transport_torch.obs import export, trace
+    from tpu_aerial_transport_torch.ops import admm_kernel
+    from tpu_aerial_transport_torch.resilience import recovery
+    from tpu_aerial_transport_torch.resilience import rollout as res
+    from tpu_aerial_transport_torch.tree import leaves
+
+    S = N_SCENARIOS
+    what = "phase 33"
+    ctl, run, states, css, acc, config_hash = recovery_setup(S)
+    plain = rollout.jit_rollout(ctl.control, ctl.ll.control, ctl.params,
+                                n_hl_steps=REC_STEPS, acc_des_fn=acc)
+    # (a) Chunked against unchunked.
+    outs, warp, boundary = {}, {}, []
+    for name in ("plain", "chunked"):
+        zero_launches()
+        if name == "plain":
+            outs[name] = plain(states, css)
+        else:
+            outs[name] = run(states, css, on_boundary=lambda c, carry, lg:
+                             boundary.append((carry, lg)))
+        torch.cuda.synchronize()
+        warp[name] = dict(admm_kernel.KERNEL_LAUNCHES)
+    g = run.substeps.graph
+    graph = (g.captures, g.replays)
+    bits = tree_bits_equal(outs["plain"], outs["chunked"])
+    runs = int(outs["chunked"][2].iters.max(dim=1).values.sum())
+    n_warp = warp["chunked"].get("warp_solve_kernel", 0)
+    if not bits or graph != (1, REC_STEPS) or (
+            warp["plain"] != warp["chunked"] or n_warp != runs):
+        fail(f"{what}: chunked bitwise the unchunked run: {bits}; substeps "
+             f"{graph[0]} captures, {graph[1]} replays (expected 1, "
+             f"{REC_STEPS}); launches plain {warp['plain']} chunked "
+             f"{warp['chunked']}, consensus iterations run {runs}")
+    turns = {"chunked": [], "plain": []}
+    for arm in ("chunked", "plain", "plain", "chunked"):
+        secs, _ = timed_call(run if arm == "chunked" else plain, states, css)
+        turns[arm].append(S * REC_STEPS / secs)
+    print(f"{what} (a): make_chunked_rollout ({REC_STEPS} HL steps in "
+          f"{REC_CHUNKS} chunks, C-ADMM {S} x {N_AGENTS}, forest reference) "
+          f"bitwise jit_rollout in the final state, controller state and "
+          f"every log leaf: {bits} | substeps graph {graph[0]} capture, "
+          f"{graph[1]} replays across the chunks | warp_solve_kernel "
+          f"launches {n_warp} in each run = consensus iterations run {runs} "
+          f"| scenario-MPC-steps/s in turns (chunked, plain, plain, "
+          f"chunked): chunked {turns['chunked'][0]:.2f} and "
+          f"{turns['chunked'][1]:.2f}, plain {turns['plain'][0]:.2f} and "
+          f"{turns['plain'][1]:.2f} | {card}", flush=True)
+
+    # The cost of one boundary publish, on chunk 0's carry and logs.
+    carry0, logs0 = boundary[0]
+    pub_dir = os.path.join(HERE, "build", "recovery_publish")
+    shutil.rmtree(pub_dir, ignore_errors=True)
+    carry_bytes = sum(t.numel() * t.element_size() for t in leaves(carry0))
+    logs_bytes = sum(t.numel() * t.element_size() for t in leaves(logs0))
+    pub_ms = []
+    for i in range(REC_PUBLISHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = recovery.host_copy(carry0)
+        checkpoint.save_snapshot(pub_dir, i, host, prefix="carry",
+                                 config_hash=config_hash)
+        checkpoint.save_snapshot(pub_dir, i, logs0, prefix="logs",
+                                 config_hash=config_hash, keep_last=0)
+        pub_ms.append((time.perf_counter() - t0) * 1e3)
+    shutil.rmtree(pub_dir, ignore_errors=True)
+    print(f"{what}: one boundary publish (host_copy + save_snapshot of the "
+          f"carry, {carry_bytes / 1e6:.3f} MB, and of the chunk's logs, "
+          f"{logs_bytes / 1e6:.3f} MB; fsync'd): "
+          + ", ".join(f"{m:.2f}" for m in pub_ms) + f" ms | {card}",
+          flush=True)
+
+    # (b) Preempt in a child, corrupt, resume in a second child.
+    run_dir = os.path.join(HERE, "build", "recovery_run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    wall_p, rec_p = spawn_recovery_child("preempt", run_dir, S)
+    if (rec_p["status"], rec_p["chunks_done"], rec_p["signal"]) != (
+            "preempted", REC_STOP_CHUNK + 1, "SIGTERM"):
+        fail(f"{what}: the preempted child reported {rec_p}")
+    snap = checkpoint.snapshot_path(run_dir, REC_STOP_CHUNK,
+                                    recovery.CARRY_PREFIX)
+    flip_payload_byte(snap)
+    wall_r, rec_r = spawn_recovery_child("resume", run_dir, S)
+    ref_digests = leaf_digests(((outs["plain"][0], outs["plain"][1]),
+                                outs["plain"][2]))
+    same = rec_r["digests"] == ref_digests
+    journal = recovery.RunJournal(run_dir).read()
+    events = [e["event"] for e in journal]
+    resume = next((e for e in journal if e["event"] == "resume"), {})
+    expect = (["run_start"] + ["chunk"] * (REC_STOP_CHUNK + 1)
+              + ["preempted", "resume"]
+              + ["chunk"] * (REC_CHUNKS - REC_STOP_CHUNK) + ["done"])
+    metrics = os.path.join(run_dir, "run.metrics.jsonl")
+    errors = export.validate_file(metrics)
+    walk = [r for r in trace.trace_rows(export.read_events(metrics))
+            if r["name"] == trace.RESUME]
+    walk_ms = ((walk[0]["t1_mono"] - walk[0]["t0_mono"]) * 1e3
+               if walk else math.nan)
+    skipped = resume.get("skipped", [])
+    ok = (same and rec_r["resumed_from_chunk"] == REC_STOP_CHUNK
+          and rec_r["status"] == "done" and events == expect and not errors
+          and len(walk) == 1 and skipped and "[corrupt]" in skipped[0])
+    print(f"{what} (b): a child ran run_chunks and SIGTERMed itself in chunk "
+          f"{REC_STOP_CHUNK}: {rec_p['status']} with {rec_p['chunks_done']} "
+          f"chunks done (child wall {wall_p:.2f} s, {rec_p['seconds']:.2f} s "
+          f"inside); one payload byte of {os.path.basename(snap)} flipped; a "
+          f"second child's resume_run skipped it ({skipped[:1]}) and resumed "
+          f"from chunk {rec_r['resumed_from_chunk']} (child wall {wall_r:.2f}"
+          f" s, {rec_r['seconds']:.2f} s inside; the resume walk "
+          f"{walk_ms:.2f} ms): final carry and logs, {len(ref_digests)} "
+          f"leaves by sha256, bitwise the uninterrupted run: {same} | "
+          f"(d) journal {events} as expected: {events == expect}; metrics "
+          f"file errors {errors} | " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    if not ok:
+        fail(f"{what}: the preempted-and-resumed run (resumed from "
+             f"{rec_r.get('resumed_from_chunk')}, digests equal {same}, "
+             f"journal {events}, metrics errors {errors}, walk spans "
+             f"{len(walk)}, skipped {skipped})")
+
+    # (c) The resilient headline, chunked, preempted and resumed.
+    K = S - 1
+    sched = on_card(fault_schedules(S))
+    hl = res.make_cadmm_hl_step(ctl.params, ctl.cfg, ctl.forest)
+
+    def chunked_res(faults_):
+        return res.make_chunked_resilient_rollout(
+            hl, ctl.ll.control, ctl.params, n_hl_steps=REC_STEPS,
+            n_chunks=REC_CHUNKS, acc_des_fn=acc, faults=faults_)
+
+    runr = chunked_res(sched)
+    carries = []
+    whole = runr(states, css,
+                 on_boundary=lambda c, carry, lg: carries.append(carry))
+    unchunked = res.jit_resilient_rollout(
+        hl, ctl.ll.control, ctl.params, n_hl_steps=REC_STEPS,
+        acc_des_fn=acc, faults=sched)(states, css)
+    flags = [bool(c[3][K]) for c in carries]
+    first_q = KILL_STEP // runr.chunk_len  # the first flagged boundary.
+    benign = chunked_res(on_card(fault_schedules(S, False)))(states, css)[2]
+    keys = STATE_FIELDS + ("f_des", "x_err", "v_err", "iters", "solve_res",
+                           "fallback_rung")
+    leak = [k for k in keys if not torch.equal(getattr(whole[2], k)[:, :K],
+                                               getattr(benign, k)[:, :K])]
+    res_dir = os.path.join(HERE, "build", "recovery_resilient")
+    shutil.rmtree(res_dir, ignore_errors=True)
+    interrupt = recovery.GracefulInterrupt()
+
+    def stopping(carry, i0):
+        out = runr.chunk_jit(carry, i0)
+        if i0 == REC_STOP_CHUNK * runr.chunk_len:
+            interrupt.triggered = "SIGTERM"
+        return out
+
+    plan = recovery.RunPlan(run_dir=res_dir, n_hl_steps=REC_STEPS,
+                            n_chunks=REC_CHUNKS, config_hash=config_hash)
+    pre = recovery.run_chunks(plan, stopping, runr.init_carry(states, css),
+                              interrupt=interrupt)
+    resumed = recovery.resume_run(res_dir, runr.chunk_jit,
+                                  runr.init_carry(states, css),
+                                  config_hash=config_hash)
+    chunked_bits = tree_bits_equal(whole, unchunked)
+    resumed_bits = (tree_bits_equal(carries[-1], resumed.carry)
+                    and tree_bits_equal(whole[2], resumed.logs))
+    ok_c = (chunked_bits and resumed_bits
+            and flags == [i >= first_q for i in range(REC_CHUNKS)]
+            and bool(whole[2].quarantined[KILL_STEP:, K].all())
+            and not bool(whole[2].quarantined[:, :K].any()) and not leak
+            and pre.chunks_done == REC_STOP_CHUNK + 1
+            and resumed.resumed_from_chunk == REC_STOP_CHUNK + 1)
+    print(f"{what} (c): make_chunked_resilient_rollout (phase 29's "
+          f"schedules, scenario {K} at +inf thrust from step {KILL_STEP}) "
+          f"bitwise jit_resilient_rollout: {chunked_bits} | scenario {K}'s "
+          f"quarantine flag in the carry at the {REC_CHUNKS} boundaries "
+          f"(every {runr.chunk_len} steps): {flags} | the other {K} "
+          f"scenarios bitwise a benign run's in {len(keys)} log leaves: "
+          f"{not leak} | preempted after {pre.chunks_done} chunks, resumed "
+          f"in-process from chunk {resumed.resumed_from_chunk}: carry and "
+          f"logs bitwise the uninterrupted chunked run's: {resumed_bits} "
+          + ("ok" if ok_c else "FAIL") + f" | {card}", flush=True)
+    if not ok_c:
+        fail(f"{what}: the chunked resilient run (flags {flags}, lane "
+             f"leakage in {leak}, preempted after {pre.chunks_done}, resumed "
+             f"from {resumed.resumed_from_chunk})")
+    report["recovery"] = {
+        "chunked_bitwise": bits, "warp_solve_launches": n_warp,
+        "iterations_run": runs, "graph": list(graph),
+        "rates_in_turns": turns, "publish_ms": pub_ms,
+        "carry_bytes": carry_bytes, "logs_bytes": logs_bytes,
+        "child_wall_s": {"preempt": wall_p, "resume": wall_r},
+        "child_inside_s": {"preempt": rec_p["seconds"],
+                           "resume": rec_r["seconds"]},
+        "resume_walk_ms": walk_ms, "journal": events,
+        "resilient_flags": flags, "resilient_chunked_bitwise": chunked_bits,
+        "resilient_resumed_bitwise": resumed_bits}
+
+
 def main() -> int:
+    child = sys.argv[1:2] == ["--recovery-child"]
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: the {PKG} package is not beside this script",
               file=sys.stderr)
@@ -3186,6 +3564,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
               "runs on an NVIDIA card only", file=sys.stderr)
         return 1
+    if child:
+        mode, run_dir, S = sys.argv[2:5]
+        return recovery_child(mode, run_dir, int(S))
 
     from tpu_aerial_transport_torch.harness import rollout
     from tpu_aerial_transport_torch.ops import _build, admm_kernel
@@ -3710,6 +4091,9 @@ def main() -> int:
     telemetry_phase(card, report)
     phase_at["32"] = time.perf_counter() - t_start
     sharded_fault_phase(card, report, sched_c, res_logs)
+    # 33. Chunked rollouts and crash recovery.
+    phase_at["33"] = time.perf_counter() - t_start
+    recovery_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],

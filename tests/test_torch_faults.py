@@ -69,8 +69,8 @@ def _pair(n, spec):
     spec = dict(spec)
     seed = spec.pop("seed")
     jsched = jfaults.make_schedule(n, key=jax.random.PRNGKey(seed), **spec)
-    tsched = faults.make_schedule(n, key=prng.prng_key(seed), device="cpu",
-                                  **spec)
+    tsched = faults.make_schedule(n, key=prng.prng_key(seed, device="cpu"),
+                                  device="cpu", **spec)
     return jsched, tsched
 
 

@@ -20,12 +20,18 @@ from tpu_aerial_transport_torch.control import (
     types,
 )
 from tpu_aerial_transport_torch.envs import forest, spatial
-from tpu_aerial_transport_torch.harness import cuda_graph, rollout, setup
+from tpu_aerial_transport_torch.harness import (
+    checkpoint,
+    cuda_graph,
+    rollout,
+    setup,
+)
 from tpu_aerial_transport_torch.obs import telemetry
 from tpu_aerial_transport_torch.ops import admm_kernel, lie, socp
 from tpu_aerial_transport_torch.parallel import ring
-from tpu_aerial_transport_torch.resilience import faults, prng
+from tpu_aerial_transport_torch.resilience import faults, prng, recovery
 from tpu_aerial_transport_torch.resilience import rollout as resilient
+from tpu_aerial_transport_torch.tree import leaves
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tpu_aerial_transport_torch")
@@ -48,7 +54,8 @@ def test_import_leaves_jax_out_of_sys_modules():
     for m in ("harness.bucketing", "harness.cuda_graph", "harness.rollout",
               "tree", "resilience.faults", "resilience.prng",
               "resilience.quarantine", "resilience.rollout",
-              "obs.telemetry", "utils.stats"):
+              "obs.telemetry", "utils.stats", "harness.checkpoint",
+              "obs.export", "obs.trace", "resilience.recovery"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -100,7 +107,8 @@ def test_source_scan_covers_the_slice():
               "control/so3_tracking.py", "convert.py",
               "resilience/faults.py", "resilience/prng.py",
               "resilience/quarantine.py", "resilience/rollout.py",
-              "obs/telemetry.py", "utils/stats.py"):
+              "obs/telemetry.py", "utils/stats.py", "harness/checkpoint.py",
+              "obs/export.py", "obs/trace.py", "resilience/recovery.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
@@ -194,7 +202,7 @@ def test_slice9_entry_points_default_to_the_card():
         telemetry.init_telemetry(telemetry.TelemetryConfig())
     sched = faults.make_schedule(4, drop_rate=0.5, device="cpu")
     assert not faults.fault_step(sched, 3).msg_ok.is_cuda
-    assert not prng.bits32(prng.prng_key(0), (3,)).is_cuda
+    assert not prng.bits32(prng.prng_key(0, device="cpu"), (3,)).is_cuda
     # The resilient rollout runs where its inputs are.
     params, col, state = setup.rqp_setup(4, device="cpu")
     cfg = cadmm.make_config(params, col.collision_radius,
@@ -207,6 +215,31 @@ def test_slice9_entry_points_default_to_the_card():
         rollout.stack_scenarios(state, 1),
         rollout.stack_scenarios(cadmm.init_cadmm_state(params, cfg), 1))
     assert not out[0].xl.is_cuda and out[1].held is not None
+
+
+def test_slice10_entry_points_default_to_the_card(tmp_path):
+    """``prng_key`` targets the card unless asked for the CPU; the chunked
+    rollout runs where its inputs are, and a resume restores a snapshot
+    onto the devices of the carry it is given."""
+    if torch.cuda.is_available():
+        assert prng.prng_key(0).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prng.prng_key(0)
+    assert not prng.prng_key(0, device="cpu").is_cuda
+    ctl = rollout.make_controller("cadmm", 4, max_iter=2, inner_iters=4,
+                                  device="cpu")
+    run = rollout.make_chunked_rollout(
+        ctl.control, ctl.ll.control, ctl.params, n_hl_steps=2, n_chunks=2,
+        acc_des_fn=rollout.make_forest_acc_des(ctl.forest))
+    carry = run.init_carry(rollout.scenario_batch(ctl.state0, 1),
+                           rollout.stack_scenarios(ctl.cs0, 1))
+    plan = recovery.RunPlan(run_dir=str(tmp_path), n_hl_steps=2, n_chunks=2)
+    res = recovery.run_chunks(plan, run.chunk_jit, carry)
+    assert not res.logs.xl.is_cuda
+    back, _, _ = checkpoint.load_latest_valid(
+        str(tmp_path), carry, prefix=recovery.CARRY_PREFIX)
+    assert not any(t.is_cuda for t in leaves(back))
 
 
 def test_inactive_env_cbf_defaults_to_the_card():

@@ -35,7 +35,7 @@ def test_threefry_partitionable_is_the_reference_setting():
 def test_keys_fold_in_and_split_match_jax(seed):
     """``prng_key``, ``fold_in`` (small, large and tensor data) and
     ``split`` equal JAX's words exactly."""
-    jk, tk = jax.random.PRNGKey(seed), prng.prng_key(seed)
+    jk, tk = jax.random.PRNGKey(seed), prng.prng_key(seed, device="cpu")
     np.testing.assert_array_equal(tk.numpy(), _words(jk))
     for data in (0, 1, 2, 7, 123456, 2 ** 32 - 1):
         np.testing.assert_array_equal(
@@ -54,7 +54,7 @@ def test_bits32_matches_jax_bits(shape):
     """Raw 32-bit words on odd and even shapes, and the float32 uniforms
     built on them, for several keys."""
     for seed in SEEDS:
-        jk, tk = jax.random.PRNGKey(seed), prng.prng_key(seed)
+        jk, tk = jax.random.PRNGKey(seed), prng.prng_key(seed, device="cpu")
         np.testing.assert_array_equal(
             prng.bits32(tk, shape).numpy(),
             np.asarray(jax.random.bits(jk, shape)).astype(np.int64))
@@ -67,7 +67,7 @@ def test_bernoulli_masks_match_jax():
     """``bernoulli`` (mode 'low': uniform < p) equals JAX's masks at the
     edges and in between."""
     for seed in SEEDS:
-        jk, tk = jax.random.PRNGKey(seed), prng.prng_key(seed)
+        jk, tk = jax.random.PRNGKey(seed), prng.prng_key(seed, device="cpu")
         for p in (0.0, 0.05, 0.3, 0.5, 0.999, 1.0):
             np.testing.assert_array_equal(
                 prng.bernoulli(tk, p, (64,)).numpy(),
@@ -80,7 +80,7 @@ def test_normal_matches_jax():
     key, tails included; ``erfinv`` maps +-1 to +-inf."""
     for seed in SEEDS:
         jn = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (4000,)))
-        tn = prng.normal(prng.prng_key(seed), (4000,)).numpy()
+        tn = prng.normal(prng.prng_key(seed, device="cpu"), (4000,)).numpy()
         np.testing.assert_allclose(tn, jn, atol=2e-6, rtol=0)
         assert np.abs(tn).max() > 3.0
     ends = prng.erfinv(torch.tensor([-1.0, 1.0]))
@@ -92,7 +92,7 @@ def test_batched_keys_give_the_rows_of_per_key_draws():
     bits, uniforms, Bernoulli masks with a per-key probability, normals,
     folds with per-key data and splits."""
     seeds = [3, 11, 2 ** 31 + 5]
-    tkeys = torch.stack([prng.prng_key(s) for s in seeds])
+    tkeys = torch.stack([prng.prng_key(s, device="cpu") for s in seeds])
     jkeys = [jax.random.PRNGKey(s) for s in seeds]
     p = torch.tensor([0.1, 0.5, 0.9])
     bits = prng.bits32(tkeys, (3, 4))

@@ -192,11 +192,12 @@ def _nan_lane_runs():
     3-scenario batch whose scenario 1's actuator gain is +inf from step 5,
     and the same batch with scenario 1 benign."""
     tp, _, ts, = setup.rqp_setup(N, device="cpu")
-    benign = [faults.make_schedule(N, key=prng.prng_key(k),
+    benign = [faults.make_schedule(N, key=prng.prng_key(k, device="cpu"),
                                    device="cpu") for k in range(3)]
     killer = faults.make_schedule(N, t_degrade={0: 5},
                                   thrust_scale=float("inf"),
-                                  key=prng.prng_key(1), device="cpu")
+                                  key=prng.prng_key(1, device="cpu"),
+                                  device="cpu")
     bad = _port_run("cadmm", faults.stack_schedules(
         [benign[0], killer, benign[2]]), 3, 12)
     good = _port_run("cadmm", faults.stack_schedules(benign), 3, 12)
@@ -302,10 +303,11 @@ def test_resume_from_the_carry_is_the_uninterrupted_run_bitwise():
     S, T, cut = 2, 6, 3
     sched = faults.stack_schedules([
         faults.make_schedule(N, drop_rate=0.5, noise_std=0.01,
-                             key=prng.prng_key(3), device="cpu"),
+                             key=prng.prng_key(3, device="cpu"), device="cpu"),
         faults.make_schedule(N, t_fail={1: 2}, t_degrade={0: 4},
                              thrust_scale=float("inf"),
-                             key=prng.prng_key(4), device="cpu")])
+                             key=prng.prng_key(4, device="cpu"),
+                             device="cpu")])
     states = rollout.stack_scenarios(ts, S)
     css = rollout.stack_scenarios(cs0, S)
     acc = rollout.hover_acc_des(states)

@@ -24,6 +24,11 @@ scan; ``cuda_graph=False`` on :func:`build` runs them eagerly, as
 the run-health accumulator folded each step, returned as a fourth value.
 The fault-aware rollout with its fallback ladder and NaN quarantine is
 ``resilience.rollout``.
+
+The chunk tier (:func:`make_chunked_rollout`, :func:`make_chunk_driver`)
+splits the logged rollout into chunks with the carry surfaced at every
+boundary, bitwise the unchunked run; ``resilience.recovery`` snapshots
+and resumes it.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from tpu_aerial_transport_torch.models import rqp
 from tpu_aerial_transport_torch.obs import phases
 from tpu_aerial_transport_torch.obs import telemetry as telemetry_mod
 from tpu_aerial_transport_torch.parallel import mesh as mesh_mod
-from tpu_aerial_transport_torch.tree import tree_map
+from tpu_aerial_transport_torch.tree import TensorSpec, tree_map
 
 N_AGENTS = 8
 N_SCENARIOS = 256
@@ -476,6 +481,190 @@ def jit_rollout(hl_step: Callable, ll_control: Callable,
 
     run.substeps = substeps
     return run
+
+
+def make_chunked_rollout(hl_step: Callable, ll_control: Callable,
+                         params: rqp.RQPParams, *, n_hl_steps: int,
+                         n_chunks: int, hl_rel_freq: int = 10,
+                         dt: float = 1e-3, acc_des_fn: Callable,
+                         telemetry: telemetry_mod.TelemetryConfig | None
+                         = None):
+    """The preemption-safe twin of :func:`jit_rollout`: the ``n_hl_steps``
+    steps split into ``n_chunks`` chunks of ``n_hl_steps / n_chunks``, with
+    the carry surfaced (and snapshot-able) at every chunk boundary.
+
+    The chunk is ``chunk(carry, i0) -> (carry, logs)``, :func:`rollout`'s
+    loop from global step ``i0`` with ``carry = (state, ctrl_state)``, or
+    ``(state, ctrl_state, telemetry_state)`` with ``telemetry`` active (the
+    accumulator rides the carry, so every snapshot and every resume holds
+    the run-health state). Every chunk replays its substeps from the one
+    :func:`make_substeps` built here (``run.substeps``): at one batch
+    shape the C chunks make one CUDA-graph capture, the counterpart of the
+    JAX package's one jit-cache entry. The offsets are Python ints and the
+    step times ``i * hl_rel_freq * dt`` are computed as the unchunked loop
+    computes them, so the concatenated logs and the final carry are
+    bitwise those of :func:`jit_rollout`.
+
+    Nothing is donated (the JAX package's ``donate`` is left out, as in
+    :func:`jit_rollout`): PyTorch hands back new tensors and the carry
+    passed in stays valid, which is what the recovery tier's host copy at
+    each boundary needs. ``acc_des_fn`` is required: the hover default
+    anchors at the rollout's initial state, which under chunking would
+    re-anchor at every boundary.
+
+    Returns ``run(state0, ctrl_state0, on_boundary=None) -> (final_state,
+    final_ctrl_state, logs)``; ``on_boundary(chunk_idx, carry,
+    logs_chunk)`` fires after each chunk. Attributes (the contract
+    ``resilience.recovery`` drives): ``run.chunk_jit`` and ``run.chunk_fn``
+    (the chunk), ``run.n_chunks``, ``run.chunk_len``, ``run.init_carry``,
+    ``run.logs_spec(carry)`` (a chunk's logs as :class:`TensorSpec`
+    leaves, the template a resume verifies log snapshots against) and
+    ``run.substeps``."""
+    chunk_len = validate_chunking(n_hl_steps, n_chunks, acc_des_fn)
+    tel_on = telemetry is not None and telemetry.active
+    substeps = make_substeps(params, ll_control, hl_rel_freq, dt)
+
+    if tel_on:
+        def chunk(carry, i0):
+            state, cs, tel = carry
+            state, cs, logs, tel = _rollout(
+                hl_step, substeps, state, cs, chunk_len, hl_rel_freq, dt,
+                acc_des_fn, i0, telemetry, tel, params.n)
+            return (state, cs, tel), logs
+
+        def init_carry(state0, ctrl_state0):
+            return (state0, ctrl_state0, telemetry_mod.init_telemetry(
+                telemetry, params.n, state0.xl.dtype, state0.xl.device,
+                batch=(state0.xl.shape[0],)))
+    else:
+        def chunk(carry, i0):
+            state, cs = carry
+            state, cs, logs = _rollout(
+                hl_step, substeps, state, cs, chunk_len, hl_rel_freq, dt,
+                acc_des_fn, i0)
+            return (state, cs), logs
+
+        def init_carry(state0, ctrl_state0):
+            return (state0, ctrl_state0)
+
+    run = make_chunk_driver(chunk, n_chunks=n_chunks, chunk_len=chunk_len,
+                            init_carry=init_carry,
+                            unpack=lambda carry: (carry[0], carry[1]))
+    run.substeps = substeps
+    return run
+
+
+def chunked_rollout(hl_step: Callable, ll_control: Callable,
+                    params: rqp.RQPParams, state0: rqp.RQPState,
+                    ctrl_state0, *, n_hl_steps: int, n_chunks: int,
+                    hl_rel_freq: int = 10, dt: float = 1e-3,
+                    acc_des_fn: Callable,
+                    on_boundary: Callable | None = None,
+                    telemetry: telemetry_mod.TelemetryConfig | None = None):
+    """Build-and-run over :func:`make_chunked_rollout` (the return of
+    :func:`rollout`). With telemetry active the final accumulator is
+    reachable through ``on_boundary``'s carry
+    (``obs.telemetry.find_state``)."""
+    run = make_chunked_rollout(
+        hl_step, ll_control, params, n_hl_steps=n_hl_steps,
+        n_chunks=n_chunks, hl_rel_freq=hl_rel_freq, dt=dt,
+        acc_des_fn=acc_des_fn, telemetry=telemetry)
+    return run(state0, ctrl_state0, on_boundary=on_boundary)
+
+
+def validate_chunking(n_hl_steps: int, n_chunks: int,
+                      acc_des_fn: Callable | None) -> int:
+    """The chunked-rollout factories' argument checks (the JAX package's
+    messages); returns the chunk length."""
+    if n_hl_steps % n_chunks:
+        raise ValueError(
+            f"n_hl_steps={n_hl_steps} not divisible by n_chunks={n_chunks}: "
+            "chunks must share one static chunk length (one compiled "
+            "program) or the jit cache fragments"
+        )
+    if acc_des_fn is None:
+        raise ValueError(
+            "chunked rollouts need an explicit acc_des_fn: the hover "
+            "default anchors at each chunk's initial state and would "
+            "diverge from the unchunked trajectory"
+        )
+    return n_hl_steps // n_chunks
+
+
+def rqp_logs_spec(state: rqp.RQPState, chunk_len: int) -> RQPLogStep:
+    """A chunk's :class:`RQPLogStep` as :class:`TensorSpec` leaves, ``(
+    chunk_len, S, ...)`` on ``state``'s device, from the shapes of a
+    carry's (batched) state and :class:`SolverStats`' dtypes (iterations
+    and rungs int32, flags bool): the log template of a resume, which has
+    no chunk to run (the counterpart of ``jax.eval_shape`` of the
+    chunk)."""
+    S, n = state.R.shape[:2]
+    dev, dtype = state.xl.device, state.xl.dtype
+
+    def spec(*shape, dt=dtype):
+        return TensorSpec((chunk_len,) + tuple(shape), dt, dev)
+
+    per = {k: spec(*getattr(state, k).shape)
+           for k in ("xl", "vl", "Rl", "wl", "R", "w")}
+    return RQPLogStep(
+        **per, f_des=spec(S, n, 3), x_err=spec(S), v_err=spec(S),
+        iters=spec(S, dt=torch.int32), solve_res=spec(S),
+        collision=spec(S, dt=torch.bool), min_env_dist=spec(S),
+        fallback_rung=spec(S, dt=torch.int32),
+        quarantined=spec(S, dt=torch.bool))
+
+
+def make_chunk_driver(chunk: Callable, *, n_chunks: int, chunk_len: int,
+                      init_carry: Callable, unpack: Callable):
+    """The chunk loop both chunked-rollout factories share:
+    ``run(state0, ctrl_state0, on_boundary=None) -> (final_state,
+    final_ctrl_state, logs)`` over ``chunk(carry, i0) -> (carry, logs)``,
+    with the attributes ``resilience.recovery`` drives
+    (``chunk_jit``/``chunk_fn``, ``n_chunks``, ``chunk_len``,
+    ``init_carry``, ``logs_spec``). ``unpack`` maps the final carry to
+    ``(state, ctrl_state)``; ``logs_spec(carry)`` is the template of a
+    chunk's logs (:func:`rqp_logs_spec` of the carry's state, its first
+    leaf), also set on the chunk as ``chunk.logs_spec``, so a resume given
+    only ``run.chunk_jit`` finds it."""
+
+    def logs_spec(carry):
+        return rqp_logs_spec(carry[0], chunk_len)
+
+    chunk.logs_spec = logs_spec
+
+    def run(state0, ctrl_state0, on_boundary: Callable | None = None):
+        carry = init_carry(state0, ctrl_state0)
+        chunk_logs = []
+        for c in range(n_chunks):
+            carry, logs = chunk(carry, chunk_index_offset(c, chunk_len))
+            chunk_logs.append(logs)
+            if on_boundary is not None:
+                on_boundary(c, carry, logs)
+        state, cs = unpack(carry)
+        return state, cs, concat_chunk_logs(chunk_logs)
+
+    # One name for both: PyTorch has no compiled form of the chunk (the
+    # substeps inside replay from their CUDA graph).
+    run.chunk_jit = run.chunk_fn = chunk
+    run.n_chunks = n_chunks
+    run.chunk_len = chunk_len
+    run.init_carry = init_carry
+    run.logs_spec = logs_spec
+    return run
+
+
+def chunk_index_offset(chunk_idx: int, chunk_len: int) -> int:
+    """Global step offset of a chunk (a Python int, the port's
+    ``step_offset``)."""
+    return chunk_idx * chunk_len
+
+
+def concat_chunk_logs(chunk_logs: list, time_axis: int = 0):
+    """Per-chunk logs concatenated along the time axis (axis 0: the
+    port's logs are ``(T, S, ...)``)."""
+    if len(chunk_logs) == 1:
+        return chunk_logs[0]
+    return tree_map(lambda *ts: torch.cat(ts, dim=time_axis), *chunk_logs)
 
 
 def logs_to_dict(logs: RQPLogStep, n: int, dt: float, hl_rel_freq: int,

@@ -24,6 +24,8 @@ import math
 import numpy as np
 import torch
 
+from tpu_aerial_transport_torch import resolve_device
+
 MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -57,11 +59,12 @@ def threefry_2x32(k1, k2, x0, x1):
     return x0, x1
 
 
-def prng_key(seed: int, device="cpu") -> torch.Tensor:
+def prng_key(seed: int, device="cuda") -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` with 64-bit types off (the JAX package's
-    setting): the key ``[0, seed mod 2**32]`` (int64 words) on ``device``."""
+    setting): the key ``[0, seed mod 2**32]`` (int64 words) on ``device``
+    (the card unless the caller asks for the CPU)."""
     return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64,
-                        device=device)
+                        device=resolve_device(device))
 
 
 def _words(key: torch.Tensor):

@@ -301,3 +301,44 @@ def jit_resilient_rollout(hl_step: Callable, ll_control: Callable,
 
     run.substeps = substeps
     return run
+
+
+def make_chunked_resilient_rollout(
+        hl_step: Callable, ll_control: Callable, params: rqp.RQPParams, *,
+        n_hl_steps: int, n_chunks: int, hl_rel_freq: int = 10,
+        dt: float = 1e-3, acc_des_fn: Callable,
+        faults: faults_mod.FaultSchedule | None = None,
+        telemetry: telemetry_mod.TelemetryConfig | None = None):
+    """The fault-aware twin of ``harness.rollout.make_chunked_rollout``:
+    :func:`resilient_rollout` split into ``n_chunks`` chunks
+    ``chunk(carry, i0) -> (carry, logs)`` whose carry is the whole
+    :func:`init_resilient_carry` tuple -- the hold force and the sticky
+    quarantine flag among it -- so a boundary snapshot resumes the ladder
+    and a quarantined scenario bit for bit. The fault schedule and the
+    sensor noise read the global step (``step_offset=i0``), so chunking
+    never re-draws or shifts a fault. The substeps replay from one CUDA
+    graph shared by every chunk (``run.substeps``; the thrust scale an
+    input of the graph under faults). Nothing is donated.
+
+    Returns ``run(state0, ctrl_state0, on_boundary=None) -> (final_state,
+    final_ctrl_state, logs)``, bitwise :func:`jit_resilient_rollout`'s,
+    with ``run.chunk_jit``, ``run.n_chunks``, ``run.chunk_len``,
+    ``run.init_carry`` and ``run.logs_spec`` for ``resilience.recovery``
+    (``harness.rollout.make_chunk_driver``)."""
+    chunk_len = harness.validate_chunking(n_hl_steps, n_chunks, acc_des_fn)
+    substeps = harness.make_substeps(
+        params, ll_control, hl_rel_freq, dt,
+        scaled=faults is not None and faults.active)
+
+    def chunk(carry, i0):
+        return _resilient_rollout(
+            hl_step, substeps, params, None, None, chunk_len, hl_rel_freq,
+            dt, acc_des_fn, faults, carry, i0, True, telemetry)
+
+    run = harness.make_chunk_driver(
+        chunk, n_chunks=n_chunks, chunk_len=chunk_len,
+        init_carry=lambda state0, ctrl_state0: init_resilient_carry(
+            hl_step, params, state0, ctrl_state0, faults, telemetry),
+        unpack=lambda carry: (carry[0], carry[1]))
+    run.substeps = substeps
+    return run
