@@ -17,6 +17,9 @@ from tpu_aerial_transport_torch.control import (
     centralized,
     dd,
     lowlevel,
+    pmrl_centralized,
+    rp_cadmm,
+    rp_centralized,
     types,
 )
 from tpu_aerial_transport_torch.envs import forest, spatial
@@ -55,7 +58,9 @@ def test_import_leaves_jax_out_of_sys_modules():
               "tree", "resilience.faults", "resilience.prng",
               "resilience.quarantine", "resilience.rollout",
               "obs.telemetry", "utils.stats", "harness.checkpoint",
-              "obs.export", "obs.trace", "resilience.recovery"):
+              "obs.export", "obs.trace", "resilience.recovery", "models.rp",
+              "models.pmrl", "control.rp_centralized", "control.rp_cadmm",
+              "control.pmrl_centralized"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -108,7 +113,10 @@ def test_source_scan_covers_the_slice():
               "resilience/faults.py", "resilience/prng.py",
               "resilience/quarantine.py", "resilience/rollout.py",
               "obs/telemetry.py", "utils/stats.py", "harness/checkpoint.py",
-              "obs/export.py", "obs/trace.py", "resilience/recovery.py"):
+              "obs/export.py", "obs/trace.py", "resilience/recovery.py",
+              "models/rp.py", "models/pmrl.py", "control/rp_centralized.py",
+              "control/rp_cadmm.py", "control/pmrl_centralized.py",
+              "harness/setup.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
@@ -240,6 +248,48 @@ def test_slice10_entry_points_default_to_the_card(tmp_path):
     back, _, _ = checkpoint.load_latest_valid(
         str(tmp_path), carry, prefix=recovery.CARRY_PREFIX)
     assert not any(t.is_cuda for t in leaves(back))
+
+
+def test_slice11_entry_points_default_to_the_card():
+    """The RP and PMRL parameters, states and set-ups, and the controllers'
+    initial states built from them, target the card unless asked for the
+    CPU; the controllers run where their inputs are."""
+    from tpu_aerial_transport_torch.models import pmrl, rp
+
+    if torch.cuda.is_available():
+        rp_p, _, rp_s = setup.rp_setup(8)
+        pm_p, _, pm_s = setup.pmrl_setup(8)
+        assert rp_p.r.is_cuda and rp_s.Rl.is_cuda and pm_p.L.is_cuda
+        assert pm_s.q.is_cuda and rp.rp_identity_state().xl.is_cuda
+        return
+    for fn in (lambda: setup.rp_setup(4), lambda: setup.pmrl_setup(4),
+               lambda: rp.rp_params(0.2, torch.eye(3), torch.ones(3, 3)),
+               lambda: rp.rp_state(torch.zeros(3), torch.zeros(3),
+                                   torch.eye(3), torch.zeros(3)),
+               lambda: rp.rp_identity_state(),
+               lambda: pmrl.pmrl_params(torch.ones(3), 0.2, torch.eye(3),
+                                        torch.ones(3, 3), torch.ones(3)),
+               lambda: pmrl.pmrl_state(torch.ones(3, 3), torch.zeros(3, 3),
+                                       torch.zeros(3), torch.zeros(3),
+                                       torch.eye(3), torch.zeros(3))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
+    rp_p, _, rp_s = setup.rp_setup(4, device="cpu")
+    pm_p, _, pm_s = setup.pmrl_setup(4, device="cpu")
+    f_eq = rp_centralized.equilibrium_forces(rp_p)
+    c_cfg = rp_centralized.make_config(rp_p)
+    d_cfg = rp_cadmm.make_config(rp_p, max_iter=2, inner_iters=4)
+    p_cfg = pmrl_centralized.make_config(pm_p, solver_iters=25)
+    for cs in (rp_centralized.init_ctrl_state(rp_p, c_cfg),
+               rp_cadmm.init_state(rp_p, d_cfg, f_eq),
+               pmrl_centralized.init_ctrl_state(pm_p, p_cfg, pm_s)):
+        assert not any(t.is_cuda for t in leaves(cs))
+    acc = (torch.zeros(3), torch.zeros(3))
+    f, _, _ = rp_cadmm.control(
+        rp_p, d_cfg, f_eq, rollout.stack_scenarios(
+            rp_cadmm.init_state(rp_p, d_cfg, f_eq), 1),
+        rollout.stack_scenarios(rp_s, 1), acc)
+    assert not f.is_cuda and bool(torch.isfinite(f).all())
 
 
 def test_inactive_env_cbf_defaults_to_the_card():

@@ -13,7 +13,13 @@ The expected shared-memory sizes are written out from the layout that
 import pytest
 import torch
 
-from tpu_aerial_transport_torch.control import cadmm, centralized, dd
+from tpu_aerial_transport_torch.control import (
+    cadmm,
+    centralized,
+    dd,
+    pmrl_centralized,
+    rp_centralized,
+)
 from tpu_aerial_transport_torch.harness import setup
 from tpu_aerial_transport_torch.ops import admm_kernel, socp
 from tpu_aerial_transport_torch.parallel import ring
@@ -74,6 +80,41 @@ def test_centralized_qps_take_the_shared_memory_body(n, d, threads):
         "shared", 1, threads, admm_kernel.fused_solve_smem_bytes(nv, m))
     admm_kernel._check_layout("fused_solve", nv, m, n_box, soc, 120,
                               geo.smem_bytes)
+
+
+@pytest.mark.parametrize("n,route,threads,smem", [
+    # 4 (d (d|1) + (2 nv + m) (nv|1) + 2 d + 66): n = 3, nv = 15, m = 36.
+    (3, "kernel", 64, 4 * (51 * 51 + 66 * 15 + 102 + 66)),
+    # n = 8, nv = 30, m = 81: above the 48 KB default, 16 SOC blocks.
+    (8, "kernel", 128, 4 * (111 * 111 + 141 * 31 + 222 + 66)),
+    (9, "scan", None, None),  # 18 SOC blocks.
+])
+def test_rp_and_pmrl_qps_take_the_shared_memory_body(n, route, threads,
+                                                     smem):
+    """The RP and PMRL controllers' QP (m = 9n + 9 > 32 rows) takes the
+    whole-solve kernel's shared-memory body up to n = 8 (67,920 B of
+    shared memory at d = 111, exactly MAX_SOC_BLOCKS blocks) and route
+    "scan" from n = 9; the controllers' fixed and early-exit solves
+    resolve alike."""
+    nv = 6 + 3 * n
+    n_box, m, soc = rp_centralized.qp_dims(n)
+    assert pmrl_centralized.qp_dims(n) == (n_box, m, soc)
+    assert (n_box, m) == (9 + n, 9 * n + 9)
+    params = setup.rp_setup(n, device="cpu")[0]
+    assert rp_centralized.solve_route(
+        n, rp_centralized.make_config(params)) == route
+    assert socp.runtime_fused_mode("auto", nv, m, n_box, soc, check_every=25,
+                                   tol=5e-3) == route
+    geo = admm_kernel.fused_solve_geometry(nv, m)
+    if route == "scan":
+        assert len(soc) > admm_kernel.MAX_SOC_BLOCKS
+        with pytest.raises(ValueError, match="SOC blocks"):
+            admm_kernel._check_layout("fused_solve", nv, m, n_box, soc, 150,
+                                      geo.smem_bytes)
+        return
+    assert geo == admm_kernel.Geometry("shared", 1, threads, smem)
+    assert smem <= admm_kernel.MAX_SMEM_BYTES
+    admm_kernel._check_layout("fused_solve", nv, m, n_box, soc, 150, smem)
 
 
 def test_centralized_n16_is_refused():

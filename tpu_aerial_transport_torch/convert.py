@@ -15,10 +15,15 @@ import numpy as np
 import torch
 
 from tpu_aerial_transport_torch import resolve_device
-from tpu_aerial_transport_torch.control import cadmm, centralized, dd
+from tpu_aerial_transport_torch.control import (
+    cadmm,
+    centralized,
+    dd,
+    rp_cadmm,
+)
 from tpu_aerial_transport_torch.envs import forest as forest_mod
 from tpu_aerial_transport_torch.envs import spatial as spatial_mod
-from tpu_aerial_transport_torch.models import rqp
+from tpu_aerial_transport_torch.models import pmrl, rp, rqp
 from tpu_aerial_transport_torch.obs import telemetry as telemetry_mod
 from tpu_aerial_transport_torch.ops import socp
 from tpu_aerial_transport_torch.resilience import faults as faults_mod
@@ -68,6 +73,28 @@ def rqp_state(src, device="cuda") -> rqp.RQPState:
                                   ints=("step",)))
 
 
+def rp_params(src, device="cuda") -> rp.RPParams:
+    """The RP parameters, ``Jl_inv`` as the source holds it."""
+    return rp.RPParams(**_fields(rp.RPParams, src, resolve_device(device)))
+
+
+def rp_state(src, device="cuda") -> rp.RPState:
+    return rp.RPState(**_fields(rp.RPState, src, resolve_device(device),
+                                ints=("step",)))
+
+
+def pmrl_params(src, device="cuda") -> pmrl.PMRLParams:
+    """The PMRL parameters, ``Jl_inv`` and ``Jl_inv_factor`` as the source
+    holds them."""
+    return pmrl.PMRLParams(**_fields(pmrl.PMRLParams, src,
+                                     resolve_device(device)))
+
+
+def pmrl_state(src, device="cuda") -> pmrl.PMRLState:
+    return pmrl.PMRLState(**_fields(pmrl.PMRLState, src,
+                                    resolve_device(device), ints=("step",)))
+
+
 def socp_solution(src, device="cuda") -> socp.SOCPSolution:
     return socp.SOCPSolution(**_fields(socp.SOCPSolution, src,
                                        resolve_device(device)))
@@ -109,6 +136,27 @@ def ctrl_state(src, device="cuda") -> centralized.CtrlState:
         prev_f=_tensor(_get(src, "prev_f"), dev),
         warm=socp_solution(_get(src, "warm"), dev),
     )
+
+
+def rp_ctrl_state(src, device="cuda") -> centralized.CtrlState:
+    """The RP centralized controller's ``prev_f`` and ``warm`` solution
+    (the RQP controller's state type)."""
+    return ctrl_state(src, device)
+
+
+def pmrl_ctrl_state(src, device="cuda") -> centralized.CtrlState:
+    """The PMRL centralized controller's ``prev_f`` and ``warm`` solution
+    (the RQP controller's state type)."""
+    return ctrl_state(src, device)
+
+
+def rp_cadmm_state(src, device="cuda") -> rp_cadmm.RPCADMMState:
+    """The RP C-ADMM copies ``f``, duals ``lam`` and the ``warm``
+    solutions, one scenario's or with a leading scenario axis."""
+    dev = resolve_device(device)
+    return rp_cadmm.RPCADMMState(
+        f=_tensor(_get(src, "f"), dev), lam=_tensor(_get(src, "lam"), dev),
+        warm=socp_solution(_get(src, "warm"), dev))
 
 
 def spatial_grid(src, device="cuda") -> spatial_mod.SpatialGrid:

@@ -17,6 +17,10 @@
 // Residual reduction scratch: one slot per warp for each residual, and the
 // two block-wide results.
 #define FS_RED_FLOATS 66
+// K2 row sums in admm_iteration: rows of up to K2_ONE_CHAIN_MAX_D terms in
+// one chain, longer rows in K2_CHAINS chains (a power of two).
+#define K2_ONE_CHAIN_MAX_D 80
+#define K2_CHAINS 8
 
 struct SocDims {
   int n;
@@ -57,7 +61,7 @@ struct RowConst {
 };
 
 // One ADMM iteration of the lane, in the reference's order of operations
-// (ops/socp.py _admm_step):
+// (ops/socp.py _admm_step), a long K2 row summed in K2_CHAINS chains:
 //   v = K2 [x; rho z - y] - w2;  x = v[:nv]
 //   Ax_rel = alpha v[nv:] + (1 - alpha) z
 //   z = Pi(Ax_rel + y / rho)     (translated box x SOC, shift added first)
@@ -78,9 +82,38 @@ __device__ __forceinline__ void admm_iteration(
 
   float ax_rel = 0.f;
   if (tid < d) {
-    float acc = 0.f;
+    // A row of up to K2_ONE_CHAIN_MAX_D terms is summed in one chain of
+    // FMAs, j ascending; a longer one in K2_CHAINS chains (term j into
+    // chain j mod K2_CHAINS), added pairwise. One chain's rounding grows
+    // with its length: at d = 111 it is about twice the plain version's
+    // (cuBLAS) distance from the float64 sum, which the 1e3-boosted
+    // equality rows carry into y, and the early-exit decisions follow it.
+    // Eight chains bring it to the plain version's; at d <= 79 one chain
+    // is within the kernel bar and faster (measured on an H100).
     const float* row = sK2 + tid * ld_d;
-    for (int j = 0; j < d; ++j) acc += row[j] * su[j];
+    float acc;
+    if (d <= K2_ONE_CHAIN_MAX_D) {
+      acc = 0.f;
+      for (int j = 0; j < d; ++j) acc += row[j] * su[j];
+    } else {
+      float p[K2_CHAINS];
+#pragma unroll
+      for (int k = 0; k < K2_CHAINS; ++k) p[k] = 0.f;
+      int j = 0;
+      for (; j + K2_CHAINS <= d; j += K2_CHAINS) {
+#pragma unroll
+        for (int k = 0; k < K2_CHAINS; ++k) p[k] += row[j + k] * su[j + k];
+      }
+#pragma unroll
+      for (int k = 0; k < K2_CHAINS; ++k)
+        if (j + k < d) p[k] += row[j + k] * su[j + k];
+#pragma unroll
+      for (int h = K2_CHAINS / 2; h > 0; h >>= 1) {
+#pragma unroll
+        for (int k = 0; k < h; ++k) p[k] += p[k + h];
+      }
+      acc = p[0];
+    }
     const float v = acc - w;
     if (is_x) {
       x = v;

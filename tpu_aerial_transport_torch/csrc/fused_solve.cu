@@ -35,8 +35,11 @@
 // and applies the closed-form SOC projection (keep inside, zero in the polar
 // cone, radial shrink otherwise, with the nrm > 0 guard) to each block, all
 // after adding `shift` and before subtracting it again (has_shift = 0 adds
-// nothing). Every row's K2 sum runs j = 0..d-1, one FMA a term, in both
-// bodies, so they do the same arithmetic.
+// nothing). The warp body sums every K2 row in one chain, j = 0..d-1, one
+// FMA a term (d <= 64), as does the shared-memory body up to d = 80; above
+// (the RP and PMRL QPs at n = 8, d = 111) it sums a row in eight chains
+// added pairwise (admm_common.cuh admm_iteration), which keeps its rounding
+// at the plain version's.
 //
 // What bounds it: at the C-ADMM headline (2048 lanes, nv = 16, m = 32,
 // n_box = 24, d = 48, 20 iterations) one launch must read 14,472 B a lane,

@@ -1,7 +1,7 @@
-"""Parameter / collision / initial-state factory for the RQP model.
+"""Parameter / collision / initial-state factories for the three system
+models (RQP, RP, PMRL).
 
-Counterpart of ``tpu_aerial_transport/harness/setup.py`` (``rqp_setup`` and its
-constants; the RP and PMRL factories are not ported). For ``n == 3`` the
+Counterpart of ``tpu_aerial_transport/harness/setup.py``. For ``n == 3`` the
 reference triangle geometry; otherwise a regular n-gon of circumradius 0.5.
 """
 
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpu_aerial_transport_torch.models import rqp
+from tpu_aerial_transport_torch.models import pmrl, rp, rqp
 
 _REF_R3 = np.array(
     [
@@ -68,4 +68,27 @@ def rqp_setup(n: int = 3, device="cuda"):
     )
     col = rqp.RQPCollision(_PAYLOAD_VERTICES, _PAYLOAD_MESH_VERTICES)
     state = rqp.rqp_identity_state(n, device=device)
+    return params, col, state
+
+
+def rp_setup(n: int = 3, device="cuda"):
+    """-> (RPParams, RPCollision, RPState) on ``device``."""
+    params = rp.rp_params(ml=_REF_ML, Jl=_REF_JL, r=_attachments(n),
+                          device=device)
+    col = rp.RPCollision(_PAYLOAD_VERTICES, _PAYLOAD_MESH_VERTICES)
+    return params, col, rp.rp_identity_state(device=device)
+
+
+def pmrl_setup(n: int = 3, device="cuda"):
+    """-> (PMRLParams, PMRLCollision, PMRLState) on ``device``: every link
+    along +z, zero tangent velocity."""
+    L = np.ones(n)
+    params = pmrl.pmrl_params(m=np.full(n, _REF_MQ), ml=_REF_ML, Jl=_REF_JL,
+                              r=_attachments(n), L=L, device=device)
+    col = pmrl.PMRLCollision(_PAYLOAD_VERTICES, _PAYLOAD_MESH_VERTICES,
+                             link_lengths=L)
+    state = pmrl.pmrl_state(
+        q=np.tile(np.array([0.0, 0.0, 1.0]), (n, 1)), dq=np.zeros((n, 3)),
+        xl=np.zeros(3), vl=np.zeros(3), Rl=np.eye(3), wl=np.zeros(3),
+        device=device)
     return params, col, state

@@ -14,8 +14,8 @@ takes and returns is the same global state as the single program's, as
 is no more than its shard count.
 
 Not ported yet (ROADMAP): sharding scenarios across cards
-(``shard_scenarios``, ``scenario_rollout*``), the RP model's
-``rp_cadmm_control_sharded``, and the cross-card form of the exchange.
+(``shard_scenarios``, ``scenario_rollout*``) and the cross-card form of the
+exchange.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Callable
 
 import torch
 
-from tpu_aerial_transport_torch.control import cadmm, dd
+from tpu_aerial_transport_torch.control import cadmm, dd, rp_cadmm
 from tpu_aerial_transport_torch.envs import forest as forest_mod
 from tpu_aerial_transport_torch.models.rqp import RQPParams
 from tpu_aerial_transport_torch.obs import phases
@@ -98,4 +98,24 @@ def dd_control_sharded(
     return sharded_step(
         lambda cs, s, a: dd.control(params, cfg, f_eq, cs, s, a, forest,
                                     shards=d, plan=plan),
+        params.n, d)
+
+
+def rp_cadmm_control_sharded(
+    params,
+    cfg: rp_cadmm.RPCADMMConfig,
+    f_eq: torch.Tensor,
+    mesh: Mesh,
+    axis: str = "agent",
+) -> Callable:
+    """Agent-sharded RP C-ADMM control step ``step(cstate, state, acc_des)
+    -> (f_own, cstate, stats)`` over ``mesh.shape[axis]`` shards, for
+    scenario-batched state as ``rp_cadmm.control`` takes it: the consensus
+    mean as a block sum exchanged over the shards, over n, and the
+    residual as a block max exchanged likewise (the JAX package's
+    ``psum``/``pmax``). Requires ``n % d == 0``."""
+    d = mesh.shape[axis]
+    return sharded_step(
+        lambda cs, s, a: rp_cadmm.control(params, cfg, f_eq, cs, s, a,
+                                          shards=d),
         params.n, d)
