@@ -183,7 +183,22 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    solves); the early-exit kernel against its plain version (outputs at
    the kernel bar on the lanes whose counts agree, counts apart on no more
    lanes than ``flip_bar`` allows) and its fixed form at the kernel bar,
-   timed beside its bound.
+   timed beside its bound;
+36. the differentiable simulation (``harness/diff.py``) at n = 8 from the
+   grad-tuning example's tilted start (``k_att=1``), launching no kernel:
+   (a) ``make_rollout_loss``'s value and gradient on the card against the
+   CPU port from the same inputs (value rtol 1e-5, gradients rtol 1e-3);
+   (b) ``remat=True`` against ``False`` in turns: equal within
+   ``tests/test_diff.py``'s bars, each arm's peak memory and ms per value
+   and gradient; (c) ``tune_gains`` (SGD, detuned start) replayed from its
+   CUDA graph against ``graph=False``, in turns: histories and best gains
+   bitwise equal, gradient evaluations/s, captures and replays; (d) the
+   example through its ``main`` on the card: the tuned loss below 0.98 x
+   the detuned; (e) system identification from a recording (the JAX
+   test's, cut to ``DIFF_SYSID_STEPS``), 40% heavy start: the mass within
+   2%; (f) trajectory optimisation with Adam: the loss below its start,
+   its first 3 history values against the CPU port's (rtol 1e-4); (g)
+   every launch counter at 0.
 
 The main path and every bench path replay the ten substeps of a step from
 a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
@@ -353,6 +368,32 @@ P2_RTOL, P2_BOUND, P2_STREAM = 1e-5, 0.08, 4000
 RP_RADIUS, RP_OMEGA, RP_DT, RP_SUBSTEPS, PMRL_DT = 0.5, 0.4, 1e-3, 10, 1e-2
 RP_CPU_PERIODS, RP_SHARDED_PERIODS, RP_N9_PERIODS = 3, 3, 3
 RP_SHARDED_FORCE_BAR, RP_SHARDED_ITERS_APART = 2e-4, 1
+# Phase 36, the differentiable simulation (harness/diff.py) at the
+# headline's width, n = 8, from the grad-tuning example's tilted start
+# (k_att = 1, 10 substeps a step). Depth only is cut, to hold the phase
+# near 60 s (an eager value and gradient costs about 0.3 s of host time
+# an MPC step on the card, a graph capture two to three times that): MPC
+# steps of (a) card against CPU and (b) the remat A/B (the example runs
+# 40); (c) the graph-against-eager descent's steps and SGD iterations;
+# (d) the example's steps (its 40; its 25 iterations kept); (e) the sysid
+# recording's steps (the JAX test's 25) and iterations (its 40; the
+# measured-curvature lr contracts the error about 0.82x an iteration, so
+# 20 reach under 1%); (f) the trajopt horizon and Adam iterations (the
+# JAX test's 60 and 200).
+DIFF_N = 8
+DIFF_CPU_STEPS, DIFF_REMAT_STEPS = 10, 5
+DIFF_AB_STEPS, DIFF_AB_ITERS = 2, 3
+DIFF_TUNE_STEPS, DIFF_TUNE_ITERS = 10, 25
+DIFF_SYSID_STEPS, DIFF_SYSID_ITERS = 10, 20
+DIFF_TRAJ_STEPS, DIFF_TRAJ_ITERS = 10, 10
+# Card against CPU (value rtol; gradients rtol and atol), remat against no
+# remat (tests/test_diff.py's value and gradient rtol), the tuned loss's
+# bar against the detuned loss (tests/test_diff.py), the recovered mass's
+# relative error, and the trajopt history's first values against the CPU
+# port's (tests/test_torch_diff_tuning.py's descent bar).
+DIFF_VALUE_RTOL, DIFF_GRAD_RTOL, DIFF_GRAD_ATOL = 1e-5, 1e-3, 1e-8
+REMAT_VALUE_RTOL, REMAT_GRAD_RTOL = 1e-6, 1e-4
+TUNED_BAR, SYSID_MASS_RTOL, TRAJ_HIST_RTOL = 0.98, 0.02, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -4246,6 +4287,334 @@ def pmrl_phase(card, report):
     return [row]
 
 
+def turns(arms, order):
+    """Run ``arms[name]()`` in ``order`` (e.g. a, b, b, a, so a drift of
+    the shared host's speed does not read as a difference); returns each
+    arm's results in its order of runs."""
+    out = {}
+    for name in order:
+        out.setdefault(name, []).append(arms[name]())
+    return out
+
+
+def grads_apart(g, ref, rtol, atol):
+    """``(max relative gap, within rtol/atol)`` of gradient dicts."""
+    gap, ok = 0.0, True
+    for k in ref:
+        a, b = float(g[k].double().cpu()), float(ref[k].double().cpu())
+        gap = max(gap, abs(a - b) / max(abs(b), 1e-30))
+        ok = ok and abs(a - b) <= atol + rtol * abs(b)
+    return gap, ok
+
+
+def iteration_ops(descent):
+    """``(ops, views)``: the ATen operators one eager iteration of
+    ``descent`` dispatches, and how many of them are views."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = views = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            Count.views += bool(func.is_view)
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        descent.iteration()
+    return Count.ops, Count.views
+
+
+def diff_phase(card, report):
+    """Phase 36, the differentiable simulation at n = 8 from the
+    grad-tuning example's tilted start: card against CPU, the remat A/B,
+    the descent's CUDA graph against eager, the example's outcome, system
+    identification and trajectory optimisation on the card, and no kernel
+    launched (module docstring)."""
+    import torch
+
+    from tpu_aerial_transport_torch import convert
+    from tpu_aerial_transport_torch.control import centralized
+    from tpu_aerial_transport_torch.examples import grad_tuning
+    from tpu_aerial_transport_torch.harness import diff, setup
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    n = DIFF_N
+    t_phase = time.perf_counter()
+    zero_launches()
+    for k in diff.GRAPH_COUNTS:
+        diff.GRAPH_COUNTS[k] = 0
+    out = report["diff"] = {}
+    detuned = grad_tuning.DETUNED
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+
+    # (a) Card against CPU: the same inputs (built on the CPU, copied).
+    params_c, f_eq_c, st_c, ref_c = grad_tuning.start(n, "cpu")
+    params_g, f_eq_g, st_g, ref_g = on_card((params_c, f_eq_c, st_c, ref_c))
+    loss_c = diff.make_rollout_loss(params_c, f_eq_c, ref_c,
+                                    n_steps=DIFF_CPU_STEPS, k_att=1.0)
+    loss_g = diff.make_rollout_loss(params_g, f_eq_g, ref_g,
+                                    n_steps=DIFF_CPU_STEPS, k_att=1.0)
+    gains_g = convert.gains(detuned, "cuda")
+    t0 = time.perf_counter()
+    v_g, g_g = diff.value_and_grad(loss_g, gains_g, st_g)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_c, g_c = diff.value_and_grad(
+        loss_c, convert.gains(detuned, "cpu"), st_c)
+    cpu_s = time.perf_counter() - t0
+    v_gap = abs(float(v_g) - float(v_c)) / abs(float(v_c))
+    g_gap, g_ok = grads_apart(g_g, g_c, DIFF_GRAD_RTOL, DIFF_GRAD_ATOL)
+    ok = v_gap <= DIFF_VALUE_RTOL and g_ok
+    print(f"diff (a) card vs CPU, make_rollout_loss n = {n}, "
+          f"{DIFF_CPU_STEPS} steps, k_att 1, detuned gains: value "
+          f"{float(v_g):.8f} vs {float(v_c):.8f} ({v_gap:.2e} relative, rtol "
+          f"{DIFF_VALUE_RTOL}); gradients " + " ".join(
+              f"{k} {float(g_g[k]):.6e} vs {float(g_c[k]):.6e}" for k in g_c)
+          + f" (max {g_gap:.2e} relative, rtol {DIFF_GRAD_RTOL}); value and "
+          f"gradient {card_s:.3f} s on the card (eager, first call), "
+          f"{cpu_s:.3f} s on the CPU " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    out["card_vs_cpu"] = {"steps": DIFF_CPU_STEPS, "value_gap": v_gap,
+                          "grad_gap": g_gap, "card_s": card_s,
+                          "cpu_s": cpu_s}
+    if not ok:
+        fail("diff (a): the card's value or gradient disagrees with the CPU")
+
+    # (b) Remat against no remat, in turns, with each arm's peak memory
+    # above the phase's start and above the arm's own start (the first
+    # holds whatever the phase allocated before the arm).
+    losses = {r: diff.make_rollout_loss(params_g, f_eq_g, ref_g,
+                                        n_steps=DIFF_REMAT_STEPS,
+                                        remat=r, k_att=1.0)
+              for r in (True, False)}
+
+    def remat_arm(r):
+        def run():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            v, g = diff.value_and_grad(losses[r], gains_g, st_g)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            return v, g, ms, (peak - mem0, peak - base)
+        return run
+
+    runs = turns({"remat": remat_arm(True), "no_remat": remat_arm(False)},
+                 ("remat", "no_remat", "no_remat", "remat"))
+    (v1, g1, _, _), (v2, g2, _, _) = runs["remat"][0], runs["no_remat"][0]
+    bitwise = torch.equal(v1, v2) and all(torch.equal(g1[k], g2[k])
+                                          for k in g1)
+    v_gap = abs(float(v1) - float(v2)) / abs(float(v2))
+    g_gap, g_ok = grads_apart(g1, g2, REMAT_GRAD_RTOL, 1e-8)
+    ok = v_gap <= REMAT_VALUE_RTOL and g_ok
+    ms = {k: [r[2] for r in v] for k, v in runs.items()}
+    peak = {k: [r[3] for r in v] for k, v in runs.items()}
+    print(f"diff (b) remat vs no remat, {DIFF_REMAT_STEPS} steps on the "
+          f"card, in turns (remat, no remat, no remat, remat): value "
+          f"{v_gap:.2e} apart, gradients {g_gap:.2e} (rtol "
+          f"{REMAT_VALUE_RTOL} and {REMAT_GRAD_RTOL}), bitwise equal: "
+          f"{bitwise}; ms per value and gradient remat {ms['remat']} no "
+          f"remat {ms['no_remat']}; peak memory (B) above the phase's and "
+          f"the arm's start remat {peak['remat']}, no remat "
+          f"{peak['no_remat']} "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    out["remat"] = {"steps": DIFF_REMAT_STEPS, "value_gap": v_gap,
+                    "grad_gap": g_gap, "bitwise": bitwise, "ms": ms,
+                    "peak_bytes": peak}
+    if not ok:
+        fail("diff (b): remat and no remat disagree")
+
+    # (c) The descent replayed from its CUDA graph against eager, in turns.
+    loss_ab, st_ab = grad_tuning.problem(n, DIFF_AB_STEPS, "cuda")
+
+    def graph_arm():
+        d = diff.Descent(loss_ab, gains_g, st_ab, lr=0.05)
+        before = dict(diff.GRAPH_COUNTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.capture()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = d.run(DIFF_AB_ITERS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return res, t1 - t0, t2 - t1, tuple(
+            diff.GRAPH_COUNTS[k] - before[k] for k in ("captures", "replays"))
+
+    def eager_arm():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = diff.tune_gains(loss_ab, gains_g, st_ab, lr=0.05,
+                              iters=DIFF_AB_ITERS, graph=False)
+        torch.cuda.synchronize()
+        return res, 0.0, time.perf_counter() - t0, (0, 0)
+
+    runs = turns({"graph": graph_arm, "eager": eager_arm},
+                 ("graph", "eager", "eager", "graph"))
+    # What one graph holds: the ATen ops of one eager iteration of one MPC
+    # step (views launch no kernel).
+    loss_1, st_1 = grad_tuning.problem(n, 1, "cuda")
+    ops, views = iteration_ops(diff.Descent(loss_1, gains_g, st_1))
+    ref_best, ref_hist = runs["eager"][0][0]
+    equal = all(torch.equal(h, ref_hist) and all(
+        torch.equal(b[k], ref_best[k]) for k in ref_best)
+        for (b, h), *_ in runs["graph"] + runs["eager"])
+    evals = DIFF_AB_ITERS + 1
+    rate = {k: [evals / r[2] for r in v] for k, v in runs.items()}
+    capture_s = [r[1] for r in runs["graph"]]
+    counts = [r[3] for r in runs["graph"]]
+    print(f"diff (c) tune_gains graph vs eager, {DIFF_AB_STEPS} steps, SGD "
+          f"{DIFF_AB_ITERS} iterations from the detuned gains, in turns "
+          f"(graph, eager, eager, graph): histories and best gains bitwise "
+          f"equal: {equal} (hist {ref_hist.tolist()}); gradient evaluations"
+          f"/s graph {[round(x, 3) for x in rate['graph']]} (replays only; "
+          f"warm-up and capture {[round(x, 3) for x in capture_s]} s), eager "
+          f"{[round(x, 3) for x in rate['eager']]}; (captures, replays) of "
+          f"each graph arm {counts}; one iteration of one MPC step "
+          f"dispatches {ops} ATen ops, {views} of them views | {card}",
+          flush=True)
+    out["graph_vs_eager"] = {
+        "steps": DIFF_AB_STEPS, "iters": DIFF_AB_ITERS, "bitwise": equal,
+        "evals_per_s": rate, "capture_s": capture_s, "graph_counts": counts,
+        "hist": ref_hist.tolist(), "ops_per_step": ops,
+        "views_per_step": views}
+    if not equal or counts != [(1, evals)] * 2:
+        fail("diff (c): the descent's graph replay is not bitwise the eager "
+             "descent, or it did not replay from one capture")
+
+    # (d) The example's outcome at n = 8 through the graph.
+    before = dict(diff.GRAPH_COUNTS)
+    t0 = time.perf_counter()
+    res = grad_tuning.main(["--n", str(n), "--steps", str(DIFF_TUNE_STEPS),
+                            "--iters", str(DIFF_TUNE_ITERS), "--device",
+                            "cuda"])
+    ex_s = time.perf_counter() - t0
+    delta = {k: diff.GRAPH_COUNTS[k] - before[k] for k in before}
+    improvement = res["hist"][0] / res["tuned"]
+    ok = (all(math.isfinite(v) for v in res["hist"])
+          and all(v > 0 for v in res["gains"].values())
+          and res["tuned"] < TUNED_BAR * res["detuned"]
+          and delta == {"captures": 1, "replays": DIFF_TUNE_ITERS + 1})
+    print(f"diff (d) grad_tuning example at n = {n}, {DIFF_TUNE_STEPS} steps,"
+          f" {DIFF_TUNE_ITERS} SGD iterations through the graph ({delta}): "
+          f"detuned {res['detuned']:.5f}, tuned {res['tuned']:.5f} (bar "
+          f"{TUNED_BAR} x detuned), improvement {improvement:.4f}x, gains "
+          f"{res['gains']}, wall {ex_s:.3f} s " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    out["example"] = dict(res, steps=DIFF_TUNE_STEPS, iters=DIFF_TUNE_ITERS,
+                          improvement=improvement, wall_s=ex_s,
+                          graph_counts=delta)
+    if not ok:
+        fail("diff (d): the example's descent did not tune the gains")
+
+    # (e) System identification: record at the true mass, start 40% heavy,
+    # lr from the curvature measured here (tests/test_diff.py).
+    params, _, st0 = setup.rqp_setup(n, device="cuda")
+    f_eq = centralized.equilibrium_forces(params)
+    ref = convert.gains(grad_tuning.REFERENCE, "cuda")
+    xl_ref = st0.xl + torch.tensor([0.5, 0.2, 0.3], device="cuda")
+    s, rec = st0, []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(DIFF_SYSID_STEPS):
+            f = diff.payload_pd_forces(params, f_eq, s, xl_ref)
+            s = diff.substep_rollout(params, ref, s, f)
+            rec.append((f, s.xl, s.vl))
+    f_seq, xl_obs, vl_obs = (torch.stack(x) for x in zip(*rec))
+    loss = diff.make_sysid_loss(params.m, params.J, params.Jl, params.r, ref,
+                                f_seq, xl_obs, vl_obs)
+    true_ml = float(params.ml)
+    theta0 = {"log_ml": torch.full((), math.log(true_ml * 1.4),
+                                   device="cuda")}
+    with torch.no_grad():
+        at_truth = float(loss({"log_ml": torch.log(params.ml)}, st0))
+        at_start = float(loss(theta0, st0))
+    lr = 0.1 / (at_start / math.log(1.4) ** 2)
+    before = dict(diff.GRAPH_COUNTS)
+    theta, hist = diff.tune_gains(loss, theta0, st0, lr=lr,
+                                  iters=DIFF_SYSID_ITERS, min_gain=None)
+    est = float(torch.exp(theta["log_ml"]))
+    sys_s = time.perf_counter() - t0
+    delta = {k: diff.GRAPH_COUNTS[k] - before[k] for k in before}
+    rel = abs(est - true_ml) / true_ml
+    ok = (bool(torch.isfinite(hist).all()) and float(hist[-1]) < float(
+        hist[0]) and rel < SYSID_MASS_RTOL and at_start > 100 * max(
+        at_truth, 1e-12))
+    print(f"diff (e) sysid at n = {n}: {DIFF_SYSID_STEPS} recorded steps, "
+          f"loss at the truth {at_truth:.3e}, at the 40%-heavy start "
+          f"{at_start:.3e}, lr {lr:.4e}, {DIFF_SYSID_ITERS} SGD iterations "
+          f"through the graph ({delta}): mass {est:.6f} vs {true_ml:.6f} "
+          f"({rel * 100:.3f}%, bar {SYSID_MASS_RTOL * 100:.0f}%), wall "
+          f"{sys_s:.3f} s " + ("ok" if ok else "FAIL") + f" | {card}",
+          flush=True)
+    out["sysid"] = {"steps": DIFF_SYSID_STEPS, "iters": DIFF_SYSID_ITERS,
+                    "at_truth": at_truth, "at_start": at_start, "lr": lr,
+                    "est": est, "true": true_ml, "rel_err": rel,
+                    "hist": hist.tolist(), "wall_s": sys_s,
+                    "graph_counts": delta}
+    if not ok:
+        fail("diff (e): system identification missed the payload mass")
+
+    # (f) Trajectory optimisation with Adam (tests/test_diff.py's problem,
+    # the horizon cut), on the card through the graph and its first
+    # iterations on the CPU from the same inputs.
+    params_c, _, st0_c = setup.rqp_setup(n, device="cpu")
+    f_eq_c = centralized.equilibrium_forces(params_c)
+    goal_c = st0_c.xl + torch.tensor([0.8, 0.0, 0.0])
+    obs_c = st0_c.xl[:2] + torch.tensor([0.4, 0.0])
+    kw = dict(n_steps=DIFF_TRAJ_STEPS, obstacle_radius=0.25, w_effort=1e-4)
+    plan0 = {"acc": torch.zeros((DIFF_TRAJ_STEPS, 3))}
+    args_g = on_card((params_c, f_eq_c, goal_c, obs_c, st0_c))
+    loss_g = diff.make_trajopt_loss(*args_g[:3], obstacle_xy=args_g[3], **kw)
+    before = dict(diff.GRAPH_COUNTS)
+    t0 = time.perf_counter()
+    plan, hist = diff.tune_gains(loss_g, {"acc": plan0["acc"].cuda()},
+                                 args_g[4], lr=0.5,
+                                 iters=DIFF_TRAJ_ITERS, min_gain=None,
+                                 optimizer="adam")
+    hist = hist.cpu()
+    traj_s = time.perf_counter() - t0
+    delta = {k: diff.GRAPH_COUNTS[k] - before[k] for k in before}
+    loss_c = diff.make_trajopt_loss(params_c, f_eq_c, goal_c,
+                                    obstacle_xy=obs_c, **kw)
+    _, hist_c = diff.tune_gains(loss_c, plan0, st0_c, lr=0.5, iters=2,
+                                min_gain=None, optimizer="adam")
+    h_gap = float(((hist[:3] - hist_c).abs() / hist_c.abs()).max())
+    ok = (bool(torch.isfinite(hist).all()) and float(hist.min()) < float(
+        hist[0]) and h_gap <= TRAJ_HIST_RTOL and bool(
+        torch.isfinite(plan["acc"]).all()))
+    print(f"diff (f) trajopt with Adam at n = {n}: horizon "
+          f"{DIFF_TRAJ_STEPS}, {DIFF_TRAJ_ITERS} iterations through the graph"
+          f" ({delta}): loss {float(hist[0]):.6f} -> best "
+          f"{float(hist.min()):.6f}; first 3 history values vs the CPU port "
+          f"{h_gap:.2e} apart (rtol {TRAJ_HIST_RTOL}); wall {traj_s:.3f} s "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    out["trajopt"] = {"steps": DIFF_TRAJ_STEPS, "iters": DIFF_TRAJ_ITERS,
+                      "hist": hist.tolist(), "hist_cpu": hist_c.tolist(),
+                      "hist_gap": h_gap, "wall_s": traj_s,
+                      "graph_counts": delta}
+    if not ok:
+        fail("diff (f): trajectory optimisation did not descend or "
+             "disagrees with the CPU")
+
+    # (g) No kernel on this path.
+    counts = {**launch_counts(), **admm_kernel.KERNEL_LAUNCHES,
+              **admm_kernel.CHUNK_LAUNCHES}
+    launched = {k: v for k, v in counts.items() if v}
+    phase_s = time.perf_counter() - t_phase
+    print(f"diff (g) kernel launches across phase 36: "
+          f"{launched if launched else 'none'}; phase 36 took {phase_s:.1f} s"
+          f" | {card}", flush=True)
+    out["launches"], out["phase_s"] = counts, phase_s
+    if launched:
+        fail(f"diff: phase 36 launched kernels {launched}")
+
+
 def main() -> int:
     child = sys.argv[1:2] == ["--recovery-child"]
     if not os.path.isdir(os.path.join(HERE, PKG)):
@@ -4794,6 +5163,9 @@ def main() -> int:
     rp_rows = rp_phase(card, report)
     phase_at["35"] = time.perf_counter() - t_start
     pmrl_rows = pmrl_phase(card, report)
+    # 36. The differentiable simulation: no kernel on its path.
+    phase_at["36"] = time.perf_counter() - t_start
+    diff_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],

@@ -10,6 +10,10 @@ have none.
   n = 8 (d = 111, 150 iterations, 256 lanes) against its plain version:
   every output within the smoke's kernel bar, max(1e-4 max(1, |ref|), 2 x
   the plain version's own float32 rounding against float64).
+- ``harness/diff.py tune_gains`` (SGD, the grad-tuning example's problem
+  at n = 8) replayed from its CUDA graph against ``graph=False``: the
+  histories and best gains bitwise equal (the same kernels on the same
+  inputs), one capture and ``iters + 1`` replays.
 """
 
 import numpy as np
@@ -76,3 +80,33 @@ def test_shared_body_rounding_at_d111(card, monkeypatch):
         noise = float((r.double() - r64).abs().max())
         bar = max(1e-4 * max(1.0, float(r.abs().max())), 2.0 * noise)
         assert float((g - r).abs().max()) <= bar
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: a CUDA graph has no CPU form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a CUDA graph has no CPU form")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_descent_graph_bitwise_eager(cuda_device):
+    """Three SGD iterations of the grad-tuning example's problem (n = 8, 5
+    MPC steps) from its CUDA graph and eagerly: bitwise equal."""
+    from tpu_aerial_transport_torch import convert
+    from tpu_aerial_transport_torch.examples import grad_tuning
+    from tpu_aerial_transport_torch.harness import diff
+
+    loss, state0 = grad_tuning.problem(8, 5, cuda_device)
+    gains0 = convert.gains(grad_tuning.DETUNED, cuda_device)
+    before = dict(diff.GRAPH_COUNTS)
+    d = diff.Descent(loss, gains0, state0, lr=0.05)
+    d.capture()
+    best_g, hist_g = d.run(3)
+    counts = {k: diff.GRAPH_COUNTS[k] - before[k] for k in before}
+    best_e, hist_e = diff.tune_gains(loss, gains0, state0, lr=0.05, iters=3,
+                                     graph=False)
+    assert counts == {"captures": 1, "replays": 4}
+    assert torch.equal(hist_g, hist_e) and bool(torch.isfinite(hist_g).all())
+    assert all(torch.equal(best_g[k], best_e[k]) for k in best_e)

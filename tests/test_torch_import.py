@@ -60,7 +60,8 @@ def test_import_leaves_jax_out_of_sys_modules():
               "obs.telemetry", "utils.stats", "harness.checkpoint",
               "obs.export", "obs.trace", "resilience.recovery", "models.rp",
               "models.pmrl", "control.rp_centralized", "control.rp_cadmm",
-              "control.pmrl_centralized"):
+              "control.pmrl_centralized", "harness.diff",
+              "examples.grad_tuning"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -116,7 +117,8 @@ def test_source_scan_covers_the_slice():
               "obs/export.py", "obs/trace.py", "resilience/recovery.py",
               "models/rp.py", "models/pmrl.py", "control/rp_centralized.py",
               "control/rp_cadmm.py", "control/pmrl_centralized.py",
-              "harness/setup.py"):
+              "harness/setup.py", "harness/diff.py",
+              "examples/grad_tuning.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
@@ -290,6 +292,30 @@ def test_slice11_entry_points_default_to_the_card():
             rp_cadmm.init_state(rp_p, d_cfg, f_eq), 1),
         rollout.stack_scenarios(rp_s, 1), acc)
     assert not f.is_cuda and bool(torch.isfinite(f).all())
+
+
+def test_slice12_entry_points_default_to_the_card():
+    """The grad-tuning example's problem and ``convert.gains`` target the
+    card unless asked for the CPU; the differentiable harness runs where
+    its state is."""
+    from tpu_aerial_transport_torch import convert
+    from tpu_aerial_transport_torch.examples import grad_tuning
+    from tpu_aerial_transport_torch.harness import diff
+
+    if torch.cuda.is_available():
+        assert convert.gains({"k_R": 0.25})["k_R"].is_cuda
+        assert grad_tuning.problem(3, 1)[1].R.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.gains({"k_R": 0.25})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        grad_tuning.problem(3, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        grad_tuning.main(["--steps", "1", "--iters", "1"])
+    loss, state0 = grad_tuning.problem(3, 1, device="cpu")
+    best, hist = diff.tune_gains(loss, convert.gains(
+        grad_tuning.DETUNED, device="cpu"), state0, iters=1)
+    assert not hist.is_cuda and not best["k_R"].is_cuda
 
 
 def test_inactive_env_cbf_defaults_to_the_card():

@@ -3,9 +3,14 @@
 Counterpart of ``tpu_aerial_transport/control/so3_tracking.py``: the PD law
 (Lee, Leok, McClamroch, CDC 2010, Eqs. (10), (11), (16)) and the finite-time
 sliding-mode law (Lee, TCST 2018, Eqs. (34)-(36)), the latter with the JAX
-package's fractional Jacobian ``l_R r diag((|e_R| + eps)^(r - 1))``. Gains
-and exponents enter the ops as Python floats, so neither law copies from
-the host (the substeps replay them from a CUDA graph).
+package's fractional Jacobian ``l_R r diag((|e_R| + eps)^(r - 1))``.
+
+The PD gains are Python floats on the graphed forward path (the substeps
+replay from a CUDA graph, so nothing may copy from the host) and 0-d
+tensors on the state's device on the differentiated path
+(``harness/diff.py``), where autograd carries them into the gradient; both
+multiply the errors as they are. The sliding-mode law's gains and exponent
+are Python floats.
 """
 
 from __future__ import annotations
@@ -21,8 +26,11 @@ _EPS = 1e-6
 
 @dataclass(frozen=True)
 class So3PDParams:
-    k_R: float = 0.25
-    k_Omega: float = 0.075
+    """Python floats, or 0-d tensors on the state's device to differentiate
+    in the gains."""
+
+    k_R: float | torch.Tensor = 0.25
+    k_Omega: float | torch.Tensor = 0.075
 
 
 @dataclass(frozen=True)

@@ -239,3 +239,12 @@ def telemetry_state(src, device="cuda") -> telemetry_mod.TelemetryState:
         quantiles=tuple(float(q) for q in _get(src, "quantiles")),
         n_agents=int(_get(src, "n_agents")),
     )
+
+
+def gains(src, device="cuda") -> dict:
+    """A dict of arrays or scalars (``harness.diff``'s gains, a system
+    identification's ``theta``, a trajectory plan) as a dict of float32
+    tensors of the same shapes (0-d for scalars) on ``device``."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v, np.float32), device=dev)
+            for k, v in src.items()}

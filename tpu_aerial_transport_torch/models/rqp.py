@@ -48,13 +48,21 @@ class RQPParams:
 
 
 def _f32(x, device) -> torch.Tensor:
-    """numpy/float64 input -> float32 tensor (JAX runs with x64 off)."""
+    """Input -> float32 tensor on ``device`` (JAX runs with x64 off). A
+    tensor is cast and moved with ``.to``, so it stays in the autograd graph
+    (``harness.diff``'s system identification differentiates in ``ml``);
+    anything else goes through numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=torch.float32, device=device)
     return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
 
 
 def rqp_params(m, J, ml, Jl, r, device="cuda") -> RQPParams:
     """Build :class:`RQPParams` with derived quantities, computed in float32
-    from inputs first rounded to float32 (the JAX package's order)."""
+    from inputs first rounded to float32 (the JAX package's order). Tensor
+    inputs stay differentiable, and the inverses are ``inv_ex``'s, which
+    do not check their result on the host, so a CUDA-graph capture can hold
+    this function."""
     dev = resolve_device(device)
     m, J, ml, Jl, r = (_f32(v, dev) for v in (m, J, ml, Jl, r))
     n = r.shape[0]
@@ -69,7 +77,8 @@ def rqp_params(m, J, ml, Jl, r, device="cuda") -> RQPParams:
     )
     return RQPParams(
         m=m, J=J, ml=ml, Jl=Jl, r=r, mT=mT, x_com=x_com, r_com=r_com, JT=JT,
-        JT_inv=torch.linalg.inv(JT), J_inv=torch.linalg.inv(J),
+        JT_inv=torch.linalg.inv_ex(JT).inverse,
+        J_inv=torch.linalg.inv_ex(J).inverse,
     )
 
 
