@@ -199,6 +199,41 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    2%; (f) trajectory optimisation with Adam: the loss below its start,
    its first 3 history values against the CPU port's (rtol 1e-4); (g)
    every launch counter at 0.
+37. the serving tier (``serving/``, ``resilience/backend.py``) on the card,
+   three families: ``cadmm4`` and ``centralized4`` (the canonical ones) and
+   ``cadmm8`` (C-ADMM at the headline's n = 8, ``FamilySpec``'s other
+   defaults); buckets (64, 128, 256), so the largest batch is the main
+   path's 256 scenarios: (a) after one warm-up batch of every (family,
+   bucket), SERVE_REQUESTS seeded requests (horizons 2-16 high-level steps
+   on the chunk grid) on a Poisson clock, every counter zeroed just before:
+   all completed, every chunk on the card's rung with zero guard
+   fallbacks, the warp body (C-ADMM) and the block body (centralized)
+   launched from the server's own dispatch, the kernel on the inputs
+   captured from one served chunk of each family against its plain
+   version at the kernel bar, 8 sampled requests against the same
+   requests served on the CPU (states 1e-4); requests/s, admit->complete
+   p50/p99, chunk dispatch and harvest ms by bucket; (b) a request of each
+   family served alone (bucket 64), in a full batch (256) and late-joined
+   at a boundary: bitwise (or within 1e-6 with equal consensus counts,
+   reported); (c) host and device lane surgery, sync and pipelined
+   dispatch: every result bitwise, surgery ms; one ``pump()`` of three full
+   batches profiled (the device's busy share); (d) both serving examples
+   with ``--run-dir`` preempted by their own SIGTERM in a child (this
+   script with ``--serving-child preempt``) and resumed in a second
+   (``resume``): every per-request and per-step digest the uninterrupted
+   runs'; (e) ``TAT_BACKEND_FAULTS=crash@3`` for one server run: exactly
+   its third guarded chunk fails, with one journaled ``backend_event``,
+   its batch's requests ``failed`` (reason ``device_crash``, journaled),
+   nothing run on the CPU, every other chunk on the card and every other
+   result bitwise a clean card run, the failed requests resubmitted and
+   served bitwise a clean run too; a real
+   ``torch.OutOfMemoryError`` classified ``oom`` with the card usable
+   after; ``probe_subprocess`` on the card; (f) 256 concurrent ``cadmm4``
+   sessions x 10 control steps: every served control bitwise the family's
+   chunk run offline on the same post-delta states, no degraded step; one
+   session's 1 us step deadline degrades that step to hold-last, counted,
+   its state and next step unforked. The smoke refuses to start with
+   ``TAT_BACKEND_FAULTS`` set.
 
 The main path and every bench path replay the ten substeps of a step from
 a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
@@ -218,8 +253,8 @@ plain version's own float32 rounding (its distance from the same plain
 version run in float64) where that is larger: DD's duals carry 400 times
 the rounding of A x (``ROUNDING_FACTOR``).
 
-The children of phase 33 print one ``recovery-child`` record each and
-never the result line.
+The children of phases 33 and 37 print one ``recovery-child`` or
+``serving-child`` record each and never the result line.
 
 Output: timing lines carry the card's name and power limit; a ``kernels``
 JSON line, the ``nvidia-smi`` name/power-limit line, and last
@@ -394,6 +429,26 @@ DIFF_TRAJ_STEPS, DIFF_TRAJ_ITERS = 10, 10
 DIFF_VALUE_RTOL, DIFF_GRAD_RTOL, DIFF_GRAD_ATOL = 1e-5, 1e-3, 1e-8
 REMAT_VALUE_RTOL, REMAT_GRAD_RTOL = 1e-6, 1e-4
 TUNED_BAR, SYSID_MASS_RTOL, TRAJ_HIST_RTOL = 0.98, 0.02, 1e-4
+# Phase 37, the serving tier: (a) the stream's requests, buckets (the
+# largest the main path's 256 scenarios), queue capacity, Poisson arrival
+# rate (requests/s) and the requests held against the CPU; (c) the mode
+# stream's requests; (d) the examples' preempted runs (requests; session
+# clients and steps) and the pump rounds before each child's SIGTERM; (e)
+# the guarded stream's requests; (f) concurrent sessions and their steps.
+# Each example's SIGTERM lands mid-run: the scenario stream's batches hold
+# every request from their launch (3 chunks at most), and the session
+# storm serves a warm-up request and then one step a round.
+SERVE_REQUESTS, SERVE_BUCKETS, SERVE_CAPACITY = 512, (64, 128, 256), 512
+SERVE_RATE, SERVE_CPU_SAMPLES = 2000.0, 8
+# The stream opens with a backlog (about 150 requests a family, so each
+# family's first batch takes the largest bucket) and the rest arrives on
+# the Poisson clock, joining running batches at chunk boundaries: a batch
+# keeps the bucket it launched at.
+SERVE_BACKLOG = 448
+SERVE_MODE_REQUESTS, SERVE_GUARD_REQUESTS = 192, 96
+SERVE_PREEMPT_REQUESTS, SERVE_PREEMPT_CLIENTS, SERVE_PREEMPT_STEPS = 192, 64, 4
+SERVE_SIGTERM_AFTER = {"scen": 1, "sess": 3}
+SESSIONS, SESSION_STEPS = 256, 10
 
 
 def fail(msg: str) -> None:
@@ -3375,23 +3430,29 @@ def recovery_child(mode: str, run_dir: str, S: int) -> int:
 CHILD_CMD = [sys.executable, os.path.abspath(__file__)]
 
 
-def spawn_recovery_child(mode: str, run_dir: str, S: int):
-    """``(wall seconds, the child's recovery-child record)``; fails the
-    phase if the child fails, prints no record, or prints a result
-    line."""
+def spawn_child(argv: list, what: str, prefix: str):
+    """``(wall seconds, the child's record)``: ``CHILD_CMD + argv`` run to
+    its end, its one ``<prefix> {json}`` stdout line parsed; fails the
+    phase if the child fails, prints no such record or more than one, or
+    prints a result line."""
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        CHILD_CMD + ["--recovery-child", mode, run_dir, str(S)],
-        capture_output=True, text=True, timeout=300, cwd=HERE)
+    proc = subprocess.run(CHILD_CMD + argv, capture_output=True, text=True,
+                          timeout=300, cwd=HERE)
     wall = time.perf_counter() - t0
     lines = proc.stdout.splitlines()
     recs = [json.loads(line.split(" ", 1)[1]) for line in lines
-            if line.startswith("recovery-child ")]
+            if line.startswith(prefix + " ")]
     if proc.returncode != 0 or len(recs) != 1 or any(
             '"ok"' in line for line in lines):
-        fail(f"phase 33's {mode} child exited {proc.returncode}: stdout "
+        fail(f"{what} exited {proc.returncode}: stdout "
              f"{proc.stdout[-2000:]!r} stderr {proc.stderr[-4000:]!r}")
     return wall, recs[0]
+
+
+def spawn_recovery_child(mode: str, run_dir: str, S: int):
+    """Phase 33's child: ``(wall seconds, its recovery-child record)``."""
+    return spawn_child(["--recovery-child", mode, run_dir, str(S)],
+                       f"phase 33's {mode} child", "recovery-child")
 
 
 def flip_payload_byte(path: str) -> None:
@@ -4615,8 +4676,1050 @@ def diff_phase(card, report):
         fail(f"diff: phase 36 launched kernels {launched}")
 
 
+SERVE_FAMILY_NAMES = ("cadmm4", "centralized4", "cadmm8")
+
+
+def serving_families(device="cuda"):
+    """Phase 37's families on ``device``: the two canonical ones and the
+    headline's agent count as an ad-hoc C-ADMM family (``FamilySpec``'s
+    other defaults)."""
+    from tpu_aerial_transport_torch.serving import batcher
+
+    return [batcher.make_family("cadmm4", device),
+            batcher.make_family("centralized4", device),
+            batcher.Family(batcher.FamilySpec(name="cadmm8",
+                                              controller="cadmm", n=8),
+                           device)]
+
+
+def serving_stream(n: int, seed: int, prefix: str = "s"):
+    """``n`` seeded requests mixed over the three families: horizons on
+    the chunk grid, 2 to 16 high-level steps; payload starts N(0, 1) m and
+    velocities N(0, 0.2) m/s from ``default_rng(seed)``."""
+    import numpy as np
+
+    from tpu_aerial_transport_torch.serving.queue import ScenarioRequest
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        fam = SERVE_FAMILY_NAMES[int(rng.integers(3))]
+        out.append(ScenarioRequest(
+            family=fam, horizon=2 * int(rng.integers(1, 9)),
+            x0=tuple(float(v) for v in rng.normal(0.0, 1.0, 3)),
+            v0=tuple(float(v) for v in rng.normal(0.0, 0.2, 3)),
+            request_id=f"{prefix}{i:04d}"))
+    return out
+
+
+class ServeRecorder:
+    """Wraps each family's program on the card: records each chunk's
+    per-lane consensus counts (``logs.iters``, in dispatch order) and,
+    while ``capture`` is on, the inputs of each family's first whole-solve
+    launch. Its own launches (``launch``) bypass the capture."""
+
+    def __init__(self, families):
+        from tpu_aerial_transport_torch.ops import admm_kernel
+
+        self.launch = admm_kernel.fused_solve_lanes
+        self.iters, self.captured = [], {}
+        self.capture, self.current = False, None
+        for fam in families:
+            chunk, carry = fam._build()
+            fam._program = (self._wrap(fam.name, chunk), carry)
+        admm_kernel.fused_solve_lanes = self._record
+
+    def close(self):
+        from tpu_aerial_transport_torch.ops import admm_kernel
+
+        admm_kernel.fused_solve_lanes = self.launch
+
+    def _wrap(self, name, chunk):
+        def run(carry, i0):
+            self.current = name
+            try:
+                carry, logs = chunk(carry, i0)
+            finally:
+                self.current = None
+            self.iters.append((name, logs.iters))
+            return carry, logs
+
+        return run
+
+    def _record(self, *args, **kw):
+        if (self.capture and self.current is not None
+                and self.current not in self.captured):
+            self.captured[self.current] = (
+                [None if a is None else a.clone() for a in args], dict(kw))
+        return self.launch(*args, **kw)
+
+    def counts(self, rows):
+        """Each request's consensus counts, step by step: the recorded
+        chunks matched in order to the tracer's ``chunk_dispatch`` rows
+        (family and lane map), from ``rows`` (every dispatch on the card
+        since the recorder's list was last cleared)."""
+        disp = [r for r in rows if r["name"] == "chunk_dispatch"]
+        if [r["attrs"]["family"] for r in disp] != [f for f, _ in
+                                                     self.iters]:
+            fail("phase 37: recorded chunks and dispatch spans disagree")
+        out = {}
+        for r, (_, it) in zip(disp, self.iters):
+            it = it.cpu()
+            for lane, rid, _ in r["attrs"]["lanes"]:
+                out.setdefault(rid, []).extend(it[:, lane].tolist())
+        return out
+
+
+def span_ms(rows, name, key):
+    """Milliseconds of each ``name`` span, grouped by ``key(row)``."""
+    out = {}
+    for r in rows:
+        if r["name"] == name and "t1_mono" in r:
+            out.setdefault(key(r), []).append(
+                (r["t1_mono"] - r["t0_mono"]) * 1e3)
+    return out
+
+
+def ms_stats(groups):
+    import numpy as np
+
+    return {str(k): {"n": len(v), "mean": float(np.mean(v)),
+                     "p50": float(np.percentile(v, 50)),
+                     "max": float(np.max(v))}
+            for k, v in sorted(groups.items(), key=lambda kv: str(kv[0]))}
+
+
+def boundary_ms(rows):
+    """Chunk dispatch and boundary harvest ms by ``family@bucket`` from a
+    server's trace rows, and each batch's bucket by batch id."""
+    bucket_of = {r["attrs"]["batch_id"]: r["attrs"]["bucket"]
+                 for r in rows if r["name"] == "batch_form"}
+    dispatch = ms_stats(span_ms(
+        rows, "chunk_dispatch",
+        lambda r: f"{r['attrs']['family']}@{r['attrs']['bucket']}"))
+    harvest = ms_stats(span_ms(
+        rows, "harvest", lambda r: f"{r['attrs']['family']}@"
+        f"{bucket_of[r['attrs']['batch_id']]}"))
+    return dispatch, harvest, bucket_of
+
+
+def serve_drain(server, stream, rate=0.0, seed=0, backlog=0):
+    """Submit ``stream`` -- its first ``backlog`` requests at once, the
+    rest on a Poisson clock at ``rate`` arrivals/s (all at once when 0) --
+    and pump until drained: ``(wall s, tickets)``."""
+    import numpy as np
+    import torch
+
+    due = np.zeros(len(stream))
+    if rate and len(stream) > backlog:
+        due[backlog:] = np.cumsum(np.random.default_rng(seed + 1).exponential(
+            1.0 / rate, len(stream) - backlog))
+    t0 = time.perf_counter()
+    tickets, i = [], 0
+    while i < len(stream) or server.has_work():
+        now = time.perf_counter() - t0
+        while i < len(stream) and due[i] <= now:
+            tickets.append(server.submit(stream[i]))
+            i += 1
+        if not server.pump() and i < len(stream):
+            time.sleep(min(1e-3, max(0.0, due[i] - now)))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, tickets
+
+
+def check_served(server, tickets, what, rung):
+    """Every ticket completed, every chunk on ``rung``, no fallback and
+    no failed chunk."""
+    bad = [t for t in tickets if t.status != "completed"]
+    rungs = server.stats()["dispatch_rungs"]
+    if (bad or set(rungs) != {rung} or server.guard.fallbacks
+            or server.backend_failures):
+        fail(f"phase 37 {what}: {len(bad)} requests not completed "
+             f"({bad[:3]}), chunks by rung {rungs}, "
+             f"{server.guard.fallbacks} guard fallbacks, "
+             f"{server.backend_failures} failed chunks")
+    return rungs[rung]
+
+
+def results_apart(a: dict, b: dict):
+    """``(requests whose results are bitwise equal, max abs difference)``
+    over the request ids both maps hold."""
+    from tpu_aerial_transport_torch.tree import leaves
+
+    same, worst = 0, 0.0
+    for rid in a:
+        la, lb = leaves(a[rid]), leaves(b[rid])
+        same += all(x.dtype == y.dtype and bool((x == y).all())
+                    for x, y in zip(la, lb))
+        worst = max([worst] + [float((x.double() - y.double()).abs().max())
+                               for x, y in zip(la, lb)])
+    return same, worst
+
+
+def serving_child(mode: str, run_dir: str) -> int:
+    """Phase 37's child process: both serving examples on the card, with
+    ``--run-dir`` under ``run_dir``: ``preempt`` sends itself SIGTERM
+    after each example's SERVE_SIGTERM_AFTER pump rounds; ``resume``
+    resumes each run. Prints one ``serving-child {json}`` line with both summaries and
+    never the result line."""
+    import contextlib
+    import io
+
+    from tpu_aerial_transport_torch.examples import (
+        serve_scenarios,
+        serve_sessions,
+    )
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, mod, argv in serving_example_args(run_dir):
+        extra = (["--sigterm-after", str(SERVE_SIGTERM_AFTER[name])]
+                 if mode == "preempt" else ["--resume"])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = (serve_scenarios if mod == "scenarios"
+                  else serve_sessions).main(
+                argv + extra + ["--results",
+                                os.path.join(run_dir, f"{name}_{mode}.json")])
+        out[name] = {"rc": rc,
+                     "summary": json.loads(buf.getvalue().splitlines()[-1])}
+    out["seconds"] = time.perf_counter() - t0
+    print("serving-child " + json.dumps(out), flush=True)
+    return 0
+
+
+def serving_example_args(run_dir):
+    """The two examples' arguments in phase 37(d): ``(name, example,
+    argv)``; ``run_dir`` None runs them uninterrupted, with no journal."""
+    base = {
+        "scen": ("scenarios", [
+            "--requests", str(SERVE_PREEMPT_REQUESTS),
+            "--buckets", ",".join(map(str, SERVE_BUCKETS)), "--seed", "7"]),
+        "sess": ("sessions", [
+            "--clients", str(SERVE_PREEMPT_CLIENTS), "--steps",
+            str(SERVE_PREEMPT_STEPS), "--buckets",
+            ",".join(map(str, SERVE_BUCKETS)), "--lease-s", "600"]),
+    }
+    return [(name, mod, argv + ["--device", "cuda"] + (
+        ["--run-dir", os.path.join(run_dir, name)] if run_dir else []))
+        for name, (mod, argv) in base.items()]
+
+
+def serving_phase(card, report):
+    """Phase 37, the serving tier on the card (module docstring): (a) the
+    full-width stream, (b) composition independence, (c) surgery and
+    dispatch modes, (d) preemption of both examples in child processes,
+    (e) the guard, (f) sessions, and (g) the numbers."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tpu_aerial_transport_torch.examples import (
+        serve_scenarios,
+        serve_sessions,
+    )
+    from tpu_aerial_transport_torch.obs import trace
+    from tpu_aerial_transport_torch.ops import admm_kernel
+    from tpu_aerial_transport_torch.resilience import backend
+    from tpu_aerial_transport_torch.serving import server as server_mod
+    from tpu_aerial_transport_torch.serving.queue import ScenarioRequest
+
+    t_phase = time.perf_counter()
+    out = report["serving"] = {}
+    fams = serving_families("cuda")
+    by_name = {f.name: f for f in fams}
+    rec = ServeRecorder(fams)
+    onchip = backend.RUNG_ONCHIP
+
+    def server(**kw):
+        kw.setdefault("buckets", SERVE_BUCKETS)
+        kw.setdefault("capacity", SERVE_CAPACITY)
+        return server_mod.ScenarioServer(families=fams, device="cuda", **kw)
+
+    try:
+        # (a) Warm every (family, bucket) shape once (kernel loads, graph
+        # captures), then the timed stream: every counter zeroed just
+        # before it, read just after.
+        t0 = time.perf_counter()
+        warm = server()
+        for b in SERVE_BUCKETS:
+            serve_drain(warm, [ScenarioRequest(
+                family=f.name, horizon=2, x0=(0.1 * (i % 7), 0.0, 1.0),
+                request_id=f"w{b}{f.name}{i}")
+                for f in fams for i in range(b)])
+        warm_s = time.perf_counter() - t0
+        tracer = trace.Tracer(track="server")
+        srv = server(tracer=tracer)
+        stream = serving_stream(SERVE_REQUESTS, seed=0)
+        rec.iters.clear()
+        rec.capture = True
+        zero_launches()
+        torch.cuda.synchronize()
+        wall, tickets = serve_drain(srv, stream, rate=SERVE_RATE,
+                                    backlog=SERVE_BACKLOG)
+        launches = launch_counts()
+        by_body = {k: v for k, v in admm_kernel.KERNEL_LAUNCHES.items()
+                   if v}
+        rec.capture = False
+        chunks = check_served(srv, tickets, "(a)", onchip)
+        warp = sum(v for k, v in by_body.items() if k.startswith("warp_"))
+        block = sum(v for k, v in by_body.items()
+                    if k.startswith("fused_solve"))
+        if not (warp and block):
+            fail(f"phase 37 (a): whole-solve launches by body {by_body}: "
+                 "both the warp body (C-ADMM) and the block body "
+                 "(centralized) must launch")
+        lat = np.array([t.slo.t_complete - t.slo.t_admit for t in tickets])
+        dispatch_ms, harvest_ms, bucket_of = boundary_ms(tracer.rows)
+        counts = rec.counts(tracer.rows)
+        steps = sum(t.steps_served for t in tickets)
+        print(f"serving (a): {len(tickets)} requests over "
+              f"{SERVE_FAMILY_NAMES}, {SERVE_BACKLOG} queued at the start "
+              f"and the rest on a Poisson clock at {SERVE_RATE:g}/s, "
+              f"buckets {SERVE_BUCKETS} (launched "
+              f"{sorted(set(bucket_of.values()))}): all completed in "
+              f"{wall:.3f} s = "
+              f"{len(tickets) / wall:.2f} requests/s, "
+              f"{steps / wall:.2f} scenario-MPC-steps/s; {chunks} chunks, "
+              f"every one on {onchip}, 0 fallbacks; admit->complete p50 "
+              f"{np.percentile(lat, 50) * 1e3:.2f} ms, p99 "
+              f"{np.percentile(lat, 99) * 1e3:.2f} ms; whole-solve launches "
+              f"{by_body}; (warm-up of the 9 shapes {warm_s:.2f} s) | "
+              f"{card}", flush=True)
+        print(f"  chunk dispatch ms by family@bucket {dispatch_ms}; "
+              f"boundary harvest ms by family@bucket {harvest_ms}",
+              flush=True)
+        out["a"] = {"requests": len(tickets), "wall_s": wall,
+                    "requests_per_s": len(tickets) / wall,
+                    "scenario_steps_per_s": steps / wall, "chunks": chunks,
+                    "admit_to_complete_ms": {
+                        "p50": float(np.percentile(lat, 50) * 1e3),
+                        "p99": float(np.percentile(lat, 99) * 1e3)},
+                    "launches": launches, "by_body": by_body,
+                    "dispatch_ms": dispatch_ms, "harvest_ms": harvest_ms,
+                    "warm_s": warm_s}
+        # The kernel on the inputs captured from one served chunk of each
+        # family, against its plain version.
+        names = ("x", "y", "z", "prim_res", "dual_res")
+        out["a"]["kernel"] = {}
+        for fname, (args, kw) in sorted(rec.captured.items()):
+            early = bool(kw.get("check_every")) and kw.get("tol", 0) > 0
+            if early:
+                checks, worst = check_early_exit(
+                    [(f"served {fname}", args, kw)], card)
+                out["a"]["kernel"][fname] = checks
+                continue
+            got = rec.launch(*args, **kw)
+            ref = admm_kernel.fused_solve_lanes_reference(*args, **kw)
+            errs, noise, ok = agreement(names, got, ref, plain64(args, kw))
+            print(f"serving (a) kernel check, {fname}'s served chunk: B="
+                  f"{args[0].shape[0]} d={kw['nv'] + args[8].shape[-1]} "
+                  f"iters={kw['iters']}: max|err| " + " ".join(
+                      f"{n}={e:.3e}" for n, e in errs.items())
+                  + " " + ("ok" if ok else "FAIL") + f" | {card}",
+                  flush=True)
+            out["a"]["kernel"][fname] = {"max_abs_err": errs,
+                                         "plain_f32_vs_f64": noise,
+                                         "ok": ok}
+            if not ok:
+                fail(f"phase 37 (a): the kernel disagrees with its plain "
+                     f"version on {fname}'s served chunk")
+        if set(rec.captured) != set(SERVE_FAMILY_NAMES):
+            fail(f"phase 37 (a): launches captured from {set(rec.captured)}")
+        # 8 sampled requests against the same requests on the CPU.
+        sample = tickets[::len(tickets) // SERVE_CPU_SAMPLES][
+            :SERVE_CPU_SAMPLES]
+        cpu = server_mod.ScenarioServer(
+            families=[type(f)(f.spec, "cpu") for f in fams],
+            buckets=(SERVE_CPU_SAMPLES,), device="cpu")
+        _, cpu_t = serve_drain(cpu, [t.request for t in sample])
+        same, worst = results_apart(
+            {t.request.request_id: t.result for t in sample},
+            {t.request.request_id: t.result for t in cpu_t})
+        ok = worst <= CPU_STATE_ATOL and all(
+            t.status == "completed" for t in cpu_t)
+        print(f"serving (a) card vs CPU, {len(sample)} sampled requests "
+              f"({sorted({t.request.family for t in sample})}): max |state "
+              f"diff| {worst:.3e} (bar {CPU_STATE_ATOL}), {same} bitwise "
+              + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+        out["a"]["cpu"] = {"max_abs": worst, "bitwise": same, "ok": ok}
+        if not ok:
+            fail("phase 37 (a): sampled requests disagree with the CPU")
+
+        # (b) Composition independence: one request of each family served
+        # alone (the smallest bucket, the rest filler lanes), inside a full
+        # batch of the largest bucket and late-joined at a boundary of a
+        # full batch.
+        probes = {f: ScenarioRequest(family=f, horizon=8,
+                                     x0=(1.2, -0.4, 0.8),
+                                     v0=(0.1, 0.05, -0.05),
+                                     request_id=f"probe_{f}")
+                  for f in SERVE_FAMILY_NAMES}
+
+        def others(f, n, horizon, tag):
+            return [ScenarioRequest(family=f, horizon=horizon,
+                                    x0=(0.01 * i, 0.02, 1.0),
+                                    v0=(0.0, 0.0, 0.01 * (i % 5)),
+                                    request_id=f"{tag}{f}{i}")
+                    for i in range(n)]
+
+        big = SERVE_BUCKETS[-1]
+        comp, comp_counts = {}, {}
+        for arm in ("alone", "busy", "late"):
+            tr = trace.Tracer(track=arm)
+            rec.iters.clear()
+            s = server(tracer=tr, capacity=4 * big)
+            if arm == "alone":
+                _, ts = serve_drain(s, list(probes.values()))
+            elif arm == "busy":
+                _, ts = serve_drain(s, [r for f in SERVE_FAMILY_NAMES for r in
+                                        others(f, big - 1, 8, "b")
+                                        + [probes[f]]])
+            else:
+                first = [s.submit(r) for f in SERVE_FAMILY_NAMES for r in
+                         others(f, big - 1, 8, "l")
+                         + others(f, 1, 2, "ls")]
+                s.pump()
+                late = [s.submit(probes[f]) for f in SERVE_FAMILY_NAMES]
+                serve_drain(s, [])
+                ts = first + late
+                for t in late:
+                    if t.slo.t_admit <= first[0].slo.t_launch:
+                        fail("phase 37 (b): the late request did not join "
+                             "at a boundary")
+            check_served(s, ts, f"(b) {arm}", onchip)
+            got = {t.request.request_id: t for t in ts
+                   if t.request.request_id.startswith("probe_")}
+            comp[arm] = {rid: t.result for rid, t in got.items()}
+            comp[arm + "_bucket"] = {rid: s._batches[t.request.family].bucket
+                                     for rid, t in got.items()}
+            cts = rec.counts(tr.rows)
+            comp_counts[arm] = {rid: cts[rid] for rid in got}
+        b_out = {}
+        for arm in ("busy", "late"):
+            same, worst = results_apart(comp["alone"], comp[arm])
+            counts_eq = comp_counts["alone"] == comp_counts[arm]
+            b_out[arm] = {"bitwise": same, "max_abs": worst,
+                          "counts_equal": counts_eq,
+                          "buckets": comp[arm + "_bucket"]}
+            if not (same == len(probes)
+                    or (worst <= BUCKET_STATE_ATOL and counts_eq)):
+                fail(f"phase 37 (b): {arm} against alone: {same} of "
+                     f"{len(probes)} bitwise, max {worst:.3e}, counts equal "
+                     f"{counts_eq}")
+        print(f"serving (b) composition: alone (buckets "
+              f"{comp['alone_bucket']}) against busy and late-joined "
+              f"(buckets {comp['busy_bucket']}): "
+              + "; ".join(f"{arm} {v['bitwise']}/{len(probes)} bitwise, "
+                          f"max {v['max_abs']:.3e}, counts equal "
+                          f"{v['counts_equal']}" for arm, v in b_out.items())
+              + f" | {card}", flush=True)
+        out["b"] = b_out
+
+        # (c) Surgery and dispatch modes on one mixed stream with late
+        # joins: every result bitwise equal; the surgery spans timed.
+        mode_stream = serving_stream(SERVE_MODE_REQUESTS, seed=3, prefix="m")
+        modes, surgery_ms, mode_wall, mode_ms = {}, {}, {}, {}
+        for arm, kw in (("host_sync", {}),
+                        ("device_sync", {"surgery": "device"}),
+                        ("device_pipelined", {"dispatch": "pipelined"})):
+            tr = trace.Tracer(track=arm)
+            s = server(tracer=tr, **kw)
+            half = len(mode_stream) // 2
+            t0 = time.perf_counter()
+            ts = [s.submit(r) for r in mode_stream[:half]]
+            s.pump()
+            ts += [s.submit(r) for r in mode_stream[half:]]
+            serve_drain(s, [])
+            mode_wall[arm] = time.perf_counter() - t0
+            mode_ms[arm] = boundary_ms(tr.rows)[:2]
+            check_served(s, ts, f"(c) {arm}", onchip)
+            modes[arm] = {t.request.request_id: t.result for t in ts}
+            for impl, v in span_ms(tr.rows, trace.LANE_SURGERY,
+                                   lambda r: r["attrs"]["impl"]).items():
+                surgery_ms.setdefault(f"{impl} ({arm})", []).extend(v)
+        c_out = {}
+        for arm in ("device_sync", "device_pipelined"):
+            same, worst = results_apart(modes["host_sync"], modes[arm])
+            c_out[arm] = {"bitwise": same, "of": len(modes[arm]),
+                          "max_abs": worst}
+            if same != len(modes["host_sync"]):
+                fail(f"phase 37 (c): {arm} against host_sync: {same} of "
+                     f"{len(modes[arm])} bitwise (max {worst:.3e})")
+        c_out["surgery_ms"] = ms_stats(surgery_ms)
+        c_out["wall_s"], c_out["dispatch_harvest_ms"] = mode_wall, mode_ms
+        print(f"serving (c) modes: {len(mode_stream)} requests, device "
+              f"surgery and pipelined dispatch each bitwise the host splice "
+              f"+ sync on every request; wall s {mode_wall}; surgery ms "
+              f"{c_out['surgery_ms']}; host_sync's chunk dispatch and "
+              f"harvest ms by family@bucket {mode_ms['host_sync']} | "
+              f"{card}", flush=True)
+        out["c"] = c_out
+
+        # The guard's deadline watchdog (a thread a chunk) on the healthy
+        # path: the same stream under the default guard and under one with
+        # no watchdog (deadline 0: a plain call), in turns; each chunk's
+        # dispatch span, whose median the host's spread moves less than a
+        # stream's wall.
+        guard_wall = {"watchdog": [], "plain": []}
+        guard_ms = {"watchdog": [], "plain": []}
+        guard_chunks = 0
+        for arm in ("watchdog", "plain", "plain", "watchdog"):
+            tr = trace.Tracer(track=f"guard_{arm}")
+            s = server(tracer=tr, guard=backend.BackendGuard(
+                deadline_s=None if arm == "watchdog" else 0,
+                primary_rung=onchip))
+            t0 = time.perf_counter()
+            ts = [s.submit(r) for r in mode_stream[:half]]
+            s.pump()
+            ts += [s.submit(r) for r in mode_stream[half:]]
+            serve_drain(s, [])
+            guard_wall[arm].append(time.perf_counter() - t0)
+            guard_ms[arm].extend(span_ms(tr.rows, trace.CHUNK_DISPATCH,
+                                         lambda r: 0).get(0, []))
+            guard_chunks = check_served(s, ts, f"(c) guard {arm}", onchip)
+            same, worst = results_apart(
+                modes["host_sync"], {t.request.request_id: t.result
+                                     for t in ts})
+            if same != len(modes["host_sync"]):
+                fail(f"phase 37 (c): the {arm} guard's results: {same} of "
+                     f"{len(ts)} bitwise host_sync's (max {worst:.3e})")
+        p50 = {arm: float(np.median(v)) for arm, v in guard_ms.items()}
+        print(f"serving (c) guard cost: {len(mode_stream)} requests, "
+              f"{guard_chunks} chunks an arm, in turns (results bitwise): "
+              f"chunk dispatch p50 with the watchdog "
+              f"{p50['watchdog']:.3f} ms, without {p50['plain']:.3f} ms "
+              f"({p50['watchdog'] - p50['plain']:+.3f} ms); wall s with "
+              f"{guard_wall['watchdog']}, without {guard_wall['plain']} | "
+              f"{card}", flush=True)
+        out["c"]["guard"] = {"wall_s": guard_wall, "chunks": guard_chunks,
+                             "dispatch_p50_ms": p50}
+
+        # The device's busy share in one profiled pump of full batches.
+        s = server(capacity=4 * big)
+        for f in SERVE_FAMILY_NAMES:
+            for r in others(f, big, 8, "p"):
+                s.submit(r)
+        s.pump()
+        torch.cuda.synchronize()
+        wall_ms, ph = profile_step(s.pump)
+        print_profile(f"one pump() of three full ({big}-lane) batches",
+                      wall_ms, ph, card)
+        out["profile"] = {"wall_ms": wall_ms,
+                          "busy_share": ph["kernels_us"] / 1e3 / wall_ms,
+                          "phases": ph}
+        serve_drain(s, [])
+
+        # (d) Both examples preempted by SIGTERM in a child and resumed in
+        # a second child; per-request (per-step) digests against the
+        # uninterrupted runs, made here.
+        run_dir = os.path.join(HERE, "build", "serving_run")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        os.makedirs(run_dir)
+        ref = {}
+        for name, mod, argv in serving_example_args(None):
+            path = os.path.join(run_dir, f"{name}_ref.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = (serve_scenarios if mod == "scenarios"
+                      else serve_sessions).main(argv + ["--results", path])
+            if rc:
+                fail(f"phase 37 (d): the uninterrupted {name} run exited {rc}")
+            with open(path) as fh:
+                ref[name] = json.load(fh)
+        walls = {}
+        for mode in ("preempt", "resume"):
+            walls[mode], child = spawn_child(
+                ["--serving-child", mode, run_dir],
+                f"phase 37's {mode} child", "serving-child")
+            for name in ref:
+                if child[name]["rc"] != 0:
+                    fail(f"phase 37 (d): {mode} {name} exited "
+                         f"{child[name]['rc']}")
+                if mode == "preempt" and not child[name]["summary"][
+                        "preempted"]:
+                    fail(f"phase 37 (d): the {name} child was not preempted")
+        d_out = {"child_wall_s": walls}
+        for name in ref:
+            merged = {}
+            for mode in ("preempt", "resume"):
+                with open(os.path.join(run_dir, f"{name}_{mode}.json")) as fh:
+                    for rid, row in json.load(fh).items():
+                        if "digest" in row:
+                            merged[rid] = row["digest"]
+            want = {rid: row["digest"] for rid, row in ref[name].items()
+                    if "digest" in row}
+            d_out[name] = {"digests": len(want),
+                           "equal": sum(merged.get(r) == d
+                                        for r, d in want.items())}
+            if merged != want or not want:
+                fail(f"phase 37 (d): {name}: {d_out[name]['equal']} of "
+                     f"{len(want)} digests equal after preempt + resume "
+                     f"({len(merged)} served)")
+        print(f"serving (d) preemption: scenarios ({d_out['scen']['digests']}"
+              f" requests) and sessions ({d_out['sess']['digests']} steps) "
+              f"preempted by SIGTERM in a child after {SERVE_SIGTERM_AFTER} "
+              f"pump rounds and resumed in another: every digest the "
+              f"uninterrupted run's; child wall s {walls} | {card}",
+              flush=True)
+        out["d"] = d_out
+
+        # (e) The guard.
+        out["e"] = serving_guard_checks(card, server, fams)
+
+        # (f) Sessions: 256 concurrent cadmm4 sessions, 10 control steps,
+        # against the offline chunk on the card; one session at a 1 us
+        # step deadline.
+        out["f"] = serving_session_checks(card, server, by_name["cadmm4"])
+    finally:
+        rec.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serving: phase 37 took {out['phase_s']:.1f} s | {card}",
+          flush=True)
+    return out["a"]["by_body"]
+
+
+def serving_guard_checks(card, server, fams):
+    """Phase 37(e): ``crash@3`` fails exactly the third guarded chunk on
+    the card (one journaled ``backend_event``; its batch's requests
+    ``failed``, journaled; no CPU rung; every other chunk on the card and
+    every other result bitwise a clean run; the failed requests, submitted
+    again, bitwise a clean run), a real OOM classifies ``oom`` with the
+    process usable after, and the subprocess probe passes on the card."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from tpu_aerial_transport_torch.resilience import backend
+    from tpu_aerial_transport_torch.resilience.recovery import RunJournal
+    from tpu_aerial_transport_torch.serving import server as server_mod
+
+    stream = serving_stream(SERVE_GUARD_REQUESTS, seed=5, prefix="g")
+    _, clean = serve_drain(server(), stream)
+    run_dir = os.path.join(HERE, "build", "serving_guard")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.environ[backend.FAULTS_ENV] = "crash@3"
+    try:
+        s = server(run_dir=run_dir)
+    finally:
+        del os.environ[backend.FAULTS_ENV]
+    _, got = serve_drain(s, stream)
+    stats = s.stats()
+    rungs = stats["dispatch_rungs"]
+    journal = RunJournal(run_dir, server_mod.SERVING_JOURNAL).read()
+    events = [e for e in journal if e["event"] == "backend_event"]
+    failed = [t for t in got if t.status == "failed"]
+    failed_rows = {e["request_id"] for e in journal
+                   if e["event"] == "serving_done"
+                   and e["status"] == "failed"
+                   and e.get("reason") == "device_crash"}
+    served = [t for t in got if t.status == "completed"]
+    # The failed requests again, under new ids: a client's retry.
+    again = [s.submit(dataclasses.replace(t.request,
+                                          request_id=t.request.request_id
+                                          + ".retry"))
+             for t in failed]
+    while s.pump():
+        pass
+    torch.cuda.synchronize()
+    ref = {t.request.request_id: t.result for t in clean}
+    same, worst = results_apart(
+        {t.request.request_id: t.result for t in served + again},
+        {rid: ref[rid.removesuffix(".retry")]
+         for rid in [t.request.request_id for t in served + again]})
+    ok = (len(events) == 1 and events[0]["kind"] == "device_crash"
+          and set(rungs) == {backend.RUNG_ONCHIP}
+          and s.guard.fallbacks == 0 and stats["guard_fallbacks"] == 0
+          and stats["backend_failures"] == 1
+          and failed and len(served) + len(failed) == len(got)
+          and all(t.reason == "device_crash" for t in failed)
+          and failed_rows == {t.request.request_id for t in failed}
+          and all(t.status == "completed" for t in again)
+          and same == len(served) + len(again))
+    print(f"serving (e) guard: TAT_BACKEND_FAULTS=crash@3 for one server: "
+          f"{len(events)} backend_event "
+          f"({[e['label'] for e in events]}, "
+          f"{[e['kind'] for e in events]}); {len(failed)} requests failed "
+          f"(reason device_crash, {len(failed_rows)} journaled), "
+          f"{len(served)} completed; chunks by rung {rungs}, "
+          f"{s.guard.fallbacks} fallbacks, {stats['backend_failures']} "
+          f"failed chunk; {same} of {len(served) + len(again)} results "
+          f"(the failed ones resubmitted) bitwise a clean card run, max "
+          f"{worst:.3e} " + ("ok" if ok else "FAIL") + f" | {card}",
+          flush=True)
+    if not ok:
+        fail("phase 37 (e): crash@3 did not fail exactly one chunk's "
+             "requests, journaled, on the card alone")
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+        kind = None
+    except torch.OutOfMemoryError as e:
+        kind = backend.classify(e)
+    torch.cuda.empty_cache()
+    x = torch.ones(1024, device="cuda")
+    usable = float(x @ x) == 1024.0
+    info = {}
+    t0 = time.perf_counter()
+    probe_ok, detail = backend.probe_subprocess(timeout_s=120, info=info)
+    probe_s = time.perf_counter() - t0
+    print(f"serving (e) a real OOM ({2 * total / 2**30:.1f} GiB asked) "
+          f"classified {kind!r}, the card usable after: {usable}; "
+          f"probe_subprocess {probe_ok} ({detail}, {info}) in "
+          f"{probe_s:.2f} s | {card}", flush=True)
+    if kind != "oom" or not usable or not probe_ok or info.get(
+            "n_devices") != torch.cuda.device_count():
+        fail("phase 37 (e): the OOM did not classify as oom, the card was "
+             "unusable after it, or the probe failed")
+    return {"crash": {"events": events, "rungs": rungs, "bitwise": same,
+                      "max_abs": worst}, "oom": kind, "probe": info,
+            "probe_s": probe_s}
+
+
+def serving_session_checks(card, server, fam):
+    """Phase 37(f): SESSIONS concurrent ``cadmm4`` sessions for
+    SESSION_STEPS control steps at a generous deadline, every served
+    control bitwise the family's chunk on the card run offline over the
+    same post-delta states (one 256-lane batch a step), no degraded step;
+    then one session whose second step has a 1 us deadline: that step
+    degrades to hold-last, counted, and its state and next step stay the
+    offline stream's."""
+    import numpy as np
+    import torch
+
+    from tpu_aerial_transport_torch.resilience.recovery import host_copy
+    from tpu_aerial_transport_torch.serving import sessions
+    from tpu_aerial_transport_torch.tree import leaves, tree_map
+
+    rng = np.random.default_rng(11)
+    x0 = rng.normal(0.0, 1.0, (SESSIONS, 3))
+    v0 = rng.normal(0.0, 0.2, (SESSIONS, 3))
+    dx = rng.normal(0.0, 0.05, (SESSION_STEPS, SESSIONS, 3))
+    dv = rng.normal(0.0, 0.01, (SESSION_STEPS, SESSIONS, 3))
+    s = server()
+    host = sessions.SessionHost(s, lease_s=1e9, step_deadline_s=60.0)
+    leases = [host.open(f"c{i}", "cadmm4", tuple(x0[i]),
+                        tuple(v0[i]))["lease"] for i in range(SESSIONS)]
+    served = np.empty((SESSION_STEPS, SESSIONS), object)
+    t0 = time.perf_counter()
+    lat = []
+    for k in range(SESSION_STEPS):
+        steps = [host.step(f"c{i}", leases[i], k + 1, tuple(dx[k, i]),
+                           tuple(dv[k, i])) for i in range(SESSIONS)]
+        while host.pump():
+            pass
+        for i, t in enumerate(steps):
+            if t.rung != sessions.RUNG_SERVED:
+                fail(f"phase 37 (f): step {k + 1} of c{i}: {t}")
+            served[k, i] = t.result
+            lat.append(t.latency_s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def offline(xs, vs):
+        """The family's chunk on the card over one batch of post-delta
+        states (lane i = session i), per-lane results on the host."""
+        tmpl = fam.batched_template_host(len(xs))
+        state = tmpl[0].replace(
+            xl=torch.tensor(xs, dtype=torch.float32),
+            vl=torch.tensor(vs, dtype=torch.float32))
+        carry = tree_map(lambda t: t.to("cuda"), (state,) + tuple(tmpl[1:]))
+        new = host_copy(fam.chunk_fn(carry, 0)[0][0])
+        return [fam.lane_result((new,), i) for i in range(len(xs))]
+
+    x, v = x0.copy(), v0.copy()
+    same = total = 0
+    for k in range(SESSION_STEPS):
+        x, v = x + dx[k], v + dv[k]
+        ref = offline(x, v)
+        for i in range(SESSIONS):
+            total += 1
+            same += all(torch.equal(a, b) for a, b in
+                        zip(leaves(served[k, i]), leaves(ref[i])))
+    stats = host.stats()
+    ok = same == total and stats["steps_degraded"] == 0
+    # One session at a 1 us deadline on its second step.
+    s2 = server()
+    host2 = sessions.SessionHost(s2, lease_s=1e9)
+    lease = host2.open("slow", "cadmm4", tuple(x0[0]), tuple(v0[0]))["lease"]
+    rungs, results = [], []
+    for k in range(3):
+        t = host2.step("slow", lease, k + 1, tuple(dx[k, 0]), tuple(dv[k, 0]),
+                       deadline_s=(1e-6 if k == 1 else 60.0))
+        while host2.pump():
+            pass
+        rungs.append(t.rung)
+        results.append(t.result)
+    want_x = x0[0] + dx[0, 0] + dx[1, 0] + dx[2, 0]
+    slow_ok = (rungs == [sessions.RUNG_SERVED, sessions.RUNG_HOLD_LAST,
+                         sessions.RUNG_SERVED]
+               and host2.stats()["steps_degraded"] == 1
+               and np.array_equal(host2.sessions["slow"].x, want_x)
+               and all(torch.equal(a, b) for a, b in
+                       zip(leaves(results[1]), leaves(results[0])))
+               and all(torch.equal(a, b) for a, b in zip(
+                   leaves(results[2]), leaves(served[2, 0]))))
+    lat = np.array(lat)
+    print(f"serving (f) sessions: {SESSIONS} cadmm4 sessions x "
+          f"{SESSION_STEPS} steps in {wall:.3f} s "
+          f"({SESSIONS * SESSION_STEPS / wall:.1f} steps/s, step latency "
+          f"p50 {np.percentile(lat, 50) * 1e3:.2f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1e3:.2f} ms): {same} of {total} served "
+          f"controls bitwise the offline chunk, steps_degraded "
+          f"{stats['steps_degraded']}; the 1 us session's rungs {rungs}, "
+          f"steps_degraded {host2.stats()['steps_degraded']}, state and "
+          f"next step the offline stream's: {slow_ok} | {card}", flush=True)
+    if not (ok and slow_ok):
+        fail("phase 37 (f): the session stream is not the offline stream, "
+             "or the degraded step was not honest")
+    return {"steps_per_s": SESSIONS * SESSION_STEPS / wall,
+            "latency_ms": {"p50": float(np.percentile(lat, 50) * 1e3),
+                           "p99": float(np.percentile(lat, 99) * 1e3)},
+            "bitwise": same, "of": total, "stats": stats,
+            "slow_rungs": rungs}
+
+
+# The K2 row layouts compared by ``--k2-chains``: (chains, the longest row
+# summed in one chain). Chains 1 is one chain at every shape; (8, 64) is
+# the shipped layout.
+K2_VARIANTS = ((1, 128), (2, 64), (4, 64), (8, 64), (16, 64))
+
+
+def k2_cases():
+    """The shared-memory body's inputs at every shape it takes on a path,
+    captured from the path's first launch: the entry step (d = 67, B = 1),
+    the centralized steps at n = 3 and 4 (d = 67 and 79, 256 lanes, 120
+    iterations, early exit), C-ADMM with the full agent QP (d = 72, 2048
+    lanes, 20 fixed), a served ``centralized4`` chunk (d = 79, 256 lanes, 4
+    iterations, early exit; and at 4 lanes, as ``tests/test_torch_card.py``
+    serves it), the RP centralized step (d = 111, 256 lanes,
+    150 fixed) and the PMRL step (d = 111, 256 lanes, at most 150, early
+    exit decided by rounding). ``{name: (args, kw)}`` on the card."""
+    import numpy as np
+    import torch
+
+    from tpu_aerial_transport_torch import entry
+    from tpu_aerial_transport_torch.control import (
+        pmrl_centralized,
+        rp_centralized,
+    )
+    from tpu_aerial_transport_torch.harness import rollout, setup
+    from tpu_aerial_transport_torch.ops import admm_kernel
+    from tpu_aerial_transport_torch.serving import batcher
+    from tpu_aerial_transport_torch.serving import server as server_mod
+    from tpu_aerial_transport_torch.serving.queue import ScenarioRequest
+
+    cases = {}
+
+    def grab(name, fn):
+        args = []
+        with capturing(admm_kernel, "fused_solve_lanes", args):
+            fn()
+        torch.cuda.synchronize()
+        cases[name] = args[0]
+
+    step_e, (cs0, st0, acc) = entry.entry()
+    grab("entry_d67_B1", lambda: step_e(cs0, st0, acc))
+    for n, d in ((3, 67), (4, 79)):
+        step_n, css0, st0_n = workload("centralized", n, N_SCENARIOS)
+        grab(f"central_d{d}_B256", lambda: step_n(css0, st0_n))
+    step, css0, st0 = workload("cadmm", N_AGENTS, N_SCENARIOS,
+                               reduced_qp=False, pad_operators=True,
+                               effort="fixed")
+    grab("full_qp_d72_B2048", lambda: step(css0, st0))
+    rng = np.random.default_rng(0)
+    srv = server_mod.ScenarioServer(
+        families=[batcher.make_family("centralized4", "cuda")],
+        buckets=(N_SCENARIOS,), capacity=N_SCENARIOS, device="cuda")
+    reqs = [ScenarioRequest(
+        family="centralized4", horizon=2,
+        x0=tuple(float(v) for v in rng.normal(0.0, 1.0, 3)),
+        v0=tuple(float(v) for v in rng.normal(0.0, 0.2, 3)),
+        request_id=f"k{i}") for i in range(N_SCENARIOS)]
+    grab("served_central4_d79_B256", lambda: serve_drain(srv, reqs))
+    srv4 = server_mod.ScenarioServer(
+        families=[batcher.make_family("centralized4", "cuda")],
+        buckets=(4,), device="cuda")
+    grab("served_central4_d79_B4", lambda: serve_drain(srv4, [
+        ScenarioRequest(family="centralized4", horizon=2,
+                        x0=(0.2 * i, 0.1, 1.0), request_id=f"q{i}")
+        for i in range(4)]))
+    params, _, state0 = setup.rp_setup(N_AGENTS, device="cuda")
+    f_eq = rp_centralized.equilibrium_forces(params)
+    cfg = rp_centralized.make_config(params)
+    cs = rollout.stack_scenarios(rp_centralized.init_ctrl_state(params, cfg),
+                                 N_SCENARIOS)
+    states, phase = rp_starts(state0, N_SCENARIOS)
+    grab("rp_central_d111_B256", lambda: rp_centralized.control(
+        params, cfg, f_eq, cs, states, circle_acc(0, states, phase)))
+    params, _, state0 = setup.pmrl_setup(N_AGENTS, device="cuda")
+    cfg = pmrl_centralized.make_config(params)
+    cs = rollout.stack_scenarios(
+        pmrl_centralized.init_ctrl_state(params, cfg, state0), N_SCENARIOS)
+    states, target = pmrl_starts(state0, N_SCENARIOS)
+    grab("pmrl_d111_B256", lambda: pmrl_steps(params, cfg, cs, states,
+                                              target, 1))
+    return cases
+
+
+def sass_counts(lib: str, kernel: str) -> dict | None:
+    """Instructions of ``kernel`` in the built library ``lib`` by opcode
+    (``cuobjdump -sass``), or None without cuobjdump."""
+    import re
+    import shutil
+
+    tool = (shutil.which("cuobjdump")
+            or ("/usr/local/cuda/bin/cuobjdump"
+                if os.path.exists("/usr/local/cuda/bin/cuobjdump") else None))
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, on = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            on = line.split("Function :")[1].strip() == kernel
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     line)
+        if on and m:
+            op = m.group(1).split(".")[0]
+            counts[op] = counts.get(op, 0) + 1
+    return counts or None
+
+
+def k2_variant(chains: int, one_max: int, inputs: str, build_only: bool):
+    """One K2 row layout, built with -D into its own library: with
+    ``build_only`` the build alone; else each captured case through it,
+    held against the plain version (the smoke's kernel bar; early-exit
+    cases also in their fixed form) and timed (CUDA graph, 50 calls), and
+    the fixed-iteration block body's instructions counted. Prints one JSON
+    line."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import _build, admm_kernel
+
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + (
+        f"-DK2_CHAINS={chains}", f"-DK2_ONE_CHAIN_MAX_D={one_max}")
+    t0 = time.perf_counter()
+    _build.build(("fused_solve",))
+    if build_only:
+        print(json.dumps({"built_s": time.perf_counter() - t0}), flush=True)
+        return 0
+    cases = torch.load(inputs, weights_only=False)
+    names = ("x", "y", "z", "prim_res", "dual_res")
+    out = {"chains": chains, "one_chain_max_d": one_max, "cases": {}}
+    for case, (a, k) in cases.items():
+        a = [None if t is None else t.cuda() for t in a]
+        forms = [("", a, k)]
+        if admm_kernel._early(k.get("check_every", 0), k.get("tol", 0.0)):
+            forms.append(("_fixed", *fixed_form(a, k)))
+        for suffix, fa, fk in forms:
+            got = admm_kernel.fused_solve_lanes(*fa, **fk)
+            ref = admm_kernel.fused_solve_lanes_reference(*fa, **fk)
+            ref64 = plain64(fa, fk)
+            lanes = None
+            row = {}
+            if len(got) > 5:
+                same = got[5] == ref[5]
+                row["eff_equal_share"] = float(same.float().mean())
+                lanes = same & (ref64[5] == ref[5])
+            errs, noise, ok = agreement(names, got[:5], ref[:5], ref64[:5],
+                                        lanes)
+            ratio = {}
+            for nm, r in zip(names, ref[:5]):
+                r = r if lanes is None else r[lanes]
+                if not r.numel():
+                    ratio[nm] = 0.0
+                    continue
+                bar = max(KERNEL_ATOL * max(1.0, float(r.abs().max())),
+                          ROUNDING_FACTOR * noise[nm])
+                ratio[nm] = errs[nm] / bar
+            row["lanes_compared"] = (int(got[0].shape[0]) if lanes is None
+                                     else int(lanes.sum()))
+            if case.startswith("pmrl") and not suffix:
+                # Rounding decides PMRL's stops: phase 35's rule.
+                share64 = float((ref[5] != ref64[5]).float().mean())
+                row["eff_differ_bar"] = flip_bar(share64, got[5].shape[0])
+                ok = (ok and stopped_within_tol(got, fa, fk)
+                      and 1.0 - row["eff_equal_share"]
+                      <= row["eff_differ_bar"])
+            elif "eff_equal_share" in row:
+                ok = ok and row["eff_equal_share"] >= EFF_EQUAL_SHARE
+            row.update(ok=ok, err_over_bar=max(ratio.values()),
+                       worst=max(ratio, key=ratio.get),
+                       ms=cuda_ms(lambda: admm_kernel.fused_solve_lanes(
+                           *fa, **fk), 50))
+            out["cases"][case + suffix] = row
+    out["sass_fused_solve_kernel"] = sass_counts(
+        _build.library_path("fused_solve"),
+        "_Z18fused_solve_kernelPKfS0_S0_S0_S0_S0_S0_S0_S0_S0_S0_S0_S0_"
+        "PfS1_S1_S1_Piiiiiififf7SocDimsi")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def k2_chains(card) -> int:
+    """``--k2-chains``: the shared-memory body's K2 row layouts
+    (K2_VARIANTS) on the captured inputs of every shape it takes, each
+    layout's build in a child of its own (all built at once, then run one
+    at a time): per case the error over the kernel bar and ms a launch;
+    the table to standard output and ``chiprun_out/k2_chains.json``."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import _build
+
+    _build.build()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    inputs = os.path.join(HERE, "build", "k2_inputs.pt")
+    os.makedirs(os.path.dirname(inputs), exist_ok=True)
+    cases = k2_cases()
+    torch.save({c: ([None if t is None else t.cpu() for t in a], k)
+                for c, (a, k) in cases.items()}, inputs)
+    print(f"k2 layouts: cases {sorted(cases)} | {card}", flush=True)
+
+    def child(v, build_only):
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--k2-variant",
+             *map(str, v), inputs] + (["--build-only"]
+                                              if build_only else []),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=HERE)
+
+    t0 = time.perf_counter()
+    builds = [child(v, True) for v in K2_VARIANTS]
+    for v, p in zip(K2_VARIANTS, builds):
+        so, se = p.communicate(timeout=900)
+        if p.returncode:
+            fail(f"k2 layout {v}: build exited {p.returncode}: {se[-2000:]}")
+    print(f"k2 layouts: {len(K2_VARIANTS)} builds at once in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rows = []
+    for v in K2_VARIANTS:
+        p = child(v, False)
+        so, se = p.communicate(timeout=900)
+        if p.returncode:
+            fail(f"k2 layout {v}: exited {p.returncode}: {se[-2000:]}")
+        row = json.loads(so.strip().splitlines()[-1])
+        rows.append(row)
+        print(f"k2 layout {v[0]} chains (one chain up to d = {v[1]}): "
+              + "; ".join(f"{c} {r['ms']:.4f} ms, err/bar "
+                          f"{r['err_over_bar']:.3f} ({r['worst']})"
+                          + ("" if r["ok"] else " FAIL")
+                          for c, r in row["cases"].items())
+              + f" | sass {row['sass_fused_solve_kernel']} | {card}",
+              flush=True)
+    with open(os.path.join(out_dir, "k2_chains.json"), "w") as fh:
+        json.dump({"card": card, "variants": rows}, fh, indent=1)
+    return 0
+
+
 def main() -> int:
-    child = sys.argv[1:2] == ["--recovery-child"]
+    child = sys.argv[1:2] in (["--recovery-child"], ["--serving-child"])
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: the {PKG} package is not beside this script",
               file=sys.stderr)
@@ -4628,9 +5731,23 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
               "runs on an NVIDIA card only", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--serving-child"]:
+        return serving_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--k2-variant"]:
+        return k2_variant(*map(int, sys.argv[2:4]), sys.argv[4],
+                          "--build-only" in sys.argv)
+    if sys.argv[1:2] == ["--k2-chains"]:
+        return k2_chains(card_line())
     if child:
         mode, run_dir, S = sys.argv[2:5]
         return recovery_child(mode, run_dir, int(S))
+    if os.environ.get("TAT_BACKEND_FAULTS"):
+        # An injected fault would degrade work the phases hold to the card:
+        # phase 37 sets it for one server run only.
+        print("chip_smoke: TAT_BACKEND_FAULTS is set "
+              f"({os.environ['TAT_BACKEND_FAULTS']!r}); unset it",
+              file=sys.stderr)
+        return 1
 
     from tpu_aerial_transport_torch.harness import rollout
     from tpu_aerial_transport_torch.ops import _build, admm_kernel
@@ -5166,6 +6283,9 @@ def main() -> int:
     # 36. The differentiable simulation: no kernel on its path.
     phase_at["36"] = time.perf_counter() - t_start
     diff_phase(card, report)
+    # 37. The serving tier through the whole-solve kernel's two bodies.
+    phase_at["37"] = time.perf_counter() - t_start
+    serving_launches = serving_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],
@@ -5178,6 +6298,7 @@ def main() -> int:
     report["kernels"] = kernels
     report["launches_elsewhere"] = {
         "fused_solve_cadmm_options": option_launches,
+        "fused_solve_serving_stream": serving_launches,
     }
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(
         HERE, "build", "chip_smoke.json")

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: it never imports JAX, flax or the JAX
 package, and its entry points never fall back to the CPU on their own."""
 
+import json
 import os
 import pkgutil
 import re
@@ -61,7 +62,11 @@ def test_import_leaves_jax_out_of_sys_modules():
               "obs.export", "obs.trace", "resilience.recovery", "models.rp",
               "models.pmrl", "control.rp_centralized", "control.rp_cadmm",
               "control.pmrl_centralized", "harness.diff",
-              "examples.grad_tuning"):
+              "examples.grad_tuning", "resilience.backend",
+              "serving.queue", "serving.cache", "serving.lanes",
+              "serving.batcher", "serving.server", "serving.sessions",
+              "serving", "aot.loader", "examples.serve_scenarios",
+              "examples.serve_sessions"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -118,7 +123,11 @@ def test_source_scan_covers_the_slice():
               "models/rp.py", "models/pmrl.py", "control/rp_centralized.py",
               "control/rp_cadmm.py", "control/pmrl_centralized.py",
               "harness/setup.py", "harness/diff.py",
-              "examples/grad_tuning.py"):
+              "examples/grad_tuning.py", "resilience/backend.py",
+              "serving/__init__.py", "serving/queue.py", "serving/cache.py",
+              "serving/lanes.py", "serving/batcher.py", "serving/server.py",
+              "serving/sessions.py", "aot/__init__.py", "aot/loader.py",
+              "examples/serve_scenarios.py", "examples/serve_sessions.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 
@@ -316,6 +325,37 @@ def test_slice12_entry_points_default_to_the_card():
     best, hist = diff.tune_gains(loss, convert.gains(
         grad_tuning.DETUNED, device="cpu"), state0, iters=1)
     assert not hist.is_cuda and not best["k_R"].is_cuda
+
+
+def test_slice13_entry_points_default_to_the_card(capsys):
+    """The serving tier's entry points -- a family, the server, both
+    example scripts -- target the card unless asked for the CPU; the
+    guard's CPU rung is never a stand-in for a missing card."""
+    from tpu_aerial_transport_torch.examples import (
+        serve_scenarios,
+        serve_sessions,
+    )
+    from tpu_aerial_transport_torch.serving import batcher, server
+
+    if torch.cuda.is_available():
+        assert batcher.make_family("cadmm4").device.type == "cuda"
+        return
+    for fn in (lambda: batcher.make_family("cadmm4"),
+               lambda: server.ScenarioServer(),
+               lambda: serve_scenarios.main(["--requests", "2"]),
+               lambda: serve_sessions.main(["--clients", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
+    assert serve_scenarios.main(["--requests", "6", "--buckets", "2,4",
+                                 "--device", "cpu"]) == 0
+    assert serve_sessions.main(["--clients", "2", "--steps", "2",
+                                "--buckets", "2,4", "--offline-check",
+                                "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    first, second = (json.loads(line) for line in lines[-2:])
+    assert first["completed"] == 6 and first["device"] == "cpu"
+    assert second["offline_check"]["mismatches"] == []
+    assert second["offline_check"]["checked"] == 4
 
 
 def test_inactive_env_cbf_defaults_to_the_card():

@@ -590,20 +590,39 @@ def test_chunked_resilient_matches_jax():
 
 
 def test_guard_is_not_ported(tmp_path):
-    """``guard=`` raises, naming the roadmap item, on both entry points;
-    nothing degrades to another device."""
+    """What of the JAX guard is not ported -- its CPU rung for work on the
+    card -- stays out: under a guard whose primary is the card an injected
+    crash raises the classified ``BackendError`` and runs nothing on the
+    CPU. The rest is ported: ``guard=`` runs on both entry points (a clean
+    run never degrades: every chunk on the guard's primary rung, no
+    ``backend_event``), and the result is bitwise an unguarded run's;
+    tests/test_torch_backend.py holds the failures against the JAX
+    package's."""
+    from tpu_aerial_transport_torch.resilience import backend
+
     p = _central()
     runner = _runner(p)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        recovery.run_chunks(_plan(tmp_path), runner.chunk_jit,
-                            runner.init_carry(p.states, p.css),
-                            guard=object())
-    recovery.run_chunks(_plan(tmp_path), runner.chunk_jit,
-                        runner.init_carry(p.states, p.css))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        recovery.resume_run(str(tmp_path), runner.chunk_jit,
-                            runner.init_carry(p.states, p.css),
-                            guard=object())
+    guard = backend.BackendGuard(faults=backend.FaultInjector())
+    res = recovery.run_chunks(_plan(tmp_path), runner.chunk_jit,
+                              runner.init_carry(p.states, p.css),
+                              guard=guard)
+    assert guard.fallbacks == 0 and guard.events == []
+    _assert_bitwise(_reference(p)[:2], res.carry[:2], "guarded run")
+    chunks = [e for e in recovery.RunJournal(str(tmp_path)).read()
+              if e["event"] == "chunk"]
+    assert [e["rung"] for e in chunks] == [guard.primary_rung] * CHUNKS
+    res2 = recovery.resume_run(str(tmp_path), runner.chunk_jit,
+                               runner.init_carry(p.states, p.css),
+                               guard=guard)
+    assert res2.status == "done" and res2.resumed_from_chunk == CHUNKS
+    assert guard.fallbacks == 0
+    card = backend.BackendGuard(
+        primary_rung=backend.RUNG_ONCHIP,
+        faults=backend.FaultInjector.from_env("crash@1"))
+    with pytest.raises(backend.BackendError, match="device_crash"):
+        recovery.run_chunks(_plan(tmp_path / "card"), runner.chunk_jit,
+                            runner.init_carry(p.states, p.css), guard=card)
+    assert card.fallbacks == 0 and not card.last_fell_back
 
 
 def test_port_journal_reads_under_jax_read_plan(tmp_path):

@@ -18,9 +18,16 @@
 // two block-wide results.
 #define FS_RED_FLOATS 66
 // K2 row sums in admm_iteration: rows of up to K2_ONE_CHAIN_MAX_D terms in
-// one chain, longer rows in K2_CHAINS chains (a power of two).
-#define K2_ONE_CHAIN_MAX_D 80
+// one chain, longer rows in K2_CHAINS chains (a power of two). Every shape
+// the block bodies take has d > 64 (a warp body takes the rest). Both may
+// be set with -D at the build, to compare row layouts on the card
+// (chip_smoke.py --k2-chains).
+#ifndef K2_ONE_CHAIN_MAX_D
+#define K2_ONE_CHAIN_MAX_D 64
+#endif
+#ifndef K2_CHAINS
 #define K2_CHAINS 8
+#endif
 
 struct SocDims {
   int n;
@@ -88,8 +95,13 @@ __device__ __forceinline__ void admm_iteration(
     // with its length: at d = 111 it is about twice the plain version's
     // (cuBLAS) distance from the float64 sum, which the 1e3-boosted
     // equality rows carry into y, and the early-exit decisions follow it.
-    // Eight chains bring it to the plain version's; at d <= 79 one chain
-    // is within the kernel bar and faster (measured on an H100).
+    // At d = 79 one chain met the kernel bar after 120 iterations but not
+    // after the 4 of a served centralized chunk, where the iterates still
+    // move. On an H100 (chip_smoke.py --k2-chains) at every block-body
+    // shape (d = 67, 72, 79, 111): one, two and four chains each missed
+    // the bar somewhere (a 4-lane served chunk at d = 79: 2.02, 1.009 and
+    // 1.009 times it), eight met it everywhere (0.08 times there), at
+    // 5-25% more time than four and up to a third more than one.
     const float* row = sK2 + tid * ld_d;
     float acc;
     if (d <= K2_ONE_CHAIN_MAX_D) {

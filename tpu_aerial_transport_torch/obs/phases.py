@@ -29,6 +29,8 @@ SHARDED_STEP = "sharded_step"  # an agent-sharded step's plumbing.
 FAULTS = "faults"              # fault-schedule evaluation + sensor noise.
 FALLBACK = "fallback"          # force-fallback ladder + NaN quarantine.
 TELEMETRY = "telemetry"        # run-health accumulator update.
+SERVING_CHUNK = "serving_chunk"  # one served batch chunk (serving tier).
+LANE_SURGERY = "lane_surgery"  # boundary lane surgery on the card.
 
 
 def scope(phase: str) -> torch.profiler.record_function:

@@ -30,9 +30,15 @@ seed and meta (the set-up factories and ``envs.forest.make_forest(seed)``
 are deterministic), so a run directory and the code that started it are
 enough to resume; no live process state is needed.
 
-Not ported yet: the backend guard (``guard=``, ROADMAP Queue 1 item 10,
-with a CUDA error taxonomy of its own), and with it the JAX package's
-degradation of a chunk to the host CPU. A retry here stays on the card.
+With a backend guard (``guard=``, ``resilience.backend.BackendGuard``)
+each chunk runs under the guard's deadline, and a classified failure
+(wedge, initialisation, crash, OOM) journals a ``backend_event``. On the
+card the run then stops with the guard's ``BackendError``, to be resumed
+from its last published boundary (:func:`resume_run`, in a new process
+after a sticky CUDA error): nothing moves to the CPU. A CPU-primary run
+reruns the chunk on the guard's CPU rung from the last boundary's host
+copy, never from the failed carry, and stays there (one-way), as the JAX
+package's does. A host-level retry (``max_retries``) stays on the card.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ from tpu_aerial_transport_torch.harness.rollout import (
 from tpu_aerial_transport_torch.obs import export as export_mod
 from tpu_aerial_transport_torch.obs import telemetry as telemetry_mod
 from tpu_aerial_transport_torch.obs import trace as trace_mod
-from tpu_aerial_transport_torch.tree import tree_map
+from tpu_aerial_transport_torch.resilience import backend as backend_mod
+from tpu_aerial_transport_torch.tree import leaves, tree_map
 
 JOURNAL_SCHEMA = 1
 CARRY_PREFIX = "carry"
@@ -199,13 +206,13 @@ def read_plan(run_dir: str, journal_filename: str | None = None) -> RunPlan:
     )
 
 
-def _no_guard(guard) -> None:
-    if guard is not None:
-        raise NotImplementedError(
-            "guard=: the backend guard (resilience/backend.py) is not "
-            "ported yet; it comes with a CUDA error taxonomy of its own "
-            "(ROADMAP Queue 1 item 10). Use max_retries= for a host-level "
-            "retry on the same device")
+def _cpu_rung_ok(guard, carry, place) -> bool:
+    """Whether the guard's CPU rung may rerun a chunk: only in a
+    CPU-primary run (every carry leaf on the CPU, no ``place`` function),
+    whose own program then reruns from the boundary's host copy. A carry
+    on the card is never moved to the CPU (the guard refuses it too)."""
+    return (guard is not None and place is None
+            and all(t.device.type == "cpu" for t in leaves(carry)))
 
 
 def run_chunks(
@@ -243,8 +250,16 @@ def run_chunks(
     are spent: such a run is resumed by a new process (:func:`resume_run`),
     from the last published boundary.
 
-    ``guard`` (the JAX package's backend guard) is not ported: passing one
-    raises ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+    ``guard`` (optional; a ``resilience.backend.BackendGuard``): each
+    chunk runs under the guard's deadline watchdog, and a classified
+    failure (wedge, initialisation, crash, OOM) journals a
+    ``backend_event``. On the card the guard then raises its
+    ``BackendError``, which reaches the host-level retry (on the card) and
+    then the caller: the run is resumed from its last published boundary
+    by :func:`resume_run`. A CPU-primary run (its carry on the CPU, no
+    ``place``) instead reruns the chunk on the guard's CPU rung from the
+    last boundary's host copy and CONTINUES there (one-way, as in the JAX
+    package). Every chunk event records the ``rung`` it ran at.
 
     ``metrics`` (optional; an ``obs.export.MetricsWriter`` or a jsonl
     path): one ``chunk`` event per boundary with the chunk's wall time, a
@@ -261,7 +276,7 @@ def run_chunks(
     Carry snapshots are pruned to ``plan.keep_last``; the per-chunk log
     snapshots are kept for every chunk (the whole trajectory must be
     reconstructable)."""
-    _no_guard(guard)
+    cpu_rung = _cpu_rung_ok(guard, carry, place)
     journal = RunJournal(plan.run_dir, filename=plan.journal_filename)
     os.makedirs(plan.run_dir, exist_ok=True)
     _host = to_host if to_host is not None else host_copy
@@ -293,6 +308,15 @@ def run_chunks(
     retries_total = 0
     attempt = 0
     c = start_chunk
+    if guard is not None:
+        # The guard's backend_event rows land in this run's journal and
+        # metrics unless the caller wired its own sinks.
+        if guard.journal is None:
+            guard.journal = journal
+        if guard.metrics is None:
+            guard.metrics = metrics
+        if guard.tracer is None:
+            guard.tracer = tracer
     run_span = None
     if tracer is not None:
         run_span = tracer.begin(
@@ -301,6 +325,16 @@ def run_chunks(
             **({"resumed_from": resumed_from_chunk}
                if resumed_from_chunk is not None else {}),
         )
+    rung: str | None = None
+    # One-way, CPU-primary runs only: a guard fallback pins the run to the
+    # CPU rung.
+    degraded = False
+
+    def _logs_out():
+        if not logs_chunks:
+            return None
+        return concat_chunk_logs(logs_chunks, plan.logs_time_axis)
+
     while c < plan.n_chunks:
         if interrupt is not None and interrupt.triggered:
             if c > 0:
@@ -326,9 +360,7 @@ def run_chunks(
                                signal=interrupt.triggered)
                 tracer.end(run_span, status="preempted", chunks_done=c)
             return RunResult(
-                carry=carry,
-                logs=(concat_chunk_logs(logs_chunks, plan.logs_time_axis)
-                      if logs_chunks else None),
+                carry=carry, logs=_logs_out(),
                 status="preempted", chunks_done=c,
                 resumed_from_chunk=resumed_from_chunk,
                 retries=retries_total,
@@ -338,16 +370,41 @@ def run_chunks(
             cspan = tracer.begin(trace_mod.CHUNK, parent=run_span, chunk=c)
         try:
             t0 = time.perf_counter()
-            new_carry, logs = chunk_jit(carry,
-                                        chunk_index_offset(c, plan.chunk_len))
-            # The copy synchronises (a device error surfaces inside this
-            # try) and backs the carry up. It stays a local until the
-            # boundary is published: advancing carry_host here would make
-            # a snapshot write failure retry chunk c from chunk c's own
-            # output, applying its dynamics twice.
-            new_carry_host = _host(new_carry)
-            if to_host is not None:
-                logs = to_host(logs)
+            offset = chunk_index_offset(c, plan.chunk_len)
+
+            def _exec(program, chunk_carry):
+                out_carry, out_logs = program(chunk_carry, offset)
+                # The copy synchronises (a device error surfaces inside
+                # this try -- under the guard, inside the watchdogged
+                # primary call) and backs the carry up. It stays a local
+                # until the boundary is published: advancing carry_host
+                # here would make a snapshot write failure retry chunk c
+                # from chunk c's own output, applying its dynamics twice.
+                out_host = _host(out_carry)
+                if to_host is not None:
+                    out_logs = to_host(out_logs)
+                return out_carry, out_logs, out_host
+
+            if guard is None:
+                new_carry, logs, new_carry_host = _exec(chunk_jit, carry)
+            elif degraded:
+                # Pinned to the CPU rung: run there directly, without the
+                # primary's deadline.
+                new_carry, logs, new_carry_host = _exec(chunk_jit, carry)
+                rung = backend_mod.RUNG_CPU
+            else:
+                # The CPU rung restarts from the last BOUNDARY's host copy
+                # (a clone: the anchor stays untouched), never from the
+                # failed carry.
+                fallback = None if not cpu_rung else \
+                    backend_mod.run_on_cpu(lambda: _exec(
+                        chunk_jit,
+                        tree_map(lambda t: t.clone(), carry_host)))
+                (new_carry, logs, new_carry_host), rung = guard.run(
+                    f"chunk{c}", lambda: _exec(chunk_jit, carry),
+                    fallback_fn=fallback, trace_parent=cspan,
+                )
+                degraded = guard.last_fell_back
             wall_s = time.perf_counter() - t0
             if tracer is not None:
                 sspan = tracer.begin(trace_mod.SNAPSHOT, parent=cspan,
@@ -412,7 +469,8 @@ def run_chunks(
                 tracer.end(run_span, status="interrupted")
             raise
         if tracer is not None:
-            tracer.end(cspan)
+            tracer.end(cspan, **({"rung": rung} if rung is not None
+                                 else {}))
         journal.append({
             "event": "chunk", "chunk": c,
             "step_end": (c + 1) * plan.chunk_len,
@@ -420,6 +478,8 @@ def run_chunks(
                 checkpoint.snapshot_path(plan.run_dir, c, plan.carry_prefix)
             ),
             "retries": attempt,
+            # The rung this chunk ran at (guarded runs only).
+            **({"rung": rung} if rung is not None else {}),
         })
         if metrics is not None:
             # The telemetry accumulator (if the carry threads one) is
@@ -431,6 +491,7 @@ def run_chunks(
                 step_end=(c + 1) * plan.chunk_len,
                 telemetry=export_mod.telemetry_event(tel),
                 logs=_logs_digest(logs),
+                **({"rung": rung} if rung is not None else {}),
             )
         logs_chunks.append(logs)
         carry = new_carry
@@ -443,9 +504,7 @@ def run_chunks(
     if tracer is not None:
         tracer.end(run_span, status="done", chunks=plan.n_chunks)
     return RunResult(
-        carry=carry,
-        logs=(concat_chunk_logs(logs_chunks, plan.logs_time_axis)
-              if logs_chunks else None),
+        carry=carry, logs=_logs_out(),
         status="done", chunks_done=plan.n_chunks,
         resumed_from_chunk=resumed_from_chunk,
         retries=retries_total,
@@ -501,13 +560,12 @@ def resume_run(
     ``config_hash`` (when given) must match the journaled one.
     ``max_start_chunk`` caps the resume point (every process of a
     multi-process run restarts from the same boundary);
-    ``journal_filename``/``to_host`` as in :func:`run_chunks`; ``guard``
-    raises ``NotImplementedError``.
+    ``journal_filename``/``to_host``/``guard`` as in :func:`run_chunks`
+    (a guarded resume starts again on the primary rung).
 
     Returns the result an uninterrupted run would have given, bit for
     bit: restored chunks contribute their stored logs, the remaining ones
     recompute from the restored carry."""
-    _no_guard(guard)
     plan = read_plan(run_dir, journal_filename=journal_filename)
     journal = RunJournal(run_dir, filename=journal_filename)
     if (config_hash is not None and plan.config_hash is not None
@@ -588,6 +646,6 @@ def resume_run(
         plan, chunk_jit, carry, start_chunk=start_chunk,
         prior_logs=prior_logs, interrupt=interrupt, place=place,
         max_retries=max_retries, resumed_from_chunk=start_chunk,
-        metrics=metrics, to_host=to_host, tracer=tracer,
+        metrics=metrics, guard=guard, to_host=to_host, tracer=tracer,
         trace_parent=rspan,
     )
