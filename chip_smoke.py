@@ -153,7 +153,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    (``--recovery-child resume``) resumes past it, bitwise the
    uninterrupted run by per-leaf sha256; the resilient headline with phase
    29's schedules through ``make_chunked_resilient_rollout``, bitwise
-   ``jit_resilient_rollout``, preempted and resumed in-process with the
+   ``jit_resilient_rollout`` with the same kernel launches (each run
+   counted from zero), preempted and resumed in-process with the
    NaN scenario's quarantine flag in the carry; the journal's events and
    the metrics file checked;
 34. the RP model at 256 scenarios x 8 agents (``rp_setup(8)``) through the
@@ -234,6 +235,35 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    session's 1 us step deadline degrades that step to hold-last, counted,
    its state and next step unforked. The smoke refuses to start with
    ``TAT_BACKEND_FAULTS`` set.
+38. the user's drivers (``tpu_aerial_transport_torch/examples``), one
+   scenario each, in a child process (this script with
+   ``--driver-child``) that runs them through their ``main`` on the card,
+   every launch counter zeroed before each and read after: (a)
+   ``rqp_forest`` with C-ADMM and DD at n = 8 and the centralized
+   controller at n = 3 for ``DRIVER_T`` s, C-ADMM with its timing pass
+   (and ``--plots`` where matplotlib is installed; where it is not, the
+   flag refused before any rollout): the warp body (C-ADMM, DD) and the
+   block body's early form (centralized) launched, the first
+   ``DRIVER_CPU_STEPS`` steps of each log against the same driver run on
+   the CPU in this process (states 1e-4, forces 1e-2 N, iteration counts
+   equal); (b) its chunked run as a user starts it (``python -m``),
+   SIGTERMed by this script once ``DRIVER_SIGTERM_AFTER`` chunks are
+   journaled, then ``--resume`` in a fresh process: the log bitwise the
+   uninterrupted chunked run's by sha256; (c) ``fault_injection``'s three
+   scenarios at n = 8: the killed agent's forces exactly 0 from its
+   failure step, the dropout masks bitwise the CPU's, and its
+   checkpointed run preempted and resumed likewise, every snapshot leaf
+   bitwise the uninterrupted run's; (d) ``city_forest`` at 16384 trees:
+   "bucketed" resolved and printed, the telemetry counts equal to a
+   recount from the logs, the grid record and the rate; (e)
+   ``convergence_rates`` (100 samples, 25 iterations) and its effort A/B:
+   every sample's residual curve within ``CONV_BAR`` of the CPU's; (f)
+   ``replay`` on (a)'s C-ADMM log: its layout, the forest rebuilt bitwise,
+   and the frames, the ghost snapshot and the figures where matplotlib is
+   installed (where it is not, replay refuses up front, and the figures
+   are left to the CPU tests); (g) ``serve_sessions`` with the live hub
+   and the SLO pass: the hub's counters equal to a recount from the
+   journal and a nominal storm firing no alert.
 
 The main path and every bench path replay the ten substeps of a step from
 a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
@@ -253,8 +283,9 @@ plain version's own float32 rounding (its distance from the same plain
 version run in float64) where that is larger: DD's duals carry 400 times
 the rounding of A x (``ROUNDING_FACTOR``).
 
-The children of phases 33 and 37 print one ``recovery-child`` or
-``serving-child`` record each and never the result line.
+The children of phases 33, 37 and 38 print one ``recovery-child``,
+``serving-child`` or ``driver-child`` record each and never the result
+line.
 
 Output: timing lines carry the card's name and power limit; a ``kernels``
 JSON line, the ``nvidia-smi`` name/power-limit line, and last
@@ -449,6 +480,29 @@ SERVE_MODE_REQUESTS, SERVE_GUARD_REQUESTS = 192, 96
 SERVE_PREEMPT_REQUESTS, SERVE_PREEMPT_CLIENTS, SERVE_PREEMPT_STEPS = 192, 64, 4
 SERVE_SIGTERM_AFTER = {"scen": 1, "sess": 3}
 SESSIONS, SESSION_STEPS = 256, 10
+# Phase 38, the user's drivers (tpu_aerial_transport_torch/examples), one
+# scenario each as a user runs them: (a) rqp_forest at n = 8 (C-ADMM, DD)
+# and n = 3 (centralized) for DRIVER_T s (100 MPC steps), C-ADMM's timing
+# pass in chunks of DRIVER_TIME_CHUNK steps, the first DRIVER_CPU_STEPS
+# steps (DRIVER_CPU_T s) held against the CPU; (b) the chunked C-ADMM run
+# (DRIVER_CHUNK_T s in DRIVER_CHUNKS chunks), SIGTERMed by this script
+# once DRIVER_SIGTERM_AFTER chunks are journaled; (c) fault_injection's
+# three scenarios and its checkpointed run at n = 8 for FAULT_STEPS steps
+# (the example's 200 cut to hold the phase near two minutes; the agent
+# dies at half); (d) city_forest at CITY_TREES trees, CITY_N agents,
+# CITY_T s (the example's defaults); (e) convergence_rates at its
+# defaults, the card's curves within CONV_BAR of the CPU's; (g) the
+# session example's nominal storm with the live hub.
+DRIVER_N, DRIVER_T, DRIVER_TIME_CHUNK = 8, 1.0, 10
+DRIVER_CPU_T, DRIVER_CPU_STEPS = 0.035, 3
+DRIVER_CHUNK_T, DRIVER_CHUNKS, DRIVER_SIGTERM_AFTER = 0.4, 4, 2
+FAULT_STEPS = 40
+CITY_N, CITY_T = 4, 0.5
+CONV_SAMPLES, CONV_ITERS, CONV_BAR = 100, 25, 1e-2
+DRIVER_SESSION_ARGS = ["--clients", "16", "--steps", "3", "--buckets",
+                       "16,32", "--lease-s", "600", "--offline-check"]
+# The command that runs a driver module as a user does (``-m``).
+DRIVER_CMD = [sys.executable, "-m"]
 
 
 def fail(msg: str) -> None:
@@ -3633,11 +3687,22 @@ def recovery_phase(card, report):
 
     runr = chunked_res(sched)
     carries = []
+    # The same work gives the same launches: each run's kernel launches
+    # counted from zero.
+    zero_launches()
     whole = runr(states, css,
                  on_boundary=lambda c, carry, lg: carries.append(carry))
+    torch.cuda.synchronize()
+    res_launches = {"chunked": {
+        k: v for k, v in admm_kernel.KERNEL_LAUNCHES.items() if v}}
+    zero_launches()
     unchunked = res.jit_resilient_rollout(
         hl, ctl.ll.control, ctl.params, n_hl_steps=REC_STEPS,
         acc_des_fn=acc, faults=sched)(states, css)
+    torch.cuda.synchronize()
+    res_launches["unchunked"] = {
+        k: v for k, v in admm_kernel.KERNEL_LAUNCHES.items() if v}
+    res_warp = res_launches["chunked"].get("warp_solve_kernel", 0)
     flags = [bool(c[3][K]) for c in carries]
     first_q = KILL_STEP // runr.chunk_len  # the first flagged boundary.
     benign = chunked_res(on_card(fault_schedules(S, False)))(states, css)[2]
@@ -3665,7 +3730,8 @@ def recovery_phase(card, report):
     chunked_bits = tree_bits_equal(whole, unchunked)
     resumed_bits = (tree_bits_equal(carries[-1], resumed.carry)
                     and tree_bits_equal(whole[2], resumed.logs))
-    ok_c = (chunked_bits and resumed_bits
+    ok_c = (chunked_bits and resumed_bits and res_warp > 0
+            and res_launches["chunked"] == res_launches["unchunked"]
             and flags == [i >= first_q for i in range(REC_CHUNKS)]
             and bool(whole[2].quarantined[KILL_STEP:, K].all())
             and not bool(whole[2].quarantined[:, :K].any()) and not leak
@@ -3673,7 +3739,9 @@ def recovery_phase(card, report):
             and resumed.resumed_from_chunk == REC_STOP_CHUNK + 1)
     print(f"{what} (c): make_chunked_resilient_rollout (phase 29's "
           f"schedules, scenario {K} at +inf thrust from step {KILL_STEP}) "
-          f"bitwise jit_resilient_rollout: {chunked_bits} | scenario {K}'s "
+          f"bitwise jit_resilient_rollout: {chunked_bits}, kernel launches "
+          f"chunked {res_launches['chunked']} unchunked "
+          f"{res_launches['unchunked']} | scenario {K}'s "
           f"quarantine flag in the carry at the {REC_CHUNKS} boundaries "
           f"(every {runr.chunk_len} steps): {flags} | the other {K} "
           f"scenarios bitwise a benign run's in {len(keys)} log leaves: "
@@ -3683,8 +3751,9 @@ def recovery_phase(card, report):
           + ("ok" if ok_c else "FAIL") + f" | {card}", flush=True)
     if not ok_c:
         fail(f"{what}: the chunked resilient run (flags {flags}, lane "
-             f"leakage in {leak}, preempted after {pre.chunks_done}, resumed "
-             f"from {resumed.resumed_from_chunk})")
+             f"leakage in {leak}, launches {res_launches}, preempted after "
+             f"{pre.chunks_done}, resumed from "
+             f"{resumed.resumed_from_chunk})")
     report["recovery"] = {
         "chunked_bitwise": bits, "warp_solve_launches": n_warp,
         "iterations_run": runs, "graph": list(graph),
@@ -3695,6 +3764,7 @@ def recovery_phase(card, report):
                            "resume": rec_r["seconds"]},
         "resume_walk_ms": walk_ms, "journal": events,
         "resilient_flags": flags, "resilient_chunked_bitwise": chunked_bits,
+        "resilient_launches": res_launches,
         "resilient_resumed_bitwise": resumed_bits}
 
 
@@ -5488,6 +5558,575 @@ def serving_session_checks(card, server, fam):
 K2_VARIANTS = ((1, 128), (2, 64), (4, 64), (8, 64), (16, 64))
 
 
+def have_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def run_driver(main, argv):
+    """``(return value, stdout lines, wall seconds)`` of a driver's
+    ``main(argv)`` run in this process, its output captured."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def lines_with(lines, *prefixes):
+    return [ln for ln in lines if ln.startswith(prefixes)]
+
+
+def rqp_driver_args(name: str, T: float, device: str, out: str):
+    """rqp_forest's arguments in phase 38(a): C-ADMM and DD at n = 8, the
+    default centralized controller at n = 3."""
+    ctl = [] if name == "centralized" else ["--controller", name]
+    n = 3 if name == "centralized" else DRIVER_N
+    return ctl + ["-n", str(n), "-T", str(T), "--out", out,
+                  "--device", device]
+
+
+def driver_child(run_dir: str) -> int:
+    """Phase 38's card child: the drivers run through their ``main`` on
+    the card, one after another, every launch counter zeroed just before
+    each and read just after. Prints one ``driver-child {json}`` line and
+    never the result line."""
+    import numpy as np
+    import torch
+
+    from tpu_aerial_transport_torch.examples import (
+        city_forest,
+        convergence_rates,
+        fault_injection,
+        rqp_forest,
+        serve_sessions,
+    )
+    from tpu_aerial_transport_torch.ops import admm_kernel
+    from tpu_aerial_transport_torch.resilience import faults
+
+    os.chdir(run_dir)  # rqp_forest --plots draws into the working directory.
+    t_all = time.perf_counter()
+    rec = {"matplotlib": have_matplotlib()}
+
+    def launched():
+        torch.cuda.synchronize()
+        return {k: v for k, v in admm_kernel.KERNEL_LAUNCHES.items() if v}
+
+    # (a) rqp_forest, the three controllers.
+    rec["rqp"] = {}
+    for name in ("cadmm", "dd", "centralized"):
+        argv = rqp_driver_args(name, DRIVER_T, "cuda",
+                               os.path.join(run_dir, f"{name}.npz"))
+        argv += (["--time-chunk", str(DRIVER_TIME_CHUNK)]
+                 + (["--plots"] if rec["matplotlib"] else [])
+                 if name == "cadmm" else ["--time-chunk", "0"])
+        zero_launches()
+        rc, lines, wall = run_driver(rqp_forest.main, argv)
+        rec["rqp"][name] = {
+            "rc": rc, "seconds": wall, "launches": launched(),
+            "lines": lines_with(lines, "done in", "Solve time",
+                                "Solver iterations", "kernel launches",
+                                "figures")}
+    if not rec["matplotlib"]:
+        # --plots refuses up front, before any rollout, without matplotlib.
+        try:
+            rqp_forest.main(["--plots", "--device", "cuda"])
+            rec["plots_refused"] = None
+        except SystemExit as e:
+            rec["plots_refused"] = str(e)
+    # (b) the uninterrupted chunked run, the preempted one's reference.
+    zero_launches()
+    rc, lines, wall = run_driver(rqp_forest.main, [
+        "--controller", "cadmm", "-n", str(DRIVER_N), "-T",
+        str(DRIVER_CHUNK_T), "--chunks", str(DRIVER_CHUNKS), "--ckpt-dir",
+        os.path.join(run_dir, "chunk_full"), "--out",
+        os.path.join(run_dir, "chunk_full.npz"), "--time-chunk", "0"])
+    rec["chunked"] = {"rc": rc, "seconds": wall, "launches": launched()}
+    # (c) fault_injection: the three scenarios and the checkpointed run.
+    zero_launches()
+    out, lines, wall = run_driver(fault_injection.main, [
+        "-n", str(DRIVER_N), "--steps", str(FAULT_STEPS), "--device",
+        "cuda"])
+    t_fail = FAULT_STEPS // 2
+    killed = out[f"agent 0 killed @ step {t_fail}"]
+    sched = fault_injection.scenarios(DRIVER_N, FAULT_STEPS, "cuda")[
+        "30% consensus dropout"]
+    rec["fault"] = {
+        "seconds": wall, "launches": launched(),
+        "killed_after_max_abs": float(killed.f_des[t_fail:, 0].abs().max()),
+        "killed_before_min_norm": float(
+            killed.f_des[:t_fail, 0].norm(dim=-1).min()),
+        "others_min_norm": float(killed.f_des[:, 1:].norm(dim=-1).min()),
+        "rungs": {name: np.bincount(lg.fallback_rung.cpu().numpy(),
+                                    minlength=4).tolist()
+                  for name, lg in out.items()},
+        "quarantined": {name: bool(lg.quarantined[-1])
+                        for name, lg in out.items()},
+        "masks": [faults.fault_step(sched, t).msg_ok.cpu().tolist()
+                  for t in range(FAULT_STEPS)],
+        "summary": [ln for ln in lines if ln.strip()],
+    }
+    zero_launches()
+    _, lines, wall = run_driver(fault_injection.main, [
+        "-n", str(DRIVER_N), "--steps", str(FAULT_STEPS), "--chunks",
+        str(DRIVER_CHUNKS), "--ckpt-dir", os.path.join(run_dir, "fi_full"),
+        "--device", "cuda"])
+    rec["fault_checkpointed"] = {"seconds": wall, "launches": launched(),
+                                 "summary": [ln for ln in lines
+                                             if ln.strip()]}
+    # (d) city_forest at the example's defaults.
+    zero_launches()
+    out, lines, wall = run_driver(city_forest.main, [
+        "--trees", str(CITY_TREES), "-n", str(CITY_N), "-T", str(CITY_T),
+        "--device", "cuda"])
+    lg = out["logs"]
+    rec["city"] = {
+        "seconds": wall, "launches": launched(),
+        "env_query": out["env_query"], "grid": out["grid"],
+        "lines": lines_with(lines, "world", "grid", "running", "done in",
+                            "telemetry"),
+        "telemetry": {k: out[k] for k in ("steps", "iters_sum",
+                                          "collision_steps",
+                                          "min_env_dist")},
+        "recount": {"steps": int(lg.xl.shape[0]),
+                    "iters_sum": int(lg.iters.sum()),
+                    "collision_steps": int(lg.collision.sum()),
+                    "min_env_dist": float(lg.min_env_dist.min())},
+        "steps_per_s": int(lg.xl.shape[0]) / out["wall_s"],
+    }
+    # (e) convergence_rates: the curves, then the effort A/B.
+    zero_launches()
+    figure = (os.path.join(run_dir, "convergence_rates.png")
+              if rec["matplotlib"] else "")
+    curves, lines, wall = run_driver(convergence_rates.main, [
+        "--samples", str(CONV_SAMPLES), "--iters", str(CONV_ITERS),
+        "--out", figure, "--device", "cuda"])
+    np.savez(os.path.join(run_dir, "conv_card.npz"), **curves)
+    rec["conv"] = {"seconds": wall, "launches": launched(),
+                   "figure": figure,
+                   "lines": lines_with(lines, "C-ADMM", "DD")}
+    zero_launches()
+    ab, lines, wall = run_driver(convergence_rates.main, [
+        "--samples", str(CONV_SAMPLES), "--iters", str(CONV_ITERS),
+        "--effort", "ab", "--device", "cuda"])
+    rec["conv_ab"] = {"seconds": wall, "launches": launched(),
+                      "summary": ab}
+    # (g) the session example's nominal storm with the live hub.
+    zero_launches()
+    metrics = os.path.join(run_dir, "sessions", "r0.metrics.jsonl")
+    os.makedirs(os.path.dirname(metrics), exist_ok=True)
+    rc, lines, wall = run_driver(serve_sessions.main, DRIVER_SESSION_ARGS + [
+        "--metrics", metrics, "--device", "cuda"])
+    rec["sessions"] = {"rc": rc, "seconds": wall, "launches": launched(),
+                       "metrics": metrics,
+                       "summary": json.loads(lines[-1])}
+    rec["seconds"] = time.perf_counter() - t_all
+    print("driver-child " + json.dumps(rec), flush=True)
+    return 0
+
+
+def preempted_driver(argv, run_dir, what):
+    """Run a driver module as a user does (``DRIVER_CMD``) with a
+    checkpointed run into ``run_dir``, send it SIGTERM once
+    DRIVER_SIGTERM_AFTER chunks are journaled, and return ``(chunks
+    journaled, wall seconds, stderr)``; fails the phase unless the driver
+    stopped as preempted."""
+    import signal
+
+    from tpu_aerial_transport_torch.resilience import recovery
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(DRIVER_CMD + argv, cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    journal = recovery.RunJournal(run_dir)
+    sent = False
+    try:
+        while proc.poll() is None and time.perf_counter() - t0 < 300:
+            if not sent and journal.exists() and sum(
+                    e.get("event") == "chunk" for e in journal.read()
+            ) >= DRIVER_SIGTERM_AFTER:
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+            time.sleep(0.02)
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    done = sum(e.get("event") == "chunk" for e in journal.read())
+    if not sent or proc.returncode != 1 or "preempted at chunk" not in stderr:
+        fail(f"{what}: SIGTERM sent {sent}, exit {proc.returncode}, "
+             f"{done} chunks journaled: stdout {stdout[-1500:]!r} stderr "
+             f"{stderr[-3000:]!r}")
+    return done, wall, stderr.strip().splitlines()[-1]
+
+
+def resumed_driver(argv, what):
+    """Run the resume of a driver module (``DRIVER_CMD``) to its end:
+    ``(wall seconds, stdout lines)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(DRIVER_CMD + argv, cwd=HERE, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode}: stdout "
+             f"{proc.stdout[-1500:]!r} stderr {proc.stderr[-3000:]!r}")
+    return time.perf_counter() - t0, proc.stdout.splitlines()
+
+
+def npz_digests(path: str) -> dict:
+    """The sha256 of every array of an npz, by key."""
+    import hashlib
+
+    import numpy as np
+
+    raw = np.load(path, allow_pickle=False)
+    return {k: hashlib.sha256(np.ascontiguousarray(raw[k]).tobytes()
+                              ).hexdigest() for k in raw.files}
+
+
+def snapshot_digests(run_dir: str) -> dict:
+    """The sha256 of every leaf of a run's log snapshots and of its last
+    carry snapshot, by snapshot and leaf."""
+    import hashlib
+
+    import numpy as np
+
+    from tpu_aerial_transport_torch.harness import checkpoint
+    from tpu_aerial_transport_torch.resilience import recovery
+
+    snaps = list(checkpoint.list_snapshots(run_dir, recovery.LOGS_PREFIX))
+    snaps += list(checkpoint.list_snapshots(run_dir,
+                                            recovery.CARRY_PREFIX))[-1:]
+    out = {}
+    for _, path in snaps:
+        raw = np.load(path, allow_pickle=False)
+        for k in raw.files:
+            if k.startswith("leaf_"):
+                out[f"{os.path.basename(path)}:{k}"] = hashlib.sha256(
+                    np.ascontiguousarray(raw[k]).tobytes()).hexdigest()
+    return out
+
+
+def first_steps_apart(card_npz: str, cpu_npz: str, steps: int) -> dict:
+    """The card's log against the CPU's over the first ``steps`` MPC
+    steps: max abs state and force errors, and the iteration counts."""
+    import numpy as np
+
+    a, b = np.load(card_npz), np.load(cpu_npz)
+    states = {k[len("state_"):]: float(np.abs(
+        a[k][:steps].astype(np.float64) - b[k][:steps]).max())
+        for k in a.files if k.startswith("state_")}
+    return {"state_err": states,
+            "force_err": float(np.abs(a["f_des_seq"][:steps].astype(
+                np.float64) - b["f_des_seq"][:steps]).max()),
+            "iters_card": a["iter_seq"][:steps].tolist(),
+            "iters_cpu": b["iter_seq"][:steps].tolist(),
+            "same_keys": sorted(a.files) == sorted(b.files)}
+
+
+def spawn_driver_child(run_dir: str):
+    """Phase 38's card child: ``(wall seconds, its driver-child record)``."""
+    return spawn_child(["--driver-child", run_dir], "phase 38's card child",
+                       "driver-child")
+
+
+def drivers_phase(card, report):
+    """Phase 38, the user's drivers on the card (module docstring): (a)
+    rqp_forest with each controller, held against the CPU; (b) its chunked
+    run preempted by SIGTERM and resumed; (c) fault_injection, its
+    checkpointed run preempted and resumed; (d) city_forest; (e)
+    convergence_rates against the CPU; (f) replay on (a)'s log; (g) the
+    session example's live hub and SLO pass."""
+    import shutil
+
+    import numpy as np
+
+    from tpu_aerial_transport_torch.envs import forest as forest_mod
+    from tpu_aerial_transport_torch.examples import (
+        convergence_rates,
+        fault_injection,
+        replay,
+        rqp_forest,
+    )
+    from tpu_aerial_transport_torch.obs import export
+    from tpu_aerial_transport_torch.resilience import faults
+
+    what = "phase 38"
+    t_phase = time.perf_counter()
+    out = report["drivers"] = {}
+    run_dir = os.path.join(HERE, "build", "drivers")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+
+    wall_c, rec = spawn_driver_child(run_dir)
+    out["card_child"] = {"wall_s": wall_c, **{k: v for k, v in rec.items()
+                                              if k != "fault"}}
+    print(f"{what}: the card child ran every driver in {rec['seconds']:.1f} "
+          f"s (wall {wall_c:.1f} s); matplotlib on this host: "
+          f"{rec['matplotlib']} | {card}", flush=True)
+
+    # (a) rqp_forest against the CPU, its first DRIVER_CPU_STEPS steps.
+    body = {"cadmm": "warp_solve", "dd": "warp_solve",
+            "centralized": "fused_solve_early"}
+    out["rqp"] = {}
+    for name, r in rec["rqp"].items():
+        cpu_npz = os.path.join(run_dir, f"cpu_{name}.npz")
+        _, _, cpu_s = run_driver(rqp_forest.main, rqp_driver_args(
+            name, DRIVER_CPU_T, "cpu", cpu_npz) + ["--time-chunk", "0"])
+        apart = first_steps_apart(os.path.join(run_dir, f"{name}.npz"),
+                                  cpu_npz, DRIVER_CPU_STEPS)
+        hits = {k: v for k, v in r["launches"].items()
+                if k.startswith(body[name])}
+        ok = (r["rc"] == 0 and hits and all(v > 0 for v in hits.values())
+              and apart["same_keys"]
+              and max(apart["state_err"].values()) <= CPU_STATE_ATOL
+              and apart["force_err"] <= CPU_FORCE_ATOL
+              and apart["iters_card"] == apart["iters_cpu"])
+        out["rqp"][name] = {**r, "vs_cpu": apart, "cpu_seconds": cpu_s,
+                            "ok": ok}
+        print(f"{what} (a) rqp_forest {name}: " + " | ".join(r["lines"])
+              + f" | launches {r['launches']} | first {DRIVER_CPU_STEPS} "
+              f"steps against the CPU: max|state err| "
+              f"{max(apart['state_err'].values()):.2e} (atol "
+              f"{CPU_STATE_ATOL}), max|force err| {apart['force_err']:.2e} "
+              f"N (atol {CPU_FORCE_ATOL}), iterations card "
+              f"{apart['iters_card']} CPU {apart['iters_cpu']} "
+              + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+        if not ok:
+            fail(f"{what} (a): rqp_forest {name} (launches "
+                 f"{r['launches']}, against the CPU {apart})")
+    if rec["matplotlib"]:
+        figs = [os.path.join(run_dir, f"{k}_cadmm.png")
+                for k in ("tracking", "stats", "xy", "min_dist")]
+        if not all(os.path.getsize(f) > 0 for f in figs):
+            fail(f"{what} (a): --plots wrote {figs}")
+    elif "matplotlib" not in (rec.get("plots_refused") or ""):
+        fail(f"{what} (a): --plots without matplotlib was not refused up "
+             f"front: {rec.get('plots_refused')!r}")
+
+    # (b) the chunked run: SIGTERM after DRIVER_SIGTERM_AFTER chunks, then
+    # --resume in a fresh process, against the uninterrupted run.
+    pre_dir = os.path.join(run_dir, "chunk_pre")
+    module = PKG + ".examples."
+    done, wall_p, msg = preempted_driver([
+        module + "rqp_forest", "--controller", "cadmm", "-n", str(DRIVER_N),
+        "-T", str(DRIVER_CHUNK_T), "--chunks", str(DRIVER_CHUNKS),
+        "--ckpt-dir", pre_dir, "--time-chunk", "0"], pre_dir,
+        f"{what} (b) rqp_forest")
+    resumed_npz = os.path.join(run_dir, "chunk_resumed.npz")
+    wall_r, lines = resumed_driver([
+        module + "rqp_forest", "--resume", pre_dir, "--out", resumed_npz,
+        "--time-chunk", "0"], f"{what} (b) the resume")
+    ref = npz_digests(os.path.join(run_dir, "chunk_full.npz"))
+    same = npz_digests(resumed_npz) == ref
+    resumed_from = lines_with(lines, "resumed from")
+    ok = same and rec["chunked"]["rc"] == 0 and resumed_from == [
+        f"resumed from chunk {done}"]
+    out["chunked"] = {"chunks_before_sigterm": done, "preempt_wall_s":
+                      wall_p, "resume_wall_s": wall_r, "bitwise": same,
+                      "message": msg, "launches": rec["chunked"]["launches"]}
+    print(f"{what} (b) rqp_forest --chunks {DRIVER_CHUNKS}: SIGTERM after "
+          f"{DRIVER_SIGTERM_AFTER} chunks journaled, the driver stopped with "
+          f"{msg!r} (wall {wall_p:.2f} s); --resume {resumed_from} (wall "
+          f"{wall_r:.2f} s): {len(ref)} log arrays by sha256 bitwise the "
+          f"uninterrupted run's: {same} " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    if not ok:
+        fail(f"{what} (b): the resumed chunked run (bitwise {same}, "
+             f"{resumed_from})")
+
+    # (c) fault_injection: masks against the CPU's, the killed agent's
+    # forces, the checkpointed run preempted and resumed.
+    fr = rec["fault"]
+    sched = fault_injection.scenarios(DRIVER_N, FAULT_STEPS, "cpu")[
+        "30% consensus dropout"]
+    cpu_masks = [faults.fault_step(sched, t).msg_ok.tolist()
+                 for t in range(FAULT_STEPS)]
+    masks_same = fr["masks"] == cpu_masks
+    fi_dir = os.path.join(run_dir, "fi_pre")
+    done_f, wall_fp, msg_f = preempted_driver([
+        module + "fault_injection", "-n", str(DRIVER_N), "--steps",
+        str(FAULT_STEPS), "--chunks", str(DRIVER_CHUNKS), "--ckpt-dir",
+        fi_dir], fi_dir, f"{what} (c) fault_injection")
+    wall_fr, lines_f = resumed_driver([
+        module + "fault_injection", "--resume", fi_dir],
+        f"{what} (c) the resume")
+    ref_f = snapshot_digests(os.path.join(run_dir, "fi_full"))
+    same_f = snapshot_digests(fi_dir) == ref_f
+    summary_same = ([ln for ln in lines_f if ln.strip()][-6:]
+                    == rec["fault_checkpointed"]["summary"][-6:])
+    dropped = sum(not m for row in fr["masks"] for m in row)
+    ok = (masks_same and fr["killed_after_max_abs"] == 0.0
+          and fr["killed_before_min_norm"] > 0 and fr["others_min_norm"] > 0
+          and any(k.startswith("warp_solve") for k in fr["launches"])
+          and same_f and summary_same and dropped > 0)
+    out["fault"] = {k: v for k, v in fr.items() if k != "masks"}
+    out["fault"].update(masks_bitwise=masks_same, dropped=dropped,
+                        chunks_before_sigterm=done_f, snapshots_bitwise=same_f,
+                        preempt_wall_s=wall_fp, resume_wall_s=wall_fr,
+                        ok=ok)
+    print(f"{what} (c) fault_injection n = {DRIVER_N}, {FAULT_STEPS} steps "
+          f"({fr['seconds']:.1f} s): rungs {fr['rungs']}, quarantined "
+          f"{fr['quarantined']}; the killed agent's max|f| after step "
+          f"{FAULT_STEPS // 2}: {fr['killed_after_max_abs']} (its min|f| "
+          f"before {fr['killed_before_min_norm']:.3f} N); dropout masks "
+          f"({dropped} of {FAULT_STEPS * DRIVER_N} dropped) bitwise the "
+          f"CPU's: {masks_same}; launches {fr['launches']} | checkpointed: "
+          f"SIGTERM after {done_f} chunks, {msg_f!r}, resumed (wall "
+          f"{wall_fr:.2f} s): {len(ref_f)} snapshot leaves by sha256 bitwise "
+          f"the uninterrupted run's: {same_f}, summary equal: {summary_same} "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    if not ok:
+        fail(f"{what} (c): fault_injection ({out['fault']})")
+
+    # (d) city_forest.
+    cr = rec["city"]
+    ok = (cr["env_query"] == "bucketed"
+          and any("-> bucketed" in ln for ln in cr["lines"])
+          and cr["telemetry"] == cr["recount"]
+          and any(k.startswith("warp_solve") for k in cr["launches"]))
+    out["city"] = {**cr, "ok": ok}
+    print(f"{what} (d) city_forest: " + " | ".join(cr["lines"])
+          + f" | telemetry {cr['telemetry']} = host recount from the logs: "
+          f"{cr['telemetry'] == cr['recount']} | {cr['steps_per_s']:.2f} MPC "
+          f"steps/s | launches {cr['launches']} "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    if not ok:
+        fail(f"{what} (d): city_forest ({cr})")
+
+    # (e) convergence_rates: the card's curves against the CPU's.
+    cpu_curves, _, cpu_s = run_driver(convergence_rates.main, [
+        "--samples", str(CONV_SAMPLES), "--iters", str(CONV_ITERS),
+        "--out", "", "--device", "cpu"])
+    card_curves = np.load(os.path.join(run_dir, "conv_card.npz"))
+    errs = {}
+    for label, c in cpu_curves.items():
+        g = card_curves[label]
+        both = np.isfinite(g) & np.isfinite(c)
+        errs[label] = (float(np.abs(g[both] - c[both]).max())
+                       if (np.isfinite(g) == np.isfinite(c)).all()
+                       else math.inf)
+    ab = rec["conv_ab"]["summary"]
+    ok = (max(errs.values()) <= CONV_BAR
+          and all(any(k.startswith("warp_solve") for k in rec[r]["launches"])
+                  for r in ("conv", "conv_ab"))
+          and len(ab) == 4)
+    out["conv"] = {"card": rec["conv"], "ab": rec["conv_ab"],
+                   "max_abs_err": errs, "cpu_seconds": cpu_s, "ok": ok}
+    print(f"{what} (e) convergence_rates, {CONV_SAMPLES} samples x "
+          f"{CONV_ITERS} iterations ({rec['conv']['seconds']:.2f} s): "
+          + " | ".join(rec["conv"]["lines"]) + f" | every sample's curve "
+          f"against the CPU's, max|err| {errs} N (bar {CONV_BAR}) | effort "
+          f"A/B ({rec['conv_ab']['seconds']:.2f} s): "
+          + ", ".join(f"{k} iters mean {v['iters_mean']:.2f}"
+                      for k, v in ab.items())
+          + f" | launches {rec['conv']['launches']}, "
+          f"{rec['conv_ab']['launches']} " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    if not ok:
+        fail(f"{what} (e): convergence_rates ({errs})")
+
+    # (f) replay on (a)'s C-ADMM log.
+    card_npz = os.path.join(run_dir, "cadmm.npz")
+    log = replay.load_log(card_npz)
+    world = forest_mod.forest_from_tree_pos(log["tree_pos"],
+                                            log["num_trees"], device="cuda")
+    seed0 = forest_mod.make_forest(seed=0, device="cuda")
+    num = int(log["num_trees"])
+    forest_same = bool((world.tree_pos[:num] == seed0.tree_pos[:num]).all())
+    layout_same = (sorted(log) == sorted(replay.load_log(
+        os.path.join(run_dir, "cpu_cadmm.npz"))) and log["n"] == DRIVER_N
+        and log["state_seq"]["xl"].shape[0] == int(round(DRIVER_T * 100)))
+    replay_dir = os.path.join(run_dir, "replay")
+    if rec["matplotlib"]:
+        res, _, replay_s = run_driver(replay.main, [
+            card_npz, "--outdir", replay_dir, "--device", "cuda"])
+        files = res["frames"] + [res["ghosts"]] + [
+            os.path.join(replay_dir, f"{k}_cadmm.png")
+            for k in ("xy", "min_dist")]
+        drawn = all(os.path.getsize(f) > 0 for f in files)
+        note = f"{len(res['frames'])} frames, the ghosts and the figures " \
+               f"written ({replay_s:.1f} s)"
+    else:
+        try:
+            replay.main([card_npz, "--outdir", replay_dir, "--device",
+                         "cuda"])
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+        drawn = "matplotlib" in refused
+        note = ("not drawn: matplotlib is not installed on this host, and "
+                f"replay refused up front ({refused!r})")
+    ok = forest_same and layout_same and drawn
+    out["replay"] = {"forest_bitwise": forest_same,
+                     "layout_same": layout_same, "note": note, "ok": ok}
+    print(f"{what} (f) replay of (a)'s C-ADMM log: read back with the CPU "
+          f"log's layout: {layout_same}; the forest rebuilt from the logged "
+          f"trees bitwise the seed-0 forest: {forest_same}; {note} "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    if not ok:
+        fail(f"{what} (f): replay ({out['replay']})")
+
+    # (g) the session example: the hub against a recount from the journal.
+    sr = rec["sessions"]
+    summary = sr["summary"]
+    events = export.read_events(sr["metrics"])
+    counters = summary["hub"]["counters"]
+
+    def hub(name):
+        pre = name + "{"
+        return {k[len(pre):-1]: v for k, v in counters.items()
+                if k.startswith(pre)}
+
+    def recount(event, key, kind=None):
+        got = {}
+        for e in events:
+            if e.get("event") == event and (kind is None
+                                             or e.get("kind") == kind):
+                got[e.get(key)] = got.get(e.get(key), 0) + 1
+        return got
+
+    checks = {
+        "queue.submitted": hub("queue.submitted") == recount(
+            "serving_event", "tenant", "submitted"),
+        "queue.dequeued": hub("queue.dequeued") == recount(
+            "serving_event", "family", "admitted"),
+        "serving.events": hub("serving.events") == recount(
+            "serving_event", "kind"),
+        "session.events": hub("session.events") == recount(
+            "session_event", "kind"),
+    }
+    ok = (sr["rc"] == 0 and all(checks.values())
+          and summary.get("slo_firing") == [] and summary.get(
+              "slo_alerts") == 0
+          and not summary["offline_check"]["mismatches"]
+          and any(k.startswith("warp_solve") for k in sr["launches"]))
+    out["sessions"] = {"checks": checks, "slo_firing":
+                       summary.get("slo_firing"), "slo_alerts":
+                       summary.get("slo_alerts"), "wall_s": sr["seconds"],
+                       "launches": sr["launches"], "ok": ok}
+    print(f"{what} (g) serve_sessions with the live hub "
+          f"({sr['seconds']:.2f} s): hub counters equal to a recount from "
+          f"the journal: {checks}; queue.submitted {hub('queue.submitted')}, "
+          f"per family {hub('queue.dequeued')}; SLO pass: firing "
+          f"{summary.get('slo_firing')}, alerts {summary.get('slo_alerts')};"
+          f" offline check {summary['offline_check']['checked']} steps, "
+          f"mismatches {summary['offline_check']['mismatches']}; launches "
+          f"{sr['launches']} " + ("ok" if ok else "FAIL") + f" | {card}",
+          flush=True)
+    if not ok:
+        fail(f"{what} (g): the session example's hub ({out['sessions']})")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{what}: {out['seconds']:.1f} s | {card}", flush=True)
+    return {f"{k}": v["launches"] for k, v in rec["rqp"].items()}
+
+
 def k2_cases():
     """The shared-memory body's inputs at every shape it takes on a path,
     captured from the path's first launch: the entry step (d = 67, B = 1),
@@ -5733,6 +6372,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--serving-child"]:
         return serving_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--driver-child"]:
+        return driver_child(sys.argv[2])
     if sys.argv[1:2] == ["--k2-variant"]:
         return k2_variant(*map(int, sys.argv[2:4]), sys.argv[4],
                           "--build-only" in sys.argv)
@@ -6286,6 +6927,9 @@ def main() -> int:
     # 37. The serving tier through the whole-solve kernel's two bodies.
     phase_at["37"] = time.perf_counter() - t_start
     serving_launches = serving_phase(card, report)
+    # 38. The user's drivers through the whole-solve kernel's two bodies.
+    phase_at["38"] = time.perf_counter() - t_start
+    driver_launches = drivers_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],
@@ -6299,6 +6943,7 @@ def main() -> int:
     report["launches_elsewhere"] = {
         "fused_solve_cadmm_options": option_launches,
         "fused_solve_serving_stream": serving_launches,
+        "fused_solve_rqp_forest_driver": driver_launches,
     }
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(
         HERE, "build", "chip_smoke.json")

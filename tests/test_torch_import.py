@@ -51,7 +51,8 @@ def _modules():
 
 def test_import_leaves_jax_out_of_sys_modules():
     """Every submodule imported in a fresh interpreter: no jax, no flax,
-    nothing of the JAX package."""
+    nothing of the JAX package, and no matplotlib (the figures import it
+    when they draw, so a host without it imports every module)."""
     mods = ["tpu_aerial_transport_torch"] + _modules()
     assert "tpu_aerial_transport_torch.ops.admm_kernel" in mods
     assert "tpu_aerial_transport_torch.control.dd" in mods
@@ -66,14 +67,17 @@ def test_import_leaves_jax_out_of_sys_modules():
               "serving.queue", "serving.cache", "serving.lanes",
               "serving.batcher", "serving.server", "serving.sessions",
               "serving", "aot.loader", "examples.serve_scenarios",
-              "examples.serve_sessions"):
+              "examples.serve_sessions", "utils.geometry", "viz",
+              "viz.plots", "viz.scene", "obs.live", "examples.rqp_forest",
+              "examples.fault_injection", "examples.city_forest",
+              "examples.convergence_rates", "examples.replay"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'tpu_aerial_transport'))\n"
+        "('jax', 'jaxlib', 'flax', 'tpu_aerial_transport', 'matplotlib'))\n"
         "print(repr(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -127,7 +131,11 @@ def test_source_scan_covers_the_slice():
               "serving/__init__.py", "serving/queue.py", "serving/cache.py",
               "serving/lanes.py", "serving/batcher.py", "serving/server.py",
               "serving/sessions.py", "aot/__init__.py", "aot/loader.py",
-              "examples/serve_scenarios.py", "examples/serve_sessions.py"):
+              "examples/serve_scenarios.py", "examples/serve_sessions.py",
+              "utils/geometry.py", "viz/__init__.py", "viz/plots.py",
+              "viz/scene.py", "obs/live.py", "examples/rqp_forest.py",
+              "examples/fault_injection.py", "examples/city_forest.py",
+              "examples/convergence_rates.py", "examples/replay.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 

@@ -36,7 +36,7 @@ def serve_entry(bundle, name: str, args, *, jit_fallback=None,
     dispatch only, and an execution error surfaces at the caller's next
     wait. The ``aot_serve`` row (``entry``, ``rung``, ``label``,
     ``wall_s``) goes to ``metrics`` (an ``obs.export.MetricsWriter``) and
-    ``hub`` (duck-typed ``ingest_aot``), each optional."""
+    ``hub`` (an ``obs.live.MetricsHub``), each optional."""
     if bundle is not None:
         raise NotImplementedError(
             "serve_entry(bundle=): the AOT bundles are not ported yet "

@@ -13,10 +13,16 @@ as a one-shot request and compares digests (exit 5 on a mismatch);
 ``--run-dir D`` with SIGTERM (or ``--sigterm-after N``) then ``--resume``
 restores the session table from the journal and completes the storm.
 
+A live metrics hub (``obs.live.MetricsHub``) follows the whole storm and
+its snapshot rides the summary (``hub``). With ``--metrics`` the SLO pass
+replays the run's journal through ``obs.live.SLOEngine`` after the run,
+journals every alert transition back into the same file, puts
+``slo_firing`` and ``slo_alerts`` into the summary, and exits 6 when an
+alert is still firing at the end (a nominal storm fires none).
+
 It takes the JAX example's flags but ``--bundle``, ``--require-bundle`` and
 ``--expect-zero-compile`` (the AOT bundles are not ported yet), and
-``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path). The
-JAX example's live metrics hub and SLO pass wait for ``obs/live.py``.
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 
 Usage:
   python3 -m tpu_aerial_transport_torch.examples.serve_sessions \
@@ -106,6 +112,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
+    from tpu_aerial_transport_torch.obs import live as live_mod
     from tpu_aerial_transport_torch.resilience.recovery import (
         GracefulInterrupt,
     )
@@ -125,12 +132,15 @@ def main(argv=None) -> int:
         sink = (export_mod.MetricsWriter(args.metrics)
                 if args.metrics else None)
         tracer = trace_lib.Tracer(sink, track="server")
+    # Live metrics hub: in-process counters, gauges and latency histograms
+    # over the whole storm; the final snapshot rides the summary JSON.
+    hub = live_mod.MetricsHub()
     kw = dict(
         families=[args.family], buckets=buckets,
         run_dir=args.run_dir or None,
         metrics=(tracer.sink if tracer is not None and tracer.sink
                  else args.metrics or None),
-        tracer=tracer, device=device,
+        tracer=tracer, hub=hub, device=device,
     )
 
     plans = {f"c{i}": client_plan(i, args.steps, args.seed)
@@ -342,6 +352,25 @@ def main(argv=None) -> int:
                         or result_digest(t.result) != digests[rid]):
                     offline["mismatches"].append(rid)
 
+    # SLO pass: replay this run's journal through the burn-rate engine and
+    # journal fire/resolve transitions back into the same metrics file (the
+    # v9 ``alert`` events), so a post-hoc reader sees the alert trail. An
+    # alert still firing at the end of the run exits 6.
+    slo_summary = {}
+    if args.metrics and os.path.exists(args.metrics):
+        from tpu_aerial_transport_torch.obs import export as export_mod
+
+        engine = live_mod.SLOEngine(
+            metrics=export_mod.MetricsWriter(args.metrics))
+        replica = live_mod.FleetTailer.replica_of(args.metrics)
+        for event in export_mod.read_events(args.metrics):
+            engine.ingest(replica, event)
+        engine.evaluate()
+        slo_summary = {
+            "slo_firing": sorted(f"{n}/{t}" for n, t in engine.firing),
+            "slo_alerts": len(engine.alerts),
+        }
+
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -367,6 +396,8 @@ def main(argv=None) -> int:
         **({"zombie": zombie_log} if zombie_log else {}),
         **({"offline_check": offline} if args.offline_check else {}),
         **trace_summary,
+        **slo_summary,
+        "hub": hub.snapshot(),
         **({"card": torch.cuda.get_device_name(device)}
            if device.type == "cuda" else {}),
     }
@@ -393,6 +424,10 @@ def main(argv=None) -> int:
         print("serve_sessions: offline check matched ZERO served steps",
               file=sys.stderr)
         return 5
+    if slo_summary.get("slo_firing"):
+        print(f"serve_sessions: SLO alerts still firing at end of run: "
+              f"{slo_summary['slo_firing']}", file=sys.stderr)
+        return 6
     return 0
 
 

@@ -612,8 +612,9 @@ class BackendGuard:
     ``resilience.recovery.RunJournal`` (``journal``), either or both None;
     ``events`` always records in-process. ``tracer`` (an
     ``obs.trace.Tracer``) wraps the primary in a ``guard_dispatch`` span
-    and a degradation in a ``guard_fallback`` span; ``hub`` (a live
-    metrics hub, duck-typed ``inc``/``ingest_backend``) is fed when given.
+    and a degradation in a ``guard_fallback`` span; ``hub`` (an
+    ``obs.live.MetricsHub``) counts the guarded runs and the backend events
+    when given.
     """
 
     def __init__(self, *,

@@ -72,8 +72,9 @@ class ScenarioServer:
     rung is ``device``'s) guards every dispatch. ``surgery``/``dispatch``:
     the lane-surgery and dispatch knobs (``serving.lanes``). ``cache``: a
     ``ResultCache`` or an LRU capacity (None disables it). ``tracer`` (an
-    ``obs.trace.Tracer``) and ``hub`` (a live metrics hub, duck-typed) are
-    optional sinks; None is the zero-cost path.
+    ``obs.trace.Tracer``) and ``hub`` (an ``obs.live.MetricsHub``, handed
+    on to the queue, the guard and the serve ladder) are optional sinks;
+    None is the zero-cost path.
 
     Not ported yet, each raising ``NotImplementedError`` with the ROADMAP
     item it waits on: ``mesh=`` (multi-process placement, Queue 1 item 4)

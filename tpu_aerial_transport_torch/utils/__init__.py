@@ -1,1 +1,1 @@
-"""Small numeric helpers."""
+"""Small numeric and geometry helpers."""
