@@ -264,6 +264,24 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    are left to the CPU tests); (g) ``serve_sessions`` with the live hub
    and the SLO pass: the hub's counters equal to a recount from the
    journal and a nominal storm firing no alert.
+39. the serving fleet (``serving/fleet.py`` and the harness
+   ``tpu_aerial_transport_torch/tools/fleet_local.py``): ``run_fleet`` with
+   ``FLEET_REPLICAS`` replica processes on the card (each its own CUDA
+   context, the kernels built once before they start), the canonical
+   families and the ``serve_fleet`` example's tenants, ``FLEET_REQUESTS``
+   requests submitted once every replica has built its server; first
+   fault-free, then under ``FLEET_CHAOS`` (r1 SIGKILLed, r0 wedged for 2
+   s, both after every replica booted): every request resolved exactly
+   once, every completed result from a replica on ``cuda`` and every
+   digest the fault-free run's, the killed replica's requests failed over
+   on their original trace ids with a retry segment on the timeline of
+   the replica that served them, the killed replica respawned, resumed
+   and exited cleanly, zero guard fallbacks and failed chunks in every
+   replica, the warp and block bodies launched (the replicas' own
+   counts, from their heartbeats); ``FLEET_CPU_SAMPLES`` completed
+   requests served again on the card in this process (their digests the
+   fleet's) and on the CPU (states within 1e-4); replica boot seconds,
+   requests/s and the failover's latencies.
 
 The main path and every bench path replay the ten substeps of a step from
 a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
@@ -285,7 +303,7 @@ the rounding of A x (``ROUNDING_FACTOR``).
 
 The children of phases 33, 37 and 38 print one ``recovery-child``,
 ``serving-child`` or ``driver-child`` record each and never the result
-line.
+line. Phase 39's replica processes print nothing to stdout.
 
 Output: timing lines carry the card's name and power limit; a ``kernels``
 JSON line, the ``nvidia-smi`` name/power-limit line, and last
@@ -503,6 +521,19 @@ DRIVER_SESSION_ARGS = ["--clients", "16", "--steps", "3", "--buckets",
                        "16,32", "--lease-s", "600", "--offline-check"]
 # The command that runs a driver module as a user does (``-m``).
 DRIVER_CMD = [sys.executable, "-m"]
+# Phase 39, the serving fleet: FLEET_REPLICAS replica processes on the
+# card behind one front, FLEET_REQUESTS requests of the harness's seeded
+# stream over the canonical families with the example's demo tenants, all
+# submitted once every replica has built its server; the storm wedges r0
+# (which owns the centralized group's hash key at these buckets, and the
+# C-ADMM failover key) and SIGKILLs r1 (the C-ADMM group's) within their
+# first batches: at 4 lanes r1 has about nine chunks to serve.
+# FLEET_CPU_SAMPLES completed requests are served again on the card in
+# this process and on the CPU.
+FLEET_REPLICAS, FLEET_REQUESTS, FLEET_SEED = 3, 48, 0
+FLEET_FAMILIES, FLEET_BUCKETS = "cadmm4,centralized4", "2,4"
+FLEET_CHAOS = "sigkill@0.1:r1,wedge@0.05:r0=2"
+FLEET_CPU_SAMPLES = 4
 
 
 def fail(msg: str) -> None:
@@ -6127,6 +6158,270 @@ def drivers_phase(card, report):
     return {f"{k}": v["launches"] for k, v in rec["rqp"].items()}
 
 
+def fleet_args(out_dir: str, chaos: str = ""):
+    """Phase 39's harness arguments (``fleet_local.build_parser``)."""
+    from tpu_aerial_transport_torch.examples.serve_fleet import DEMO_TENANTS
+    from tpu_aerial_transport_torch.tools import fleet_local
+
+    return fleet_local.build_parser().parse_args([
+        "--device", "cuda", "--replicas", str(FLEET_REPLICAS),
+        "--requests", str(FLEET_REQUESTS), "--seed", str(FLEET_SEED),
+        "--families", FLEET_FAMILIES, "--buckets", FLEET_BUCKETS,
+        "--tenants", DEMO_TENANTS,
+        "--out-dir", out_dir, "--results", out_dir + ".json",
+        "--timeout", "300",
+    ] + (["--chaos", chaos] if chaos else []))
+
+
+def fleet_run(out_dir: str, what: str, chaos: str = ""):
+    """One ``run_fleet`` on the card: ``(summary, results, merged
+    events)``; fails the phase unless it ended ok with every request
+    resolved exactly once (completed or rejected, nothing failed)."""
+    from tpu_aerial_transport_torch.obs import export
+    from tpu_aerial_transport_torch.tools import fleet_local
+
+    summary, rc = fleet_local.run_fleet(fleet_args(out_dir, chaos))
+    with open(out_dir + ".json") as fh:
+        results = json.load(fh)
+    statuses = {}
+    for row in results.values():
+        statuses[row["status"]] = statuses.get(row["status"], 0) + 1
+    if (rc or not summary["ok"] or summary["unresolved"]
+            or len(results) != FLEET_REQUESTS
+            or summary["requests"] != FLEET_REQUESTS
+            or set(statuses) - {"completed", "rejected"}
+            or summary.get("completed", 0) + summary.get("rejected", 0)
+            != FLEET_REQUESTS):
+        fail(f"phase 39 {what}: rc {rc}, statuses {statuses}, summary "
+             f"{json.dumps(summary)[:3000]}")
+    return summary, results, export.read_events(summary["metrics"])
+
+
+def fleet_replica_checks(summary, results, what):
+    """Every replica process on the card with every chunk on the card's
+    rung and zero guard fallbacks and failed chunks (from its last
+    heartbeat), every completed result from a replica on the card;
+    returns the kernel launches the replicas counted, summed by body."""
+    launches = {}
+    for rid, procs in summary["processes"].items():
+        for p in procs:
+            if not p["heartbeats"]:
+                fail(f"phase 39 {what}: r{rid} pid {p['pid']} never "
+                     f"heartbeated ({summary['exits']})")
+            if (p.get("device") != "cuda" or p.get("guard_fallbacks")
+                    or p.get("backend_failures")
+                    or set(p.get("dispatch_rungs", {})) - {"on-chip"}):
+                fail(f"phase 39 {what}: r{rid} pid {p['pid']}: {p}")
+            for k, v in p.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+    off = [rid for rid, row in results.items()
+           if row["status"] == "completed" and row.get("device") != "cuda"]
+    if off:
+        fail(f"phase 39 {what}: results not from the card: {off[:5]}")
+    return launches
+
+
+def fleet_chunk_ms(events):
+    """Each replica's chunk dispatch ms by family from a fleet run's
+    trace rows: its first chunk (the family's program built and its
+    substeps captured in that process) and the p50 of the rest."""
+    import numpy as np
+
+    from tpu_aerial_transport_torch.obs import trace
+
+    by = {}
+    for r in trace.trace_rows(events):
+        if r["name"] == trace.CHUNK_DISPATCH and "t1_mono" in r:
+            by.setdefault(f"{r['track']}:{r['attrs']['family']}", []).append(
+                (r["t0_mono"], (r["t1_mono"] - r["t0_mono"]) * 1e3))
+    out = {}
+    for k, v in sorted(by.items()):
+        ms = [m for _, m in sorted(v)]
+        out[k] = {"n": len(ms), "first": ms[0],
+                  "rest_p50": float(np.median(ms[1:])) if ms[1:] else None}
+    return out
+
+
+def fleet_phase(card, report):
+    """Phase 39, the serving fleet on the card (module docstring)."""
+    import torch
+
+    from tpu_aerial_transport_torch.examples.serve_fleet import DEMO_TENANTS
+    from tpu_aerial_transport_torch.obs import export, trace
+    from tpu_aerial_transport_torch.serving import batcher, fleet
+    from tpu_aerial_transport_torch.serving import server as server_mod
+    from tpu_aerial_transport_torch.tools import fleet_local
+
+    t_phase = time.perf_counter()
+    out = report["fleet"] = {}
+    torch.cuda.empty_cache()
+    root = os.path.join(HERE, "build", "fleet_run")
+
+    # (a) Fault-free.
+    base, base_res, base_ev = fleet_run(os.path.join(root, "fault_free"),
+                                        "fault-free")
+    launches = fleet_replica_checks(base, base_res, "fault-free")
+    warp = sum(v for k, v in launches.items() if k.startswith("warp_"))
+    block = sum(v for k, v in launches.items()
+                if k.startswith("fused_solve"))
+    if not (warp and block):
+        fail(f"phase 39: the replicas' whole-solve launches {launches}: "
+             "the warp body (cadmm4) and the block body (centralized4) "
+             "must both launch")
+    boot = {r: [p["boot_s"] for p in ps]
+            for r, ps in base["processes"].items()}
+    rps = base["completed"] / base["serve_s"]
+    print(f"fleet (a) fault-free: {FLEET_REPLICAS} replicas on the card, "
+          f"{FLEET_REQUESTS} requests ({base['completed']} completed, "
+          f"{base.get('rejected', 0)} rejected by the tenants' admission) "
+          f"in {base['serve_s']:.3f} s = {rps:.2f} completed requests/s, "
+          f"{FLEET_REQUESTS / base['serve_s']:.2f} resolved/s; replica boot"
+          f" s {boot}; whole-solve launches in the replicas {launches}; "
+          f"wall {base['wall_s']:.2f} s | {card}", flush=True)
+    chunks = fleet_chunk_ms(base_ev)
+    print(f"  chunk dispatch ms by replica:family (first chunk, p50 of the "
+          f"rest): " + "; ".join(
+              f"{k} n={v['n']} {v['first']:.1f}, "
+              + ("-" if v["rest_p50"] is None else f"{v['rest_p50']:.1f}")
+              for k, v in chunks.items()), flush=True)
+    out["fault_free"] = {
+        "serve_s": base["serve_s"], "wall_s": base["wall_s"],
+        "completed": base["completed"], "rejected": base.get("rejected", 0),
+        "completed_per_s": rps, "boot_s": boot, "launches": launches,
+        "processes": base["processes"], "chunk_ms": chunks,
+    }
+
+    # (b) The storm.
+    storm_dir = os.path.join(root, "storm")
+    storm, storm_res, events = fleet_run(storm_dir, "storm", FLEET_CHAOS)
+    storm_launches = fleet_replica_checks(storm, storm_res, "storm")
+    if set(storm_res) != set(base_res):
+        fail("phase 39 (b): the storm resolved other requests")
+    apart = [rid for rid in base_res
+             if (base_res[rid]["status"], base_res[rid].get("digest"))
+             != (storm_res[rid]["status"], storm_res[rid].get("digest"))]
+    if apart:
+        fail(f"phase 39 (b): {len(apart)} results differ from the "
+             f"fault-free run's: {apart[:5]}")
+    failed_over = {e["request_id"]: e for e in events
+                   if e.get("event") == "fleet_event"
+                   and e.get("kind") == "failover"}
+    killed = storm["processes"]["1"]
+    restarts = [e for e in events if e.get("event") == "fleet_event"
+                and e.get("kind") == "restart" and e.get("replica") == 1]
+    if not failed_over or any(e["from_replica"] != "1"
+                              for e in failed_over.values()):
+        fail(f"phase 39 (b): failovers {list(failed_over.values())[:3]}: "
+             "the killed replica's requests must fail over")
+    if (len(killed) < 2 or killed[0]["rc"] != -9 or not restarts
+            or killed[-1]["rc"] != 0 or killed[-1]["boot_s"] is None
+            or not killed[-1]["final"]):
+        fail(f"phase 39 (b): r1's processes {killed}, restarts {restarts}:"
+             " the killed replica must respawn, boot and exit cleanly")
+    # The retry segment on each failed-over request's original trace,
+    # on the timeline of the replica whose result counted.
+    rows = trace.trace_rows(events)
+    retry = {}
+    for rid, e in sorted(failed_over.items()):
+        winner = storm_res[rid].get("replica")
+        if winner == 1 or storm_res[rid]["status"] != "completed":
+            continue  # served by r1 before it died.
+        cp = trace.critical_path(trace.stitch(
+            [r for r in rows if r.get("track") in ("front", f"r{winner}")]))
+        segs = [q["segments"]["retry"] for q in cp["requests"]
+                if q["trace_id"] == e["trace_id"]]
+        retry[rid] = segs[0] if segs else 0.0
+    if not retry or min(retry.values()) <= 0:
+        fail(f"phase 39 (b): retry segments {retry}")
+    # Latencies: the kill to its detection (the first failover) and to
+    # the last failed-over request's completion at the front.
+    kill_ts = next(f["ts"] for f in storm["faults_fired"]
+                   if f["fault"].startswith("sigkill"))
+    done_ts = {e["request_id"]: e["ts"] for e in export.read_events(
+        os.path.join(storm_dir, "front.metrics.jsonl"))
+        if e.get("event") == "serving_event"
+        and e.get("kind") == "completed"}
+    detect_s = min(e["ts"] for e in failed_over.values()) - kill_ts
+    reserve_s = max(done_ts[rid] for rid in retry) - kill_ts
+    redispatch_ms = [1e3 * e["latency_s"] for e in failed_over.values()]
+    sboot = {r: [p["boot_s"] for p in ps]
+             for r, ps in storm["processes"].items()}
+    health = sorted({(e["replica"], e["from_state"], e["to_state"])
+                     for e in events if e.get("kind") == "transition"})
+    print(f"fleet (b) storm {FLEET_CHAOS}: fired at "
+          f"{[(f['fault'], f['t_s']) for f in storm['faults_fired']]} s "
+          f"after every replica was ready; {len(failed_over)} requests "
+          f"failed over off r1 on their trace ids, {len(retry)} re-served "
+          f"elsewhere with a retry segment (min {min(retry.values()):.3f} "
+          f"s); all {FLEET_REQUESTS} statuses and "
+          f"{storm['completed']} digests equal to the fault-free run's; "
+          f"{storm['duplicates_dropped']} duplicate results dropped; "
+          f"kill -> detection {detect_s:.3f} s, re-dispatch "
+          f"{max(redispatch_ms):.3f} ms at most, kill -> last re-served "
+          f"completion {reserve_s:.3f} s; served in {storm['serve_s']:.3f}"
+          f" s ({storm['completed'] / storm['serve_s']:.2f} completed "
+          f"requests/s); r1 respawned, boot s {sboot}; transitions "
+          f"{health}; 0 guard fallbacks; launches {storm_launches} | "
+          f"{card}", flush=True)
+    storm_chunks = fleet_chunk_ms(events)
+    print(f"  chunk dispatch ms by replica:family (first chunk, p50 of the "
+          f"rest): " + "; ".join(
+              f"{k} n={v['n']} {v['first']:.1f}, "
+              + ("-" if v["rest_p50"] is None else f"{v['rest_p50']:.1f}")
+              for k, v in storm_chunks.items()), flush=True)
+    out["storm"] = {
+        "chaos": FLEET_CHAOS, "fired": storm["faults_fired"],
+        "failed_over": len(failed_over), "retry_s": retry,
+        "duplicates_dropped": storm["duplicates_dropped"],
+        "detect_s": detect_s, "reserve_s": reserve_s,
+        "redispatch_ms": redispatch_ms, "serve_s": storm["serve_s"],
+        "wall_s": storm["wall_s"], "boot_s": sboot,
+        "launches": storm_launches, "processes": storm["processes"],
+        "transitions": health, "chunk_ms": storm_chunks,
+    }
+
+    # (c) FLEET_CPU_SAMPLES completed requests again, on the card in this
+    # process (the fleet's digests) and on the CPU (states 1e-4).
+    fams = FLEET_FAMILIES.split(",")
+    stream = {r.request_id: r for r in fleet_local.make_fleet_stream(
+        FLEET_REQUESTS, fams,
+        {f: batcher.CANONICAL_FAMILIES[f].chunk_len for f in fams},
+        sorted(fleet_local.parse_tenants(DEMO_TENANTS)), FLEET_SEED)}
+    done = sorted(rid for rid, row in base_res.items()
+                  if row["status"] == "completed")
+    by_fam = {f: [rid for rid in done if stream[rid].family == f]
+              for f in fams}
+    sample = sorted(by_fam[fams[0]][:FLEET_CPU_SAMPLES // 2]
+                    + by_fam[fams[1]][:FLEET_CPU_SAMPLES // 2])
+    if len(sample) != FLEET_CPU_SAMPLES:
+        fail(f"phase 39 (c): completed requests by family {by_fam}")
+    served = {}
+    for dev in ("cuda", "cpu"):
+        srv = server_mod.ScenarioServer(
+            families=fams, buckets=(FLEET_CPU_SAMPLES,), device=dev)
+        _, ts = serve_drain(srv, [stream[rid] for rid in sample])
+        if any(t.status != "completed" for t in ts):
+            fail(f"phase 39 (c): on {dev}: {[t.status for t in ts]}")
+        served[dev] = {t.request.request_id: t.result for t in ts}
+    digests_equal = sum(fleet.result_digest(served["cuda"][rid])
+                        == base_res[rid]["digest"] for rid in sample)
+    same, worst = results_apart(served["cuda"], served["cpu"])
+    ok = digests_equal == len(sample) and worst <= CPU_STATE_ATOL
+    print(f"fleet (c) {len(sample)} sampled requests {sample}: served on "
+          f"the card in this process, {digests_equal} digests equal to "
+          f"the fleet's; against the CPU max |state diff| {worst:.3e} "
+          f"(bar {CPU_STATE_ATOL}), {same} bitwise "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    out["cpu"] = {"sample": sample, "digests_equal": digests_equal,
+                  "max_abs": worst, "bitwise": same, "ok": ok}
+    if not ok:
+        fail("phase 39 (c): sampled requests disagree")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet: phase 39 took {out['phase_s']:.1f} s | {card}",
+          flush=True)
+    return launches
+
+
 def k2_cases():
     """The shared-memory body's inputs at every shape it takes on a path,
     captured from the path's first launch: the entry step (d = 67, B = 1),
@@ -6930,6 +7225,9 @@ def main() -> int:
     # 38. The user's drivers through the whole-solve kernel's two bodies.
     phase_at["38"] = time.perf_counter() - t_start
     driver_launches = drivers_phase(card, report)
+    # 39. The serving fleet: replica processes on the card.
+    phase_at["39"] = time.perf_counter() - t_start
+    fleet_launches = fleet_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],
@@ -6944,6 +7242,7 @@ def main() -> int:
         "fused_solve_cadmm_options": option_launches,
         "fused_solve_serving_stream": serving_launches,
         "fused_solve_rqp_forest_driver": driver_launches,
+        "fused_solve_fleet_replicas": fleet_launches,
     }
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(
         HERE, "build", "chip_smoke.json")

@@ -70,7 +70,9 @@ def test_import_leaves_jax_out_of_sys_modules():
               "examples.serve_sessions", "utils.geometry", "viz",
               "viz.plots", "viz.scene", "obs.live", "examples.rqp_forest",
               "examples.fault_injection", "examples.city_forest",
-              "examples.convergence_rates", "examples.replay"):
+              "examples.convergence_rates", "examples.replay",
+              "serving.fleet", "tools", "tools.fleet_local",
+              "tools.fleet_console", "examples.serve_fleet"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -135,7 +137,10 @@ def test_source_scan_covers_the_slice():
               "utils/geometry.py", "viz/__init__.py", "viz/plots.py",
               "viz/scene.py", "obs/live.py", "examples/rqp_forest.py",
               "examples/fault_injection.py", "examples/city_forest.py",
-              "examples/convergence_rates.py", "examples/replay.py"):
+              "examples/convergence_rates.py", "examples/replay.py",
+              "serving/fleet.py", "tools/__init__.py",
+              "tools/fleet_local.py", "tools/fleet_console.py",
+              "examples/serve_fleet.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 

@@ -26,7 +26,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import sys
@@ -36,7 +35,7 @@ import numpy as np
 import torch
 
 from tpu_aerial_transport_torch import resolve_device
-from tpu_aerial_transport_torch.tree import leaves
+from tpu_aerial_transport_torch.serving.fleet import result_digest
 
 
 def make_stream(n_requests: int, families: list[str], chunk_lens: dict,
@@ -59,17 +58,6 @@ def make_stream(n_requests: int, families: list[str], chunk_lens: dict,
             request_id=f"req{i:05d}",
         ))
     return out
-
-
-def result_digest(result) -> str:
-    """sha256 over the result tree's leaf bytes (with shape and dtype):
-    the cross-process bitwise token."""
-    h = hashlib.sha256()
-    for leaf in leaves(result):
-        a = np.ascontiguousarray(leaf.detach().cpu().numpy())
-        h.update(str((a.shape, a.dtype.str)).encode())
-        h.update(a.tobytes())
-    return h.hexdigest()
 
 
 def parser() -> argparse.ArgumentParser:

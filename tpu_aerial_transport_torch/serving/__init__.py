@@ -9,17 +9,26 @@ bucket into batches that reuse one chunk program per family
 lane selects on the card, ``lanes.py``), and driven by a host-side server
 whose every dispatch goes through the backend guard (``server.py``).
 Closed-loop MPC sessions ride on top (``sessions.py``); a content-
-addressed result cache is optional (``cache.py``). Preemption safety
-rides the recovery journal and snapshots: a SIGTERM mid-batch completes
-at the chunk boundary and a restarted process re-admits the remainder
-bitwise.
+addressed result cache is optional (``cache.py``). Several replica
+servers, each its own process on the card, serve one stream behind the
+fleet front (``fleet.py``: consistent-hash routing, per-tenant admission,
+lease supervision, failover re-dispatch). Preemption safety rides the
+recovery journal and snapshots: a SIGTERM mid-batch completes at the
+chunk boundary and a restarted process re-admits the remainder bitwise.
 
-Not ported yet: ``fleet.py`` (the replica front), and on the server the
-mesh placement, the AOT bundles and the JAX guard's CPU rung for work on
-the card (ROADMAP, Queue 1): a chunk that fails on the card fails its
-requests with a structured reason instead.
+Not ported yet: on the server the mesh placement, the AOT bundles and the
+JAX guard's CPU rung for work on the card (ROADMAP, Queue 1): a chunk
+that fails on the card fails its requests with a structured reason
+instead.
 """
 
+from tpu_aerial_transport_torch.serving.fleet import (  # noqa: F401
+    FleetFaultPlan,
+    FleetFront,
+    HashRing,
+    ReplicaSupervisor,
+    result_digest,
+)
 from tpu_aerial_transport_torch.serving.queue import (  # noqa: F401
     AdmissionQueue,
     ScenarioRequest,

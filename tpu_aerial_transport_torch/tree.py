@@ -1,6 +1,7 @@
 """Maps over the port's state containers: a tensor, ``None``, or a
-dataclass, ``NamedTuple`` or tuple of them (the counterpart of
-``jax.tree.map`` over the JAX package's pytrees). Python numbers and
+dataclass, ``NamedTuple``, tuple or dict of them (the counterpart of
+``jax.tree.map`` over the JAX package's pytrees; a dict's entries in the
+order of its sorted keys, as ``jax.tree`` walks them). Python numbers and
 strings inside a dataclass (a forest's bark size, a grid's shape) are
 static fields, carried unchanged as the JAX package's static fields are.
 A :class:`TensorSpec` is a leaf as a tensor is: a tree of them describes a
@@ -52,6 +53,9 @@ def tree_map(fn, tree, *rest):
             f.name: tree_map(fn, getattr(tree, f.name),
                              *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
     raise TypeError(f"tree_map: unsupported node {type(tree).__name__}")
 
 
@@ -85,4 +89,7 @@ def tree_structure(tree) -> str:
         return (f"{type(tree).__qualname__}("
                 + ", ".join(f"{f.name}={tree_structure(getattr(tree, f.name))}"
                             for f in dataclasses.fields(tree)) + ")")
+    if isinstance(tree, dict):
+        return ("{" + ", ".join(f"{k!r}: {tree_structure(tree[k])}"
+                                for k in sorted(tree)) + "}")
     raise TypeError(f"tree_structure: unsupported node {type(tree).__name__}")
