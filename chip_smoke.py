@@ -283,6 +283,27 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    fleet's) and on the CPU (states within 1e-4); replica boot seconds,
    requests/s and the failover's latencies.
 
+40. scenario sharding across processes (``parallel/pods.py``, the
+   scenario tier of ``parallel/mesh.py`` and the harness
+   ``tpu_aerial_transport_torch/tools/pods_local.py``) at the headline's
+   width: C-ADMM, n = 8, 256 scenarios, ``max_iter=20``,
+   ``inner_iters=20``, ``consensus_impl="pallas_ring"``: (a) 2 worker
+   processes on the card, each a 128-scenario slab of one 2x2 mesh (2
+   scenario shards, 2 agent shards; one gloo group), ``PODS_STEPS`` steps
+   and the alive-masked step, against 1 process of the same mesh: every
+   digest leaf within 2e-3, the residuals equal exactly, and each worker
+   launching ``warp_solve_kernel`` and ``ring_sum``; (b) the masked step's
+   first ``PODS_CPU`` scenarios against the CPU (forces 1e-2 N, consensus
+   counts equal); (c) the chunked run of ``PODS_RESUME_STEPS`` steps in 4
+   chunks on 2 processes, preempted at boundary 1 and resumed with
+   ``--trace``: each process's final slab bitwise the uninterrupted run's
+   by per-leaf sha256, the stitched trace on tracks ``p0of2`` and
+   ``p1of2``; (d) scenario-MPC-steps/s of 2 processes x 128 and 1 x 256
+   in turns (2, 1, 1, 2), each worker's boot seconds and the spawn to
+   result wall time; (e) ``ScenarioServer(mesh=)`` on a 1-process 2x2
+   mesh serving ``PODS_SERVE_REQUESTS`` requests bitwise the meshless
+   server on the card.
+
 The main path and every bench path replay the ten substeps of a step from
 a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
 
@@ -303,7 +324,8 @@ the rounding of A x (``ROUNDING_FACTOR``).
 
 The children of phases 33, 37 and 38 print one ``recovery-child``,
 ``serving-child`` or ``driver-child`` record each and never the result
-line. Phase 39's replica processes print nothing to stdout.
+line. Phase 39's replica processes and phase 40's workers print nothing
+to stdout.
 
 Output: timing lines carry the card's name and power limit; a ``kernels``
 JSON line, the ``nvidia-smi`` name/power-limit line, and last
@@ -534,6 +556,21 @@ FLEET_REPLICAS, FLEET_REQUESTS, FLEET_SEED = 3, 48, 0
 FLEET_FAMILIES, FLEET_BUCKETS = "cadmm4,centralized4", "2,4"
 FLEET_CHAOS = "sigkill@0.1:r1,wedge@0.05:r0=2"
 FLEET_CPU_SAMPLES = 4
+# Phase 40: scenario sharding across processes at the headline's width
+# (C-ADMM, n = 8, 256 scenarios from default_rng(0), max_iter 20, inner
+# 20, pallas_ring over 2 agent shards), depth cut to PODS_STEPS steps: 2
+# worker processes on the card, each a 128-scenario slab of one 2x2 mesh
+# (2 scenario shards, 2 agent shards), against 1 process of the same
+# mesh; PODS_CPU scenarios of the masked step on the CPU; a resumed run
+# of PODS_RESUME_STEPS steps in 4 chunks; the rate A/B in turns; and
+# PODS_SERVE_REQUESTS requests served on a 1-process 2x2 mesh.
+PODS_STEPS, PODS_CPU, PODS_SERVE_REQUESTS = 2, 8, 8
+PODS_RESUME_STEPS, PODS_CHUNKS = 8, 4
+PODS_BENCH_STEPS, PODS_BENCH_REPS = 3, 5
+PODS_WORKLOAD = ["--n", str(N_AGENTS), "--scenarios", str(N_SCENARIOS),
+                 "--max-iter", "20", "--inner-iters", "20",
+                 "--consensus-impl", "pallas_ring", "--device", "cuda",
+                 "--timeout", "300"]
 
 
 def fail(msg: str) -> None:
@@ -6422,6 +6459,181 @@ def fleet_phase(card, report):
     return launches
 
 
+def pods_args(argv):
+    """Phase 40's harness arguments (``pods_local.build_parser``)."""
+    from tpu_aerial_transport_torch.tools import pods_local
+
+    return pods_local.build_parser().parse_args(argv + PODS_WORKLOAD)
+
+
+def pods_spawn(argv, what):
+    """One pod through the harness (``pods_local.spawn_pod``): its result,
+    every worker ok and on the card; fails the phase otherwise."""
+    from tpu_aerial_transport_torch.tools import pods_local
+
+    result, rc, tail = pods_local.spawn_pod(pods_args(argv))
+    if rc or not all(w.get("ok") and w["device"] == "cuda"
+                     for w in result["workers"]):
+        fail(f"phase 40 {what}: rc {rc}: {tail or result}")
+    return result
+
+
+def pods_phase(card, report):
+    """Phase 40, scenario sharding across processes on the card (module
+    docstring). Returns the workers' launches of the two kernels."""
+    import shutil
+
+    import numpy as np
+
+    from tpu_aerial_transport_torch.parallel import pods
+    from tpu_aerial_transport_torch.serving import server as server_mod
+    from tpu_aerial_transport_torch.serving.queue import ScenarioRequest
+    from tpu_aerial_transport_torch.tools import pods_local
+
+    t_phase = time.perf_counter()
+    out = report["pods"] = {}
+    root = os.path.join(HERE, "build", "pods_run")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # (a) Parity: 2 worker processes x 128 scenarios against 1 x 256.
+    row = pods_local.parity_report(pods_args([
+        "--mode", "parity", "--processes", "2", "--local-devices", "2",
+        "--steps", str(PODS_STEPS), "--out-dir",
+        os.path.join(root, "parity")]))
+    if "error" in row or not (row["parity_ok"] and row["residuals_equal"]):
+        fail(f"phase 40 (a): {json.dumps(row)[:3000]}")
+    workers = row["workers"]["multi"]
+    per_worker = [{k: w["launches"].get(k, 0)
+                   for k in ("warp_solve_kernel", "ring_sum")}
+                  for w in workers]
+    if len(per_worker) != 2 or any(v <= 0 for w in per_worker
+                                   for v in w.values()):
+        fail(f"phase 40 (a): the workers' launches {per_worker}: each must "
+             "launch warp_solve_kernel and ring_sum")
+    if any(w["device"] != "cuda" for w in workers + row["workers"]["single"]):
+        fail(f"phase 40 (a): a worker off the card: {row['workers']}")
+    launches = {k: sum(w[k] for w in per_worker)
+                for k in ("warp_solve_kernel", "ring_sum")}
+    print(f"pods (a) parity: 2 processes x {N_SCENARIOS // 2} scenarios "
+          f"(mesh {row['multi']}) against 1 x {N_SCENARIOS} (mesh "
+          f"{row['single']}), {PODS_STEPS} steps + the masked step: max "
+          f"diffs {row['max_diffs']} (bar {row['atol']}), residuals equal "
+          f"exactly; launches by worker {per_worker}, the single process "
+          f"{row['workers']['single'][0]['launches']}; boot s "
+          f"{[w['boot_s'] for w in workers]}, spawn to result s "
+          f"{row['spawn_to_result_s']} | {card}", flush=True)
+    out["parity"] = {k: row[k] for k in (
+        "max_diffs", "residuals_equal", "multi", "single",
+        "spawn_to_result_s")}
+    out["parity"]["launches"] = per_worker
+
+    # (b) The first PODS_CPU scenarios' masked step against the CPU.
+    dig = np.load(os.path.join(row["out_dirs"]["multi"], "parity.npz"))
+    f_c, stats_c, _ = pods.masked_step(
+        pods.make_pods_mesh(pods.PodsSpec(2, 2, 1), device="cpu"),
+        n=N_AGENTS, n_scenarios=PODS_CPU, max_iter=20, inner_iters=20,
+        consensus_impl="pallas_ring")
+    f_err = float(np.abs(dig["f_masked"][:PODS_CPU] - f_c.numpy()).max())
+    counts_equal = bool(np.array_equal(dig["iters_masked"][:PODS_CPU],
+                                       stats_c.iters.numpy()))
+    ok = f_err <= CPU_FORCE_ATOL and counts_equal
+    print(f"pods (b) the masked step's first {PODS_CPU} scenarios against "
+          f"the CPU: max |f diff| {f_err:.3e} N (bar {CPU_FORCE_ATOL}), "
+          f"consensus counts equal {counts_equal} "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    out["cpu"] = {"max_abs_force": f_err, "counts_equal": counts_equal}
+    if not ok:
+        fail("phase 40 (b): the card and the CPU disagree")
+
+    # (c) Preempted at boundary 1, resumed with the trace, against the
+    # uninterrupted run, by per-leaf sha256 of each process's slab.
+    resume = ["--mode", "resume", "--processes", "2", "--local-devices",
+              "2", "--steps", str(PODS_RESUME_STEPS), "--chunks",
+              str(PODS_CHUNKS)]
+    run_dir = os.path.join(root, "resume")
+    trace_path = os.path.join(root, "resume.trace.json")
+    pre = pods_spawn(resume + ["--out-dir", run_dir, "--stop-after-chunk",
+                               "1"], "(c) preempt")
+    res = pods_spawn(resume + ["--out-dir", run_dir, "--resume", "--trace",
+                               trace_path], "(c) resume")
+    trace = pods_local.stitch_trace(run_dir, trace_path)
+    ref = pods_spawn(resume + ["--out-dir", os.path.join(root, "ref")],
+                     "(c) uninterrupted")
+    slabs_equal = [a["leaf_sha256"] == b["leaf_sha256"]
+                   for a, b in zip(res["workers"], ref["workers"])]
+    ok = (all(w["status"] == "preempted" and w["chunks_done"] == 1
+              for w in pre["workers"])
+          and all(w["status"] == "done" and w["resumed_from_chunk"] == 1
+                  for w in res["workers"])
+          and all(w["status"] == "done" for w in ref["workers"])
+          and slabs_equal == [True, True]
+          and trace["tracks"] == ["p0of2", "p1of2"])
+    print(f"pods (c) resume: 2 processes x {N_SCENARIOS // 2} scenarios, "
+          f"{PODS_RESUME_STEPS} steps in {PODS_CHUNKS} chunks, preempted "
+          f"at boundary 1 and resumed: slabs bitwise the uninterrupted "
+          f"run's by sha256 {slabs_equal}; trace {trace['spans']} spans on "
+          f"tracks {trace['tracks']}; spawn to result s "
+          f"{pre['spawn_to_result_s']:.2f}, {res['spawn_to_result_s']:.2f},"
+          f" {ref['spawn_to_result_s']:.2f} "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    out["resume"] = {"slabs_equal": slabs_equal, "trace": trace}
+    if not ok:
+        fail(f"phase 40 (c): {pre['workers']} {res['workers']} "
+             f"{ref['workers']} {trace}")
+
+    # (d) Rate: 2 processes x 128 against 1 x 256, in turns (2, 1, 1, 2).
+    arms = {2: ["--processes", "2", "--local-devices", "2"],
+            1: ["--processes", "1", "--local-devices", "4"]}
+    rates, boots, walls = {2: [], 1: []}, {2: [], 1: []}, {2: [], 1: []}
+    for procs in (2, 1, 1, 2):
+        r = pods_spawn(["--mode", "bench", "--mesh", "2x2", "--steps",
+                        str(PODS_BENCH_STEPS), "--reps",
+                        str(PODS_BENCH_REPS)] + arms[procs],
+                       f"(d) {procs} processes")
+        rates[procs].append(r["scenario_mpc_steps_per_sec"])
+        boots[procs].append([w["boot_s"] for w in r["workers"]])
+        walls[procs].append(r["spawn_to_result_s"])
+    print(f"pods (d) rate, {N_SCENARIOS} scenarios x {PODS_BENCH_STEPS} "
+          f"steps (median of {PODS_BENCH_REPS}, after a warm-up), in turns "
+          f"2, 1, 1, 2: scenario-MPC-steps/s 2 x {N_SCENARIOS // 2} "
+          f"{rates[2]}, 1 x {N_SCENARIOS} {rates[1]}; worker boot s "
+          f"{boots}; spawn to result s {walls} | {card}", flush=True)
+    out["rate"] = {"scenario_mpc_steps_per_s": rates, "boot_s": boots,
+                   "spawn_to_result_s": walls}
+
+    # (e) Serving on a 1-process 2x2 mesh, bitwise the meshless server.
+    rng = np.random.default_rng(0)
+    stream = [ScenarioRequest(
+        family="cadmm4", horizon=2 * int(rng.integers(1, 4)),
+        x0=tuple(float(v) for v in rng.normal(0.0, 1.0, 3)),
+        v0=tuple(float(v) for v in rng.normal(0.0, 0.2, 3)),
+        request_id=f"p{i:02d}") for i in range(PODS_SERVE_REQUESTS)]
+    served = {}
+    for name, mesh in (("meshless", None), ("mesh", pods.make_pods_mesh(
+            pods.PodsSpec(2, 2, 1), device="cuda"))):
+        srv = server_mod.ScenarioServer(
+            families=("cadmm4",), buckets=(4, 8), mesh=mesh, device="cuda")
+        wall, ts = serve_drain(srv, stream)
+        if (any(t.status != "completed" for t in ts)
+                or set(srv.stats()["dispatch_rungs"]) != {"on-chip"}):
+            fail(f"phase 40 (e) {name}: {[t.status for t in ts]}, "
+                 f"{srv.stats()}")
+        served[name] = {t.request.request_id: t.result for t in ts}
+        out.setdefault("serve_s", {})[name] = wall
+    same, worst = results_apart(served["mesh"], served["meshless"])
+    print(f"pods (e) ScenarioServer(mesh=1-process 2x2) on the card: "
+          f"{same} of {PODS_SERVE_REQUESTS} results bitwise the meshless "
+          f"server's (max |diff| {worst:.3e}); served in "
+          f"{out['serve_s']['mesh']:.3f} s and "
+          f"{out['serve_s']['meshless']:.3f} s | {card}", flush=True)
+    out["serve_bitwise"] = same
+    if same != PODS_SERVE_REQUESTS:
+        fail("phase 40 (e): the mesh server's results differ")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"pods: phase 40 took {out['phase_s']:.1f} s | {card}", flush=True)
+    return launches
+
+
 def k2_cases():
     """The shared-memory body's inputs at every shape it takes on a path,
     captured from the path's first launch: the entry step (d = 67, B = 1),
@@ -7228,6 +7440,9 @@ def main() -> int:
     # 39. The serving fleet: replica processes on the card.
     phase_at["39"] = time.perf_counter() - t_start
     fleet_launches = fleet_phase(card, report)
+    # 40. Scenario sharding across processes: worker processes on the card.
+    phase_at["40"] = time.perf_counter() - t_start
+    pods_launches = pods_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],
@@ -7243,6 +7458,7 @@ def main() -> int:
         "fused_solve_serving_stream": serving_launches,
         "fused_solve_rqp_forest_driver": driver_launches,
         "fused_solve_fleet_replicas": fleet_launches,
+        "pods_workers": pods_launches,
     }
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(
         HERE, "build", "chip_smoke.json")

@@ -72,7 +72,8 @@ def test_import_leaves_jax_out_of_sys_modules():
               "examples.fault_injection", "examples.city_forest",
               "examples.convergence_rates", "examples.replay",
               "serving.fleet", "tools", "tools.fleet_local",
-              "tools.fleet_console", "examples.serve_fleet"):
+              "tools.fleet_console", "examples.serve_fleet",
+              "parallel.pods", "tools.pods_local"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -140,7 +141,8 @@ def test_source_scan_covers_the_slice():
               "examples/convergence_rates.py", "examples/replay.py",
               "serving/fleet.py", "tools/__init__.py",
               "tools/fleet_local.py", "tools/fleet_console.py",
-              "examples/serve_fleet.py"):
+              "examples/serve_fleet.py", "parallel/pods.py",
+              "tools/pods_local.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 

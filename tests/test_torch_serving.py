@@ -553,8 +553,8 @@ def test_serve_entry_and_left_out_options(families, monkeypatch):
         _server(families, require_bundle=True)
     with pytest.raises(NotImplementedError, match="aot/"):
         _server(families, bundle="/some/bundle")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        _server(families, mesh=object())
+    with pytest.raises(ValueError, match="surgery='device'"):
+        _server(families, mesh=object(), surgery="device")
     with pytest.raises(ValueError):
         lanes.resolve_surgery("gpu")
     # The knobs' defaults, with no environment override.

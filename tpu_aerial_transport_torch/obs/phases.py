@@ -31,6 +31,7 @@ FALLBACK = "fallback"          # force-fallback ladder + NaN quarantine.
 TELEMETRY = "telemetry"        # run-health accumulator update.
 SERVING_CHUNK = "serving_chunk"  # one served batch chunk (serving tier).
 LANE_SURGERY = "lane_surgery"  # boundary lane surgery on the card.
+PODS_STEP = "pods_step"        # a pods step's plumbing (parallel/pods.py).
 
 
 def scope(phase: str) -> torch.profiler.record_function:

@@ -15,9 +15,11 @@ fleet front (``fleet.py``: consistent-hash routing, per-tenant admission,
 lease supervision, failover re-dispatch). Preemption safety rides the
 recovery journal and snapshots: a SIGTERM mid-batch completes at the
 chunk boundary and a restarted process re-admits the remainder bitwise.
+A server on a mesh over processes (``ScenarioServer(mesh=)``) runs each
+process's slab of every batch and gathers the boundary carry whole.
 
-Not ported yet: on the server the mesh placement, the AOT bundles and the
-JAX guard's CPU rung for work on the card (ROADMAP, Queue 1): a chunk
+Not ported yet: the AOT bundles and the JAX guard's CPU rung for work on
+the card (ROADMAP, Queue 1): a chunk
 that fails on the card fails its requests with a structured reason
 instead.
 """

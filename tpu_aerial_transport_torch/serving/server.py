@@ -40,6 +40,8 @@ from tpu_aerial_transport_torch.aot import loader as loader_mod
 from tpu_aerial_transport_torch.harness import checkpoint
 from tpu_aerial_transport_torch.obs import export as export_mod
 from tpu_aerial_transport_torch.obs import trace as trace_mod
+from tpu_aerial_transport_torch.parallel import mesh as mesh_mod
+from tpu_aerial_transport_torch.parallel import pods as pods_mod
 from tpu_aerial_transport_torch.resilience import backend as backend_mod
 from tpu_aerial_transport_torch.resilience.recovery import (
     RunJournal,
@@ -76,10 +78,21 @@ class ScenarioServer:
     on to the queue, the guard and the serve ladder) are optional sinks;
     None is the zero-cost path.
 
-    Not ported yet, each raising ``NotImplementedError`` with the ROADMAP
-    item it waits on: ``mesh=`` (multi-process placement, Queue 1 item 4)
-    and ``bundle=`` / ``require_bundle=True`` (the AOT bundles, Queue 1's
-    ``aot/`` item).
+    ``mesh`` (a ``parallel.pods.make_pods_mesh`` mesh, or a one-axis
+    ``parallel.mesh.Mesh``) places each chunk's batch through
+    ``parallel.mesh.shard_scenarios``: on a multi-process mesh each
+    process runs its slab of scenario rows and the boundary carry is
+    gathered whole on every process (``parallel.pods.host_global``), so
+    every process of the mesh runs the same server on the same request
+    stream; on one process the card holds the whole batch and the results
+    are the meshless server's bit for bit. A batch bucket must divide
+    over the mesh's scenario shards. The boundary gather is host surgery,
+    so ``surgery="device"`` (and pipelined dispatch, which implies it)
+    with a mesh is a ValueError.
+
+    Not ported yet, raising ``NotImplementedError`` with the ROADMAP item
+    it waits on: ``bundle=`` / ``require_bundle=True`` (the AOT bundles,
+    Queue 1's ``aot/`` item).
     """
 
     def __init__(self, families=None, *, buckets=DEFAULT_BUCKETS,
@@ -89,10 +102,6 @@ class ScenarioServer:
                  tracer=None, clock=time.monotonic,
                  surgery: str | None = None, dispatch: str | None = None,
                  cache=None, hub=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ScenarioServer(mesh=): serving on a mesh waits for the "
-                "multi-process placement (ROADMAP Queue 1 item 4)")
         if bundle is not None or require_bundle:
             raise NotImplementedError(
                 "ScenarioServer(bundle=/require_bundle=True): the AOT "
@@ -106,6 +115,18 @@ class ScenarioServer:
             # chunk k+1 can start -- the serialisation pipelining removes
             # -- so pipelined dispatch implies device surgery.
             self.surgery = "device"
+        if self.surgery == "device" and mesh is not None:
+            raise ValueError(
+                "surgery='device' is single-device serving only: the "
+                "mesh path gathers host-global boundary carries "
+                "(pods.host_global), which IS host surgery. Use "
+                "surgery='host' (default) with a mesh."
+            )
+        if mesh is not None and getattr(mesh, "device", self.device) \
+                != self.device:
+            raise ValueError(f"the mesh computes on {mesh.device}, the "
+                             f"server on {self.device}")
+        self.mesh = mesh
         if cache is None or isinstance(cache, cache_mod.ResultCache):
             self.cache = cache
         else:
@@ -415,8 +436,11 @@ class ScenarioServer:
         """The host boundary: the chunk on the card, the full boundary
         carry back to the host, the splice there."""
         batch.record_launch()
+        carry = batch.carry_host
+        if self.mesh is not None:
+            carry = mesh_mod.shard_scenarios(self.mesh, carry, "scenario")
         out, serve_rung, guard_rung = self._chunk_once(
-            fam, batch, batch.carry_host, batch.chunks_done
+            fam, batch, carry, batch.chunks_done
         )
         self._boundary_host(fam, batch, out[0], serve_rung, guard_rung)
 
@@ -434,7 +458,7 @@ class ScenarioServer:
                 lanes=batch.lane_map(),
             )
         try:
-            batch.carry_host = host_copy(new_carry)
+            batch.carry_host = self._carry_to_host(new_carry)
             batch.carry_dev = None
             finished = batch.harvest()
             sspan = None
@@ -473,6 +497,15 @@ class ScenarioServer:
                    guard_rung=guard_rung)
         if batch.retired:
             self._occupancy.extend(batch.occupancy_samples)
+
+    def _carry_to_host(self, carry):
+        """A boundary carry back to the host. The server loop is
+        host-global (late joins and the splice work on the full batch on
+        every process), so on a MULTI-process mesh the slabs are gathered
+        whole (``pods.host_global``); otherwise the plain host copy."""
+        if self.mesh is not None and mesh_mod.is_multiprocess_mesh(self.mesh):
+            return pods_mod.host_global(carry, self.mesh)
+        return host_copy(carry)
 
     def _advance_device(self, fam: Family, batch: Batch) -> None:
         """The device boundary: chunk k's carry never leaves the card. The
