@@ -304,6 +304,32 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    mesh serving ``PODS_SERVE_REQUESTS`` requests bitwise the meshless
    server on the card.
 
+41. bundled serving (``tpu_aerial_transport_torch/aot``, the entry-point
+   registry ``analysis/contracts.py``, ``tools/aot_bundle.py`` and
+   ``ScenarioServer(bundle=, require_bundle=)``): (a) a bundle of the
+   probe and the four serving entries at ``BUNDLE_BUCKETS``, built on the
+   card, carrying the three kernel libraries under the live sources'
+   digests (the chunks' variants record ``fused_solve``, the probe's
+   ``ring_sum``); (b) a fresh process with an empty kernel build
+   directory serves ``BUNDLE_REQUESTS`` requests of the serving example's
+   seeded stream (``serve_scenarios --bundle --require-bundle
+   --expect-zero-compile``): exit 0, no ``nvcc`` build, every
+   ``aot_serve`` rung ``bundle_exec``, ``warp_solve_kernel`` (C-ADMM) and
+   ``fused_solve_early_kernel`` (centralized) launched from the installed
+   library (the bundle installs all three libraries before its first
+   call), every result digest the same stream's served eagerly in this
+   process, ``BUNDLE_CPU_SAMPLES`` results within 1e-4 of the CPU; (c)
+   ``probe_subprocess(bundle_dir=)`` with an empty build directory:
+   ``BACKEND_OK`` with note ``bundle``, one ``ring_sum`` launch equal to
+   ``x.sum(0)``, no ``nvcc``; (d) a copy whose fingerprint names another
+   torch serves on ``eager_cached`` with ``tried`` holding
+   ``bundle[bundle_stale]``, and refuses under ``require_bundle`` with the
+   rebuild hint; (e) the time to the first served chunk in a fresh process
+   (``tools.aot_bundle serve``), each rung once: ``bundle_exec`` with an
+   empty build directory, ``eager_cold`` (a new build directory: the
+   process runs ``nvcc``) and ``eager_cached``, the first chunk's CUDA
+   graph capture timed apart.
+
 The main path and every bench path replay the ten substeps of a step from
 a CUDA graph (``harness.cuda_graph``); phase 2 checks it did.
 
@@ -325,7 +351,7 @@ the rounding of A x (``ROUNDING_FACTOR``).
 The children of phases 33, 37 and 38 print one ``recovery-child``,
 ``serving-child`` or ``driver-child`` record each and never the result
 line. Phase 39's replica processes and phase 40's workers print nothing
-to stdout.
+to stdout; phase 41's children print their tools' JSON lines.
 
 Output: timing lines carry the card's name and power limit; a ``kernels``
 JSON line, the ``nvidia-smi`` name/power-limit line, and last
@@ -335,6 +361,7 @@ JSON line, the ``nvidia-smi`` name/power-limit line, and last
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -566,11 +593,26 @@ FLEET_CPU_SAMPLES = 4
 # PODS_SERVE_REQUESTS requests served on a 1-process 2x2 mesh.
 PODS_STEPS, PODS_CPU, PODS_SERVE_REQUESTS = 2, 8, 8
 PODS_RESUME_STEPS, PODS_CHUNKS = 8, 4
-PODS_BENCH_STEPS, PODS_BENCH_REPS = 3, 5
+PODS_BENCH_STEPS, PODS_BENCH_REPS = 3, 3
 PODS_WORKLOAD = ["--n", str(N_AGENTS), "--scenarios", str(N_SCENARIOS),
                  "--max-iter", "20", "--inner-iters", "20",
                  "--consensus-impl", "pallas_ring", "--device", "cuda",
                  "--timeout", "300"]
+# Phase 41: bundled serving. A bundle of the probe and the four serving
+# entries at BUNDLE_BUCKETS, built on the card; BUNDLE_REQUESTS requests of
+# the serving example's seeded stream (both canonical families) served by
+# a fresh process from the bundle with an empty kernel build directory,
+# against the same stream served eagerly in this process;
+# BUNDLE_CPU_SAMPLES of them again on the CPU; BUNDLE_STALE_REQUESTS
+# C-ADMM requests served from a copy with an edited fingerprint; and the
+# time to the first served chunk of each rung in a fresh process.
+BUNDLE_ENTRIES = ("serving.batcher:serving_chunk",
+                  "serving.batcher:serving_chunk_centralized",
+                  "serving.lanes:lane_surgery",
+                  "serving.lanes:lane_surgery_centralized")
+BUNDLE_BUCKETS = (8, 16)
+BUNDLE_REQUESTS, BUNDLE_SEED, BUNDLE_CPU_SAMPLES = 24, 11, 4
+BUNDLE_STALE_REQUESTS = 8
 
 
 def fail(msg: str) -> None:
@@ -6634,6 +6676,255 @@ def pods_phase(card, report):
     return launches
 
 
+def run_module(module: str, argv: list, what: str, build_dir=None,
+               expect_rc: int = 0):
+    """``python -m <module> argv`` in a fresh process from the repo root,
+    with ``TAT_TORCH_BUILD_DIR=build_dir`` when given: ``(wall seconds,
+    its last stdout line as JSON, stderr)``. Fails the phase on another
+    exit code, or on a result line."""
+    env = dict(os.environ)
+    if build_dir is not None:
+        env["TAT_TORCH_BUILD_DIR"] = build_dir
+    t0 = time.perf_counter()
+    proc = subprocess.run(DRIVER_CMD + [module] + argv, capture_output=True,
+                          text=True, timeout=300, cwd=HERE, env=env)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != expect_rc or not lines or any(
+            '"ok"' in line for line in lines):
+        fail(f"{what}: exited {proc.returncode}: stdout "
+             f"{proc.stdout[-2000:]!r} stderr {proc.stderr[-4000:]!r}")
+    return wall, json.loads(lines[-1]), proc.stderr
+
+
+def aot_rows(path):
+    """The ``aot_serve`` rows of a metrics file."""
+    from tpu_aerial_transport_torch.obs import export
+
+    return [e for e in export.read_events(path) if e["event"] == "aot_serve"]
+
+
+def bundle_phase(card, report):
+    """Phase 41, bundled serving (module docstring). Returns the launches
+    of the bundled path's kernels, counted by the processes that made
+    them (each starts at 0): the serving child's and the probe child's."""
+    import shutil
+
+    import torch
+
+    from tpu_aerial_transport_torch.aot import bundle as bundle_mod
+    from tpu_aerial_transport_torch.examples import serve_scenarios
+    from tpu_aerial_transport_torch.ops import _build
+    from tpu_aerial_transport_torch.resilience import backend
+    from tpu_aerial_transport_torch.serving import batcher
+    from tpu_aerial_transport_torch.serving import server as server_mod
+    from tpu_aerial_transport_torch.serving.fleet import result_digest
+
+    t_phase = time.perf_counter()
+    out = report["bundle"] = {}
+    root = os.path.join(HERE, "build", "aot_run")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def empty_dir(name):
+        path = os.path.join(root, name)
+        os.makedirs(path)
+        return path
+
+    # (a) The bundle, built on the card.
+    bdir = os.path.join(root, "bundle")
+    t0 = time.perf_counter()
+    manifest = bundle_mod.build_bundle(bdir, names=list(BUNDLE_ENTRIES),
+                                       batch_buckets=BUNDLE_BUCKETS,
+                                       device="cuda")
+    build_s = time.perf_counter() - t0
+    libs = {n: k["digest"] for n, k in manifest["kernels"].items()}
+    recorded = {name: sorted({lib for v in e["variants"]
+                              for lib in v["kernels"]})
+                for name, e in manifest["entries"].items()}
+    want = {n: ["fused_solve"] for n in BUNDLE_ENTRIES[:2]}
+    want.update({n: [] for n in BUNDLE_ENTRIES[2:]})
+    want[bundle_mod.PROBE_ENTRY] = ["ring_sum"]
+    ok = (libs == {n: _build.source_digest(n) for n in _build.KERNELS}
+          and recorded == want and manifest["platform"] == "cuda"
+          and manifest["fingerprint"]["capability"] is not None)
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(bdir) for f in fs)
+    print(f"bundle (a) built on the card in {build_s:.3f} s: "
+          f"{len(manifest['entries'])} entries, "
+          f"{sum(len(e['variants']) for e in manifest['entries'].values())} "
+          f"variants at buckets {BUNDLE_BUCKETS}, libraries {libs}, "
+          f"{size} B; kernels by entry {recorded}; fingerprint "
+          f"{manifest['fingerprint']}, nvcc {manifest['nvcc']!r} "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    out["build"] = {"build_s": build_s, "bytes": size, "kernels": recorded,
+                    "fingerprint": manifest["fingerprint"]}
+    if not ok:
+        fail(f"phase 41 (a): libraries {libs}, kernels {recorded}")
+
+    # (b) A fresh process with an empty build directory serves the stream
+    # from the bundle; the same stream served eagerly here.
+    example = PKG + ".examples.serve_scenarios"
+    families = ["cadmm4", "centralized4"]
+    metrics = os.path.join(root, "bundled.jsonl")
+    results = os.path.join(root, "bundled.json")
+    b_build = empty_dir("build_b")
+    wall, summary, _ = run_module(example, [
+        "--requests", str(BUNDLE_REQUESTS), "--families", ",".join(families),
+        "--buckets", ",".join(map(str, BUNDLE_BUCKETS)), "--seed",
+        str(BUNDLE_SEED), "--bundle", bdir, "--require-bundle",
+        "--expect-zero-compile", "--device", "cuda", "--metrics", metrics,
+        "--results", results], "phase 41 (b) the bundled child", b_build)
+    with open(results) as fh:
+        served = json.load(fh)
+    rungs = sorted({r["rung"] for r in aot_rows(metrics)})
+    launches = summary["kernel_launches"]
+    installed = sorted(os.listdir(b_build))
+    stream = serve_scenarios.make_stream(
+        BUNDLE_REQUESTS, families,
+        {f: batcher.CANONICAL_FAMILIES[f].chunk_len for f in families},
+        BUNDLE_SEED, None)
+    eager_srv = server_mod.ScenarioServer(
+        families=families, buckets=BUNDLE_BUCKETS, device="cuda")
+    eager_s, tickets = serve_drain(eager_srv, stream)
+    eager = {t.request.request_id: t for t in tickets}
+    same = sum(served[rid].get("digest") == result_digest(t.result)
+               for rid, t in eager.items() if t.result is not None)
+
+    # (c) and (d), two children at once (nothing of theirs is timed),
+    # while this process serves (b)'s samples on the CPU.
+    stale = os.path.join(root, "stale")
+    shutil.copytree(bdir, stale)
+    path = os.path.join(stale, bundle_mod.MANIFEST_NAME)
+    with open(path) as fh:
+        m = json.load(fh)
+    m["fingerprint"]["torch"] = "0.0.0+stale"
+    with open(path, "w") as fh:
+        json.dump(m, fh)
+    d_metrics = os.path.join(root, "stale.jsonl")
+    notes, info = [], {}
+    c_env = {**os.environ, "TAT_TORCH_BUILD_DIR": empty_dir("build_c")}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        c_job = pool.submit(backend.probe_subprocess, timeout_s=120,
+                            bundle_dir=bdir, notes=notes, info=info,
+                            device="cuda", env=c_env)
+        d_job = pool.submit(run_module, example, [
+            "--requests", str(BUNDLE_STALE_REQUESTS), "--families",
+            "cadmm4", "--buckets", ",".join(map(str, BUNDLE_BUCKETS)),
+            "--seed", str(BUNDLE_SEED), "--bundle", stale, "--device",
+            "cuda", "--metrics", d_metrics],
+            "phase 41 (d) the stale child", _build.build_dir())
+        sample = sorted(eager)[:BUNDLE_CPU_SAMPLES]
+        cpu_srv = server_mod.ScenarioServer(
+            families=families, buckets=BUNDLE_BUCKETS, device="cpu")
+        _, cpu_tickets = serve_drain(cpu_srv, [r for r in stream
+                                               if r.request_id in sample])
+        n_same, worst = results_apart(
+            {rid: eager[rid].result for rid in sample},
+            {t.request.request_id: t.result for t in cpu_tickets})
+        ok_probe, detail = c_job.result()
+        _, d_summary, _ = d_job.result()
+    ok = (summary["completed"] == BUNDLE_REQUESTS
+          and summary["nvcc_builds"] == 0 and rungs == ["bundle_exec"]
+          and launches.get("warp_solve_kernel", 0) > 0
+          and launches.get("fused_solve_early_kernel", 0) > 0
+          and installed == sorted(os.path.basename(_build.library_path(n))
+                                  for n in _build.KERNELS)
+          and same == BUNDLE_REQUESTS and worst <= CPU_STATE_ATOL
+          and all(t.status == "completed" for t in cpu_tickets))
+    print(f"bundle (b) a fresh process, empty build directory: "
+          f"{summary['completed']} of {BUNDLE_REQUESTS} requests served "
+          f"from the bundle in {summary['wall_s']} s ({wall:.2f} s spawn to "
+          f"exit), nvcc builds {summary['nvcc_builds']}, aot_serve rungs "
+          f"{rungs}, kernel launches {launches}, graph captures "
+          f"{summary['graph_captures']} ({summary['graph_capture_s']:.3f} s),"
+          f" installed {installed}; {same} of {BUNDLE_REQUESTS} digests "
+          f"equal to the eager serve here ({eager_s:.3f} s); {sample} "
+          f"against the CPU: max |state diff| {worst:.3e} (bar "
+          f"{CPU_STATE_ATOL}), {n_same} bitwise "
+          + ("ok" if ok else "FAIL") + f" | {card}", flush=True)
+    out["serve"] = {"summary": summary, "wall_s": wall, "rungs": rungs,
+                    "digests_equal": same, "eager_s": eager_s,
+                    "cpu_max_abs": worst, "installed": installed}
+    if not ok:
+        fail(f"phase 41 (b): {json.dumps(summary)[:3000]}")
+
+    probe = info.get("probe", {})
+    ok = (ok_probe and notes == ["bundle"] and probe.get("ring_sum") == 1
+          and probe.get("nvcc_builds") == 0)
+    print(f"bundle (c) probe_subprocess(bundle_dir=), empty build "
+          f"directory: {ok_probe} {detail}, notes {notes}, child {probe} "
+          f"(its ring sum equal to x.sum(0) in every row, or the probe "
+          f"would fail) " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    out["probe"] = {"detail": detail, "notes": notes, "child": probe}
+    if not ok:
+        fail(f"phase 41 (c): {ok_probe} {detail} {notes} {info}")
+
+    d_rows = aot_rows(d_metrics)
+    d_rungs = sorted({r["rung"] for r in d_rows})
+    d_tried = sorted({tuple(r.get("tried", ())) for r in d_rows})
+    try:
+        server_mod.ScenarioServer(families=["cadmm4"], device="cuda",
+                                  bundle=stale, require_bundle=True)
+        refusal = None
+    except bundle_mod.BundleError as e:
+        refusal = e
+    ok = (d_summary["completed"] == BUNDLE_STALE_REQUESTS
+          and d_rungs == ["eager_cached"]
+          and d_tried == [("bundle[bundle_stale]",)]
+          and d_summary["nvcc_builds"] == 0 and refusal is not None
+          and refusal.kind == "bundle_stale"
+          and "rebuild hint" in str(refusal))
+    print(f"bundle (d) a copy fingerprinted for torch 0.0.0+stale: "
+          f"{d_summary['completed']} of {BUNDLE_STALE_REQUESTS} requests on "
+          f"rungs {d_rungs}, tried {d_tried}, nvcc builds "
+          f"{d_summary['nvcc_builds']}; require_bundle refused: "
+          f"{str(refusal)[:400]!r} " + ("ok" if ok else "FAIL")
+          + f" | {card}", flush=True)
+    out["stale"] = {"rungs": d_rungs, "tried": d_tried,
+                    "refusal": str(refusal)}
+    if not ok:
+        fail(f"phase 41 (d): {d_summary} {d_rows[:2]} {refusal}")
+
+    # (e) Time to the first served chunk in a fresh process, by rung.
+    tool = PKG + ".tools.aot_bundle"
+    arms = {}
+    for mode, build_dir, rung in (
+            ("bundled", empty_dir("build_e"), "bundle_exec"),
+            ("cold", None, "eager_cold"),
+            ("cached", _build.build_dir(), "eager_cached")):
+        argv = ["serve", "--entry", BUNDLE_ENTRIES[0], "--mode", mode,
+                "--device", "cuda"]
+        if mode == "bundled":
+            argv += ["--bundle", bdir, "--expect-zero-compile"]
+        wall, row, _ = run_module(tool, argv, f"phase 41 (e) {mode}",
+                                  build_dir)
+        row["process_s"] = wall
+        arms[mode] = row
+        if row["rung"] != rung or (mode == "cold") != bool(
+                row["nvcc_builds"]):
+            fail(f"phase 41 (e) {mode}: {row}")
+    print("bundle (e) time to the first served chunk (cadmm4, 8 lanes) in "
+          "a fresh process, after the imports: "
+          + "; ".join(f"{m} {r['rung']} {r['ttfs_s']:.3f} s (set-up "
+                      f"{r['setup_s']:.3f} s, the call {r['serve_s']:.3f} "
+                      f"s, of it the install {r['install_s']:.3f} s and "
+                      f"the graph capture {r['graph_capture_s']:.3f} s; "
+                      f"nvcc builds "
+                      f"{r['nvcc_builds']}; spawn to exit "
+                      f"{r['process_s']:.2f} s)" for m, r in arms.items())
+          + f" | {card}", flush=True)
+    out["first_result"] = arms
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"bundle: phase 41 took {out['phase_s']:.1f} s | {card}",
+          flush=True)
+    torch.cuda.synchronize()
+    return {"warp_solve_kernel": launches["warp_solve_kernel"],
+            "fused_solve_early_kernel": launches["fused_solve_early_kernel"],
+            "ring_sum": probe["ring_sum"]}
+
+
 def k2_cases():
     """The shared-memory body's inputs at every shape it takes on a path,
     captured from the path's first launch: the entry step (d = 67, B = 1),
@@ -7443,6 +7734,9 @@ def main() -> int:
     # 40. Scenario sharding across processes: worker processes on the card.
     phase_at["40"] = time.perf_counter() - t_start
     pods_launches = pods_phase(card, report)
+    # 41. Bundled serving: kernel libraries from an AOT bundle, no nvcc.
+    phase_at["41"] = time.perf_counter() - t_start
+    bundle_launches = bundle_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],
@@ -7459,6 +7753,7 @@ def main() -> int:
         "fused_solve_rqp_forest_driver": driver_launches,
         "fused_solve_fleet_replicas": fleet_launches,
         "pods_workers": pods_launches,
+        "bundled_serving": bundle_launches,
     }
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(
         HERE, "build", "chip_smoke.json")

@@ -368,8 +368,9 @@ def test_probe_subprocess_on_the_host(monkeypatch):
     """The probe's child runs the matmul and the bf16 round trip on the
     host and reports its topology; an expectation above it fails with a
     ``topology_mismatch``-classified detail; the injected
-    ``init_unavailable`` fails fast as an initialisation failure;
-    ``bundle_dir`` waits for the AOT bundles."""
+    ``init_unavailable`` fails fast as an initialisation failure; a
+    ``bundle_dir`` that does not exist falls back to the plain probe in
+    the child, reported as a ``bundle_fallback:unreadable`` note."""
     monkeypatch.delenv(b.FAULTS_ENV, raising=False)
     info = {}
     ok, detail = b.probe_subprocess(timeout_s=120, device="cpu", info=info)
@@ -381,8 +382,12 @@ def test_probe_subprocess_on_the_host(monkeypatch):
     ok, detail = b.probe_subprocess(
         env={b.FAULTS_ENV: "init_unavailable"}, device="cpu")
     assert not ok and b.classify(detail) == "init_unavailable"
-    with pytest.raises(NotImplementedError, match="aot/"):
-        b.probe_subprocess(bundle_dir="/nonexistent")
+    notes = []
+    ok, detail = b.probe_subprocess(timeout_s=120, device="cpu",
+                                    bundle_dir="/nonexistent", notes=notes)
+    assert ok and detail == "cpu", detail
+    assert len(notes) == 1 and notes[0].startswith(
+        "bundle_fallback:unreadable:"), notes
     with pytest.raises(ValueError, match="not an integer"):
         b.probe_subprocess(env={b.EXPECTED_DEVICES_ENV: "four"},
                            device="cpu")

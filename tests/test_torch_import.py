@@ -73,7 +73,8 @@ def test_import_leaves_jax_out_of_sys_modules():
               "examples.convergence_rates", "examples.replay",
               "serving.fleet", "tools", "tools.fleet_local",
               "tools.fleet_console", "examples.serve_fleet",
-              "parallel.pods", "tools.pods_local"):
+              "parallel.pods", "tools.pods_local", "aot", "aot.bundle",
+              "analysis", "analysis.contracts", "tools.aot_bundle"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"

@@ -531,10 +531,15 @@ def test_card_failure_fails_the_chunks_requests(families, tmp_path):
 
 
 def test_serve_entry_and_left_out_options(families, monkeypatch):
-    """The serve ladder's one rung (``eager``) with the JAX ladder's
-    ``aot_serve`` fields; a bundle, ``require_bundle`` and ``mesh`` raise
-    ``NotImplementedError`` naming their ROADMAP items; the server's
-    default device is the card, so without one it raises."""
+    """The serve ladder's eager rung (``eager_cached`` in a process that ran
+    no ``nvcc``) with the JAX ladder's ``aot_serve`` fields; nothing to
+    serve raises ``missing_entry``; an unreadable bundle directory raises
+    ``unreadable`` at construction; ``require_bundle`` without a bundle
+    covers no family, so every request is rejected at admission; a mesh
+    with device surgery is a ValueError; the server's default device is
+    the card, so without one it raises."""
+    from tpu_aerial_transport_torch.aot.bundle import BundleError
+
     rows = []
 
     class Sink:
@@ -544,15 +549,18 @@ def test_serve_entry_and_left_out_options(families, monkeypatch):
     out, rung = loader.serve_entry(None, "e", (2, 3),
                                    jit_fallback=lambda a, b: a * b,
                                    metrics=Sink(), label="lbl")
-    assert (out, rung) == (6, loader.RUNG_EAGER)
+    assert (out, rung) == (6, loader.RUNG_EAGER_CACHED)
     assert rows[0][0] == "aot_serve"
     assert set(rows[0][1]) == {"entry", "rung", "label", "wall_s"}
-    with pytest.raises(NotImplementedError, match="aot/"):
-        loader.serve_entry(object(), "e", (), jit_fallback=lambda: 0)
-    with pytest.raises(NotImplementedError, match="aot/"):
-        _server(families, require_bundle=True)
-    with pytest.raises(NotImplementedError, match="aot/"):
+    with pytest.raises(BundleError, match="no bundle and no fallback"):
+        loader.serve_entry(None, "e", ())
+    t = _server(families, require_bundle=True).submit(
+        _others("cadmm4", 1)[0])
+    assert (t.status, t.reason) == (queue_mod.REJECTED,
+                                    queue_mod.REASON_NO_COVERAGE)
+    with pytest.raises(BundleError) as err:
         _server(families, bundle="/some/bundle")
+    assert err.value.kind == "unreadable"
     with pytest.raises(ValueError, match="surgery='device'"):
         _server(families, mesh=object(), surgery="device")
     with pytest.raises(ValueError):

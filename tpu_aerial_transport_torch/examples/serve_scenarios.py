@@ -12,13 +12,19 @@ chunk boundary and journals the remainder; a second run with ``--resume``
 completes it, and the per-request result digests (``--results``) are
 bitwise an uninterrupted run's.
 
-It takes the JAX example's flags but ``--bundle``, ``--require-bundle`` and
-``--expect-zero-compile`` (the AOT bundles are not ported yet), and
-``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+It takes the JAX example's flags and ``--device`` (default ``cuda``;
+``cpu`` runs the plain PyTorch path). ``--bundle DIR --require-bundle
+--expect-zero-compile`` serves the stream from an AOT bundle
+(``tpu_aerial_transport_torch/aot``): the kernel libraries installed from
+the bundle, the template carries from its ``args_sample``, and exit 3 when
+this process ran any ``nvcc`` build (the summary's ``nvcc_builds``, beside
+the CUDA graph captures, which no bundle carries).
 
 Usage:
   python3 -m tpu_aerial_transport_torch.examples.serve_scenarios \\
       --requests 64 --buckets 8,16,32
+  python3 -m tpu_aerial_transport_torch.examples.serve_scenarios \\
+      --bundle build/aot/cuda --require-bundle --expect-zero-compile
   python3 -m tpu_aerial_transport_torch.examples.serve_scenarios \\
       --run-dir runs/serve --resume
 """
@@ -98,9 +104,42 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--sigterm-after", type=int, default=0,
                     help="test hook: raise SIGTERM in-process after N "
                          "pump rounds (graceful boundary preemption)")
+    ap.add_argument("--bundle", default="",
+                    help="serve from this AOT bundle directory")
+    ap.add_argument("--require-bundle", action="store_true",
+                    help="admit only families and buckets the bundle "
+                         "covers, with no eager fallback")
+    ap.add_argument("--expect-zero-compile", action="store_true",
+                    help="exit 3 when this process ran any nvcc build")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
+
+
+def process_counters() -> dict:
+    """What this process paid and launched: its ``nvcc`` builds, its CUDA
+    graph captures (count and host seconds) and its kernel launches by
+    kernel name."""
+    from tpu_aerial_transport_torch.harness import cuda_graph
+    from tpu_aerial_transport_torch.ops import _build, admm_kernel
+    from tpu_aerial_transport_torch.parallel import ring
+
+    launches = {**admm_kernel.KERNEL_LAUNCHES,
+                **admm_kernel.CHUNK_LAUNCHES, **ring.LAUNCHES}
+    return {"nvcc_builds": _build.nvcc_builds(),
+            "graph_captures": cuda_graph.PROCESS_CAPTURES["captures"],
+            "graph_capture_s": cuda_graph.PROCESS_CAPTURES["capture_s"],
+            "kernel_launches": {k: v for k, v in launches.items() if v}}
+
+
+def zero_compile_exit(tool: str, counters: dict) -> int:
+    """``--expect-zero-compile``'s verdict: 3 (and a line on stderr) when
+    the process ran ``nvcc``, else 0."""
+    if counters["nvcc_builds"]:
+        print(f"{tool}: NOT zero-compile: {counters['nvcc_builds']} nvcc "
+              "builds", file=sys.stderr)
+        return 3
+    return 0
 
 
 def main(argv=None) -> int:
@@ -135,6 +174,7 @@ def main(argv=None) -> int:
         tracer=tracer,
         surgery=args.surgery or None, dispatch=args.dispatch or None,
         cache=(args.cache or None), device=device,
+        bundle=args.bundle or None, require_bundle=args.require_bundle,
     )
 
     with GracefulInterrupt() as interrupt:
@@ -230,7 +270,8 @@ def main(argv=None) -> int:
             },
         }
     summary = {
-        "mode": "resume" if args.resume else "eager",
+        "mode": ("resume" if args.resume
+                 else "bundled" if args.bundle else "eager"),
         "wall_s": round(wall_s, 3),
         "rounds": rounds,
         **trace_summary,
@@ -240,8 +281,11 @@ def main(argv=None) -> int:
         **stats,
         **({"card": torch.cuda.get_device_name(device)}
            if device.type == "cuda" else {}),
+        **process_counters(),
     }
     print(json.dumps(summary), flush=True)
+    if args.expect_zero_compile:
+        return zero_compile_exit("serve_scenarios", summary)
     return 0
 
 

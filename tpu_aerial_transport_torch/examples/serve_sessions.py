@@ -20,9 +20,11 @@ journals every alert transition back into the same file, puts
 ``slo_firing`` and ``slo_alerts`` into the summary, and exits 6 when an
 alert is still firing at the end (a nominal storm fires none).
 
-It takes the JAX example's flags but ``--bundle``, ``--require-bundle`` and
-``--expect-zero-compile`` (the AOT bundles are not ported yet), and
-``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+It takes the JAX example's flags and ``--device`` (default ``cuda``;
+``cpu`` runs the plain PyTorch path). ``--bundle DIR --require-bundle
+--expect-zero-compile``: the whole storm serves from an AOT bundle and the
+run exits 3 when this process ran any ``nvcc`` build (the summary's
+``nvcc_builds``).
 
 Usage:
   python3 -m tpu_aerial_transport_torch.examples.serve_sessions \
@@ -45,7 +47,9 @@ import torch
 
 from tpu_aerial_transport_torch import resolve_device
 from tpu_aerial_transport_torch.examples.serve_scenarios import (
+    process_counters,
     result_digest,
+    zero_compile_exit,
 )
 
 
@@ -107,6 +111,13 @@ def main(argv=None) -> int:
                          "pump rounds")
     ap.add_argument("--max-rounds", type=int, default=2000,
                     help="hang guard on the pump loop")
+    ap.add_argument("--bundle", default="",
+                    help="serve from this AOT bundle directory")
+    ap.add_argument("--require-bundle", action="store_true",
+                    help="admit only what the bundle covers, with no "
+                         "eager fallback")
+    ap.add_argument("--expect-zero-compile", action="store_true",
+                    help="exit 3 when this process ran any nvcc build")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -141,6 +152,7 @@ def main(argv=None) -> int:
         metrics=(tracer.sink if tracer is not None and tracer.sink
                  else args.metrics or None),
         tracer=tracer, hub=hub, device=device,
+        bundle=args.bundle or None, require_bundle=args.require_bundle,
     )
 
     plans = {f"c{i}": client_plan(i, args.steps, args.seed)
@@ -385,7 +397,8 @@ def main(argv=None) -> int:
                          "trace_spans": len(tracer.rows)}
     sstats = host.stats()
     summary = {
-        "mode": "resume" if args.resume else "eager",
+        "mode": ("resume" if args.resume
+                 else "bundled" if args.bundle else "eager"),
         "preempted": state["preempted"],
         "wall_s": round(wall_s, 3),
         "pump_rounds": rounds[0],
@@ -400,8 +413,12 @@ def main(argv=None) -> int:
         "hub": hub.snapshot(),
         **({"card": torch.cuda.get_device_name(device)}
            if device.type == "cuda" else {}),
+        **process_counters(),
     }
     print(json.dumps(summary), flush=True)
+    if args.expect_zero_compile and zero_compile_exit("serve_sessions",
+                                                      summary):
+        return 3
     if args.expect_evicted >= 0 and \
             sstats["evicted"] != args.expect_evicted:
         print(f"serve_sessions: evicted {sstats['evicted']} != "

@@ -15,6 +15,7 @@ graph closes over.
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
@@ -25,6 +26,12 @@ from tpu_aerial_transport_torch.tree import leaves, tree_map
 # library routine on a stream allocates its handle and workspace, which
 # must not happen inside the capture.
 WARMUP_CALLS = 2
+
+# Captures made in this process, of every instance, and the host seconds
+# they took (warm-up calls and capture, enqueue time: the host's part of a
+# first call at a new shape). What a process pays that no AOT bundle can
+# carry: PyTorch cannot serialize a graph.
+PROCESS_CAPTURES = {"captures": 0, "capture_s": 0.0}
 
 
 class GraphedFn:
@@ -66,6 +73,7 @@ class GraphedFn:
         return tree_map(torch.clone, static_out)
 
     def _capture(self, state, inputs):
+        t0 = time.perf_counter()
         static_state = tree_map(torch.clone, state)
         static_in = tree_map(torch.clone, inputs)
         side = torch.cuda.Stream()
@@ -78,4 +86,6 @@ class GraphedFn:
         with torch.cuda.graph(graph):
             static_out = self.fn(static_state, static_in)
         self.captures += 1
+        PROCESS_CAPTURES["captures"] += 1
+        PROCESS_CAPTURES["capture_s"] += time.perf_counter() - t0
         return graph, static_state, static_in, static_out

@@ -15,6 +15,12 @@ a stale library is never loaded. The build directory is
 ``nvcc`` process each, all started together; ``-split-compile=0`` lets
 each one compile its entry functions on every core, so the build (which
 counts against the smoke's time limit) does not wait on one core a source.
+
+A library built elsewhere (an AOT bundle's, ``aot/``) is put in place by
+:func:`install` under the name :func:`library_path` gives it, so that
+:func:`build` finds it and compiles nothing. :func:`nvcc_builds` counts the
+libraries this process compiled (the zero-compile counter of a bundled
+serving process).
 """
 
 from __future__ import annotations
@@ -37,6 +43,14 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOADED: dict[str, str] = {}  # name -> source digest of the loaded library.
+_NVCC_BUILDS = 0
+
+
+class StaleLibrary(ValueError):
+    """A prebuilt library whose source digest is not the live source's, or
+    not the one this process already loaded: its launchers' argument types
+    (which live in Python) may not match it, so it is never loaded."""
 
 
 def build_dir() -> str:
@@ -68,20 +82,68 @@ def _source(name: str) -> str:
     return path
 
 
-def library_path(name: str) -> str:
+def source_digest(name: str) -> str:
+    """The 16 hex digits of the sha256 over library ``name``'s source, the
+    shared headers and the flags: what its file name carries."""
     digest = hashlib.sha256()
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for path in [_source(name)] + [os.path.join(CSRC, h) for h in headers]:
         with open(path, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
+    return digest.hexdigest()[:16]
+
+
+def library_path(name: str, digest: str | None = None) -> str:
+    digest = source_digest(name) if digest is None else digest
+    return os.path.join(build_dir(), f"{name}-{digest}.so")
+
+
+def nvcc_builds() -> int:
+    """How many libraries :func:`build` compiled in this process."""
+    return _NVCC_BUILDS
+
+
+def install(name: str, payload: bytes, digest: str) -> str:
+    """Put a prebuilt library of ``name`` (``payload``, the bytes of a
+    library built from sources of ``digest``, already verified by the
+    caller) where :func:`load` looks for it, so that nothing is compiled.
+    Returns ``"loaded"`` when this process already loaded a library of
+    that digest, ``"present"`` when the build directory holds one, else
+    ``"installed"`` (written to a temporary file, synced and renamed into
+    place). Raises :class:`StaleLibrary` when ``digest`` is not the live
+    source's, or not that of the library already loaded."""
+    live = source_digest(name)
+    with _LOCK:
+        loaded = _LOADED.get(name)
+        if loaded is not None:
+            if loaded != digest:
+                raise StaleLibrary(
+                    f"{name}: this process loaded the library of sources "
+                    f"{loaded}, the bundle's is of {digest}")
+            return "loaded"
+        if digest != live:
+            raise StaleLibrary(
+                f"{name}: the bundle's library is of sources {digest}, the "
+                f"live csrc/ is {live}")
+        path = library_path(name, digest)
+        if os.path.isfile(path):
+            return "present"
+        os.makedirs(build_dir(), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        return "installed"
 
 
 def build(names=KERNELS) -> dict[str, tuple[float, str]]:
     """Compile every missing library of ``names`` in parallel (one ``nvcc``
     each, all started together); raise with the compiler's output if any
     fails. Returns ``{name: (seconds, nvcc output)}`` for the ones built."""
+    global _NVCC_BUILDS
     os.makedirs(build_dir(), exist_ok=True)
     todo = [n for n in names if not os.path.isfile(library_path(n))]
     if not todo:
@@ -105,6 +167,7 @@ def build(names=KERNELS) -> dict[str, tuple[float, str]]:
             continue
         os.replace(tmp, out)
         done[n] = (secs, log)
+    _NVCC_BUILDS += len(procs)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return done
@@ -115,11 +178,13 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            path = library_path(name)
+            digest = source_digest(name)
+            path = library_path(name, digest)
             if not os.path.isfile(path):
                 build((name,))
             lib = ctypes.CDLL(path)
             _LIBS[name] = lib
+            _LOADED[name] = digest
         return lib
 
 

@@ -24,7 +24,8 @@ texts that PyTorch, the CUDA runtime and the kernels' build raise.
 - :func:`probe_subprocess` -- cold CUDA initialisation and a first real
   dispatch (a matmul and a dtype round trip) in a watchdogged child
   process, with the visible device count checked against the expected
-  topology (``torch.cuda.device_count()`` in the child).
+  topology (``torch.cuda.device_count()`` in the child); with an AOT
+  bundle, the bundle's probe entry on its installed libraries.
 - :class:`FaultInjector` -- the ``TAT_BACKEND_FAULTS`` hook that makes a
   wedge, an initialisation failure or a mid-run crash testable on any
   host, without provoking a real (sticky) CUDA error.
@@ -52,12 +53,14 @@ initialising CUDA is the hazard being watched.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import random
 import re
 import signal
 import subprocess
 import sys
+import textwrap
 import threading
 import time
 import types
@@ -77,9 +80,8 @@ ERROR_KINDS = (
                           # is a program bug (``unknown``).
     "oom",                # device memory exhausted.
     "device_crash",       # the runtime died mid-execution.
-    "bundle_stale",       # an AOT bundle's fingerprint drifted (the AOT
-                          # bundles are not ported yet; the kind stays so
-                          # the two packages' rows share one vocabulary).
+    "bundle_stale",       # an AOT bundle's fingerprint or library source
+                          # digest drifted: a rebuild hint, not a fault.
     "unknown",            # unclassified: a CODE bug, not infrastructure.
 )
 
@@ -319,6 +321,24 @@ DEADLINE_ENV = "TAT_BACKEND_DEADLINE_S"
 # a classified topology_mismatch.
 EXPECTED_DEVICES_ENV = "TAT_EXPECTED_DEVICES"
 EXPECTED_PROCESSES_ENV = "TAT_EXPECTED_PROCESSES"
+# AOT bundle the probe prefers: the probe runs the bundle's probe entry on
+# the libraries the bundle installs, so a cold probe runs no nvcc
+# (tpu_aerial_transport_torch/aot/).
+BUNDLE_ENV = "TAT_AOT_BUNDLE_DIR"
+# The line after BACKEND_OK a bundle probe prints: JSON of what it launched.
+PROBE_INFO = "PROBE_INFO"
+
+_REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+# The probe's device work: a real matmul and an explicit float32 -> bfloat16
+# -> float32 round trip on ``dev``, its checksum in ``s``.
+_PROBE_WORK = (
+    "x = torch.ones((128, 128), dtype=torch.float32, device=dev)\n"
+    "y = (x @ x).to(torch.bfloat16)\n"
+    "s = float(y.to(torch.float32).sum())\n"
+)
 
 
 def _probe_code(device: str = "cuda") -> str:
@@ -331,10 +351,44 @@ def _probe_code(device: str = "cuda") -> str:
         "import torch\n"
         f"dev = torch.device({device!r})\n"
         "n = torch.cuda.device_count() if dev.type == 'cuda' else 1\n"
-        "x = torch.ones((128, 128), dtype=torch.float32, device=dev)\n"
-        "y = (x @ x).to(torch.bfloat16)\n"
-        "s = float(y.to(torch.float32).sum())\n"
-        "print('BACKEND_OK', dev.type, n, 1, s)\n"
+        + _PROBE_WORK
+        + "print('BACKEND_OK', dev.type, n, 1, s)\n"
+    )
+
+
+def _bundle_probe_code(bundle_dir: str, device: str = "cuda") -> str:
+    """The bundle-warmed probe: the same token line, the device work
+    replayed from the bundle's probe entry (``aot.loader.call_probe``: the
+    matmul, the bf16 round trip and a ring-sum launch on the card, on the
+    libraries the bundle installs). A bundle failure (a ``BundleError``:
+    stale fingerprint or library, missing directory, corrupt object) falls
+    back to the plain probe in the child: the card is still probed and the
+    line's trailing note carries the classified problem (a rebuild hint,
+    never a failed probe). Any other failure -- a bundled library that does
+    not load or launch, a ring sum that is not ``x.sum(0)`` -- fails the
+    probe: the card is at fault, and no plain probe may hide it. A
+    ``PROBE_INFO`` JSON line follows: the ring-sum launches and the
+    ``nvcc`` builds of the child."""
+    return (
+        "import json, sys\n"
+        f"sys.path.insert(0, {_REPO_DIR!r})\n"
+        "import torch\n"
+        "from tpu_aerial_transport_torch.aot import loader as _aot\n"
+        f"dev = torch.device({device!r})\n"
+        "n = torch.cuda.device_count() if dev.type == 'cuda' else 1\n"
+        "note = 'bundle'\n"
+        "try:\n"
+        f"    b = _aot.load_bundle({bundle_dir!r})\n"
+        "    s = _aot.call_probe(b, device=dev)\n"
+        "except _aot.BundleError as e:\n"
+        "    note = ('bundle_fallback:' + e.kind + ':'\n"
+        "            + '_'.join(str(e)[:160].split()))\n"
+        + textwrap.indent(_PROBE_WORK, "    ")
+        + "print('BACKEND_OK', dev.type, n, 1, s, note)\n"
+        "from tpu_aerial_transport_torch.ops import _build\n"
+        "from tpu_aerial_transport_torch.parallel import ring\n"
+        f"print({PROBE_INFO!r}, json.dumps({{'ring_sum': "
+        "ring.LAUNCHES['ring_sum'], 'nvcc_builds': _build.nvcc_builds()}))\n"
     )
 
 
@@ -386,6 +440,7 @@ def _expected_topology(env: dict | None) -> tuple[int | None, int | None]:
 def probe_subprocess(timeout_s: float = 60.0,
                      env: dict | None = None,
                      bundle_dir: str | None = None,
+                     notes: list | None = None,
                      expect_devices: int | None = None,
                      expect_processes: int | None = None,
                      info: dict | None = None,
@@ -404,17 +459,20 @@ def probe_subprocess(timeout_s: float = 60.0,
     with a ``topology_mismatch``-classified detail; a surplus passes.
     ``device="cpu"`` probes the host (the CPU tests' form).
 
-    ``bundle_dir`` (an AOT bundle to warm from) raises
-    ``NotImplementedError``: the AOT bundles are not ported yet (ROADMAP,
-    Queue 1, the ``aot/`` item).
+    ``bundle_dir`` (default: the :data:`BUNDLE_ENV` env var) makes the
+    probe prefer the AOT bundle's probe entry on the bundle's libraries,
+    so the probed dispatch cannot spend the deadline in ``nvcc``; a bundle
+    problem (a ``BundleError``) falls back to the plain probe inside the
+    child and is reported through ``notes`` (appended strings: ``bundle``
+    when the bundle served, ``bundle_fallback:<kind>:...`` otherwise), a
+    rebuild hint, never a failed probe and never a breaker strike. A
+    bundled library that fails to load or launch, or a ring sum that is
+    not ``x.sum(0)``, fails the probe. ``info`` then also receives
+    ``probe``: the child's ring-sum launches and ``nvcc`` builds.
 
     Honors :class:`FaultInjector`: an ``init_unavailable`` directive fails
     the probe fast, in-process.
     """
-    if bundle_dir is not None:
-        raise NotImplementedError(
-            "probe_subprocess(bundle_dir=): the AOT bundles are not ported "
-            "yet (ROADMAP Queue 1, the aot/ item)")
     inj = FaultInjector.from_env(
         (env or os.environ).get(FAULTS_ENV, ""))
     if inj.init_unavailable:
@@ -427,10 +485,12 @@ def probe_subprocess(timeout_s: float = 60.0,
         expect_devices = env_devices
     if expect_processes is None:
         expect_processes = env_processes
+    if bundle_dir is None:
+        bundle_dir = (env or os.environ).get(BUNDLE_ENV, "")
+    code = (_bundle_probe_code(bundle_dir, device) if bundle_dir
+            else _probe_code(device))
     try:
-        proc = run_group(
-            [sys.executable, "-c", _probe_code(device)], timeout_s, env=env,
-        )
+        proc = run_group([sys.executable, "-c", code], timeout_s, env=env)
     except subprocess.TimeoutExpired:
         return False, (
             f"timeout after {timeout_s:g}s (card unreachable/wedged)"
@@ -445,6 +505,12 @@ def probe_subprocess(timeout_s: float = 60.0,
             info.update(
                 platform=parts[1], n_devices=n_dev, n_processes=n_proc,
             )
+            extra = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith(PROBE_INFO + " ")]
+            if extra:
+                info["probe"] = json.loads(extra[0].split(" ", 1)[1])
+        if notes is not None and len(parts) > 5:
+            notes.extend(parts[5:])
         want_dev = n_dev if expect_devices is None else expect_devices
         want_proc = n_proc if expect_processes is None else expect_processes
         if n_dev < want_dev or n_proc < want_proc:

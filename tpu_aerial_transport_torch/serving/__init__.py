@@ -16,12 +16,14 @@ lease supervision, failover re-dispatch). Preemption safety rides the
 recovery journal and snapshots: a SIGTERM mid-batch completes at the
 chunk boundary and a restarted process re-admits the remainder bitwise.
 A server on a mesh over processes (``ScenarioServer(mesh=)``) runs each
-process's slab of every batch and gathers the boundary carry whole.
+process's slab of every batch and gathers the boundary carry whole. A
+server given an AOT bundle (``ScenarioServer(bundle=, require_bundle=)``,
+``aot/``) installs its kernel libraries from the bundle and runs no
+``nvcc``.
 
-Not ported yet: the AOT bundles and the JAX guard's CPU rung for work on
-the card (ROADMAP, Queue 1): a chunk
-that fails on the card fails its requests with a structured reason
-instead.
+Not ported yet: the JAX guard's CPU rung for work on the card (ROADMAP,
+Queue 1): a chunk that fails on the card fails its requests with a
+structured reason instead.
 """
 
 from tpu_aerial_transport_torch.serving.fleet import (  # noqa: F401

@@ -53,9 +53,10 @@ DEFAULT_BUCKETS = (8, 16, 32)
 @dataclasses.dataclass(frozen=True)
 class FamilySpec:
     """One served program family (pure data: hashable, journalable).
-    ``entry`` names the family's registry/AOT-bundle entry in the JAX
-    package (the canonical families have one); the port serves every
-    family eagerly and uses the name as the ``aot_serve`` row's entry.
+    ``entry`` names the family's registry and AOT-bundle entry
+    (``analysis.contracts``; the canonical families have one), under
+    which a bundled server serves its chunks; a family without one serves
+    eagerly under its own name.
     ``surgery_entry`` names the family's device lane-surgery entry: None
     => host splice only, whatever the server's surgery mode."""
 
@@ -145,6 +146,13 @@ class Family:
                 lambda t: t.detach().to("cpu", copy=True),
                 self._build()[1])
         return self._template_host
+
+    def set_template_carry_host(self, template) -> None:
+        """Install an externally sourced template (an AOT bundle's
+        ``args_sample`` lane, CPU tensors): no state factory runs for it."""
+        self._template_host = template
+        self._templates_b = {}
+        self._templates_dev = {}
 
     def batched_template_host(self, bucket: int):
         """The template carry stacked to ``bucket`` lanes on the host

@@ -13,9 +13,13 @@ Counterpart of the JAX package's ``serving/server.py``. Rules of the road:
   A server on the CPU (``device="cpu"``) reruns a failed chunk on the
   guard's tagged CPU rung, as the JAX server does on a host with no
   accelerator;
-- **every call is served through** ``aot.loader.serve_entry``, whose one
-  rung in the port is the eager program (the AOT bundles are not ported:
-  ``bundle=`` and ``require_bundle=True`` raise);
+- **every call is served through** ``aot.loader.serve_entry``: a bundled
+  server (``bundle=``) serves its chunks and lane surgeries on the
+  ``bundle_exec`` rung, its kernel libraries installed from the bundle
+  (no ``nvcc`` in the process) and, under ``require_bundle=True``, its
+  template carries from the bundle's ``args_sample`` and admission
+  limited to the families and buckets the bundle covers; an un-bundled
+  server takes the eager rungs (``eager_cached``/``eager_cold``);
 - **preemption safety rides the recovery journal**: every chunk boundary
   publishes an atomic carry snapshot and a journaled lane map (the JAX
   server's JSON, so either package's reader reads both), so a SIGTERM
@@ -37,6 +41,7 @@ import time
 
 from tpu_aerial_transport_torch import resolve_device
 from tpu_aerial_transport_torch.aot import loader as loader_mod
+from tpu_aerial_transport_torch.aot.bundle import BundleError
 from tpu_aerial_transport_torch.harness import checkpoint
 from tpu_aerial_transport_torch.obs import export as export_mod
 from tpu_aerial_transport_torch.obs import trace as trace_mod
@@ -90,9 +95,17 @@ class ScenarioServer:
     so ``surgery="device"`` (and pipelined dispatch, which implies it)
     with a mesh is a ValueError.
 
-    Not ported yet, raising ``NotImplementedError`` with the ROADMAP item
-    it waits on: ``bundle=`` / ``require_bundle=True`` (the AOT bundles,
-    Queue 1's ``aot/`` item).
+    ``bundle``: an ``aot.loader.Bundle`` or a bundle directory. The
+    buckets the bundle carries for a family join the configured ones;
+    ``require_bundle=True`` makes bundle coverage an admission criterion
+    (an uncovered family is rejected at admission, a covered one batches
+    only at the bundle's buckets), serves with no eager fallback, and
+    takes each covered family's template carry from the bundle (lane 0 of
+    its ``args_sample``, copied), raising when that is missing; a bundle
+    built for another runtime (``bundle_stale``) or platform raises at
+    construction. A bundle
+    pins kernels, shapes and templates; the program is the live tree's,
+    so results are bitwise the bundle-less server's on the same device.
     """
 
     def __init__(self, families=None, *, buckets=DEFAULT_BUCKETS,
@@ -102,11 +115,6 @@ class ScenarioServer:
                  tracer=None, clock=time.monotonic,
                  surgery: str | None = None, dispatch: str | None = None,
                  cache=None, hub=None, device="cuda"):
-        if bundle is not None or require_bundle:
-            raise NotImplementedError(
-                "ScenarioServer(bundle=/require_bundle=True): the AOT "
-                "bundles are not ported yet (ROADMAP Queue 1, the aot/ "
-                "item); the port serves every family eagerly")
         self.device = resolve_device(device)
         self.surgery = lanes_mod.resolve_surgery(surgery)
         self.dispatch = lanes_mod.resolve_dispatch(dispatch)
@@ -144,6 +152,15 @@ class ScenarioServer:
                     f"server on {self.device}")
             self.families[fam.name] = fam
         self.buckets = tuple(sorted(buckets))
+        self.require_bundle = require_bundle
+        if isinstance(bundle, str):
+            bundle = loader_mod.load_bundle(bundle)
+        self.bundle = bundle
+        if bundle is not None and require_bundle:
+            # A required bundle that cannot serve here refuses up front,
+            # with its rebuild hint, not chunk by chunk.
+            bundle.check_runtime(self.device.type)
+        self._install_bundle_templates()
         self.clock = clock
         if isinstance(metrics, str):
             metrics = export_mod.MetricsWriter(metrics)
@@ -186,9 +203,54 @@ class ScenarioServer:
         self.backend_failures = 0
 
     # ------------------------------------------------------- coverage --
+    def _bundle_entry_buckets(self, fam: Family) -> list[int]:
+        """Batch sizes the bundle carries for this family's chunk (empty
+        when un-bundled or uncovered)."""
+        if self.bundle is None or fam.entry is None:
+            return []
+        try:
+            return self.bundle.batch_buckets(fam.entry)
+        except BundleError:  # missing entry or manifest-only: no coverage.
+            return []
+
+    def _family_buckets(self, fam: Family) -> tuple[int, ...]:
+        covered = self._bundle_entry_buckets(fam)
+        if covered and self.require_bundle:
+            return tuple(covered)
+        if covered:
+            # The bundle's buckets first; a configured bucket still serves
+            # on an eager rung.
+            return tuple(sorted(set(covered) | set(self.buckets)))
+        return self.buckets
+
     def _coverage(self, family: str) -> int | None:
         fam = self.families.get(family)
-        return None if fam is None else fam.chunk_len
+        if fam is None:
+            return None
+        if self.require_bundle and not self._bundle_entry_buckets(fam):
+            return None
+        return fam.chunk_len
+
+    def _install_bundle_templates(self) -> None:
+        """Template carries from the bundle's build-time arguments: lane 0
+        of the entry's recorded batch, copied to CPU tensors. A family the
+        bundle does not cover keeps its own template, except under
+        ``require_bundle``, where a covered family whose sample cannot be
+        read raises (its state factories would otherwise run in the serve
+        path unseen)."""
+        if self.bundle is None:
+            return
+        for fam in self.families.values():
+            if fam.entry is None:
+                continue
+            try:
+                sample = self.bundle.sample_args(fam.entry)
+            except BundleError:
+                if self.require_bundle and self._bundle_entry_buckets(fam):
+                    raise
+                continue
+            fam.set_template_carry_host(
+                tree_map(lambda t: t[0].clone(), sample[0]))
 
     # ---------------------------------------------------------- events --
     def _emit(self, **fields) -> None:
@@ -334,7 +396,7 @@ class ScenarioServer:
     # -------------------------------------------------------- batches --
     def _launch(self, fam: Family) -> Batch:
         bucket = batcher_mod.bucket_for(
-            self.queue.depth(fam.name), self.buckets
+            self.queue.depth(fam.name), self._family_buckets(fam)
         )
         span = None
         if self.tracer is not None:
@@ -633,22 +695,26 @@ class ScenarioServer:
         chunk; device-surgery dispatches pass ``fn`` and the surgery
         entry. The call places ``args`` on the family's device (a no-op
         for a carry already there; in host-surgery mode the chunk's input
-        is the last boundary's host copy). Only a server on the CPU gives
-        the guard a fallback: the same call again, on the CPU rung."""
+        is the last boundary's host copy). A bundled server serves the
+        bundle rung first, with the eager rungs behind it unless the
+        bundle is required. Only a server on the CPU gives the guard a
+        fallback: the same call again, on the CPU rung."""
         entry = entry if entry is not None else (fam.entry or fam.name)
         fn = fam.batched_fn if fn is None else fn
         dev = fam.device
 
-        def call(suffix=""):
+        def call(suffix="", bundle=self.bundle):
             placed = tree_map(lambda t: t.to(dev), args)
             return loader_mod.serve_entry(
-                None, entry, placed, jit_fallback=fn,
+                bundle, entry, placed, fn=fn,
+                jit_fallback=None if self.require_bundle else fn,
                 metrics=self.metrics, label=label + suffix, block=block,
                 hub=self.hub,
             )
 
-        fallback = (backend_mod.run_on_cpu(lambda: call(":cpu"))
-                    if dev.type == "cpu" else None)
+        fallback = (backend_mod.run_on_cpu(lambda: call(":cpu", None))
+                    if dev.type == "cpu" and not self.require_bundle
+                    else None)
         return self.guard.run(label, call, fallback_fn=fallback,
                               trace_parent=trace_parent)
 

@@ -32,7 +32,9 @@ fallback: a replica that finds no card exits non-zero, the parent reports
 its exit and the tail of its stderr, and a parent asked for ``cuda`` on a
 host without a card raises before it starts any replica. On ``cuda`` the
 parent builds the kernels once before spawning, so the replicas load
-them instead of each starting every ``nvcc``. The request stream and the
+them instead of each starting every ``nvcc``; with ``--bundle DIR``
+(``--require-bundle``) every replica serves from that AOT bundle instead,
+its libraries installed from the bundle. The request stream and the
 chaos clock start once every replica has reported its server built: a
 replica's boot on the card (the interpreter, the CUDA context) takes
 seconds that vary from host to host, and a storm timed from the spawn
@@ -184,6 +186,7 @@ def run_worker(args) -> int:
         buckets=tuple(int(b) for b in args.buckets.split(",") if b),
         capacity=args.capacity, metrics=writer, tracer=tracer,
         device=args.device,
+        bundle=args.bundle or None, require_bundle=args.require_bundle,
     )
     journal = os.path.join(run_dir, server_mod.SERVING_JOURNAL)
     if os.path.exists(journal):
@@ -354,7 +357,8 @@ def _spawn_replica(rep: _Replica, args) -> None:
         "--families", args.families, "--buckets", args.buckets,
         "--capacity", str(args.capacity), "--lease", str(args.lease),
         "--device", args.device,
-    ]
+    ] + (["--bundle", args.bundle] if args.bundle else []) \
+      + (["--require-bundle"] if args.require_bundle else [])
     # stderr to a file, not a pipe: nobody drains replica pipes, and a
     # chatty boot must not wedge the replica on a full pipe buffer.
     # Append mode keeps the pre-crash tail for post-mortem.
@@ -479,9 +483,10 @@ def run_fleet(args) -> tuple[dict, int]:
     from tpu_aerial_transport_torch.serving import batcher
 
     device = resolve_device(args.device)
-    if device.type == "cuda":
+    if device.type == "cuda" and not args.bundle:
         # One build, before any replica starts: N cold replicas would
-        # otherwise each start every nvcc at once.
+        # otherwise each start every nvcc at once (a bundle's replicas
+        # install its libraries instead).
         from tpu_aerial_transport_torch.ops import _build
 
         _build.build()
@@ -789,6 +794,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="where every replica serves: cuda (default) or "
                          "cpu")
+    ap.add_argument("--bundle", default="",
+                    help="an AOT bundle directory every replica serves "
+                         "from (aot/: kernel libraries installed from it)")
+    ap.add_argument("--require-bundle", action="store_true",
+                    help="replicas admit only what the bundle covers, "
+                         "with no eager fallback")
     ap.add_argument("--out-dir", default="artifacts/fleet-torch-local")
     ap.add_argument("--results", default="",
                     help="write per-request {id: {status, digest, "
