@@ -353,6 +353,23 @@ The children of phases 33, 37 and 38 print one ``recovery-child``,
 line. Phase 39's replica processes and phase 40's workers print nothing
 to stdout; phase 41's children print their tools' JSON lines.
 
+42. the float64 oracle and the static analysis
+   (``tpu_aerial_transport_torch/native``, ``analysis/``): (a) build the
+   oracle with ``g++`` and solve the headline's 2048 agent QPs (the first
+   ``fused_solve_lanes`` call of phase 2's warm-up step, d = 48, warm
+   starts included) in float64 at the kernel's iteration count; the
+   kernel's fixed form within the kernel bar of the oracle (the oracle in
+   place of the float64 plain version) and the float64 plain version
+   within ``ORACLE_RTOL`` of it; the oracle's host seconds beside the
+   kernel's ms; (b) ``analysis.contracts.run_contracts(device="cuda")``
+   over every registry entry but ``parallel.pods:pods_control_step``
+   (phase 40's), one line an entry with its host syncs (dispatch count,
+   ``set_sync_debug_mode`` count, the dispatched and card-only budgets),
+   rebuilds on the second call and launches; any finding fails; each row
+   of the ``kernels`` line gains the phase's launches
+   (``contract_launches``); (c) the lint's Tiers A and C
+   over the port's tree (``tools/lint.py``, by file path) exit 0.
+
 Output: timing lines carry the card's name and power limit; a ``kernels``
 JSON line, the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. The full report is written as JSON to
@@ -7155,6 +7172,172 @@ def k2_chains(card) -> int:
     return 0
 
 
+# Phase 42: the float64 oracle (native/) against the whole-solve kernel on
+# the headline's agent QPs, the registry's contracts on the card, and the
+# lint tiers. The oracle and the float64 plain version are two float64
+# implementations of the same iterations: ORACLE_RTOL x max(1, |ref|).
+ORACLE_RTOL = 1e-9
+LINT = os.path.join(PKG, "tools", "lint.py")
+
+
+def oracle_check(card, report, args, kw, kernel_ms) -> float:
+    """42(a): build the float64 oracle with g++, solve the captured agent
+    QPs (``args``/``kw``, the headline's first ``fused_solve_lanes`` call:
+    every lane's P, q, A, bounds, shift and warm start) in float64 at the
+    kernel's iteration count, and hold the kernel's fixed form on the card
+    against it (PERF.md section 2's kernel bar, the oracle in place of the
+    float64 plain version) and the oracle against the float64 plain
+    version on the card. Returns the kernel's largest error against the
+    oracle."""
+    import numpy as np
+    import torch
+
+    from tpu_aerial_transport_torch import native
+    from tpu_aerial_transport_torch.ops import admm_kernel, socp
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    native._load()
+    build_s = time.perf_counter() - t0
+    x, y, z, K2, Minv, A, P, q, rho_vec, lb, ub, shift = args
+    nv, n_box, soc = kw["nv"], kw["n_box"], tuple(kw["soc_dims"])
+    B, m = A.shape[0], A.shape[1]
+    # The penalty the oracle derives from the bounds must be the kernel's.
+    rho = float(rho_vec[0, -1])
+    if not torch.equal(socp.make_rho_vec(m, n_box, lb, ub, rho), rho_vec):
+        fail("phase 42 (a): the captured penalties are not make_rho_vec's")
+    host = [None if t is None else t.double().cpu().numpy()
+            for t in (x, y, z, A, P, q, lb, ub, shift)]
+    hx, hy, hz, hA, hP, hq, hlb, hub, hshift = host
+    # The QPs are warm-started (the batch entry point starts cold), so each
+    # lane is one solve_socp_native call from its own start.
+    t0 = time.perf_counter()
+    outs = [native.solve_socp_native(
+        hP[b], hq[b], hA[b], hlb[b], hub[b], n_box=n_box, soc_dims=soc,
+        iters=kw["iters"], rho=rho, alpha=kw["alpha"],
+        shift=None if hshift is None else hshift[b],
+        warm=(hx[b], hy[b], hz[b])) for b in range(B)]
+    oracle_s = time.perf_counter() - t0
+    ref = [np.stack([o[i] for o in outs]) for i in range(5)]
+    got = admm_kernel.fused_solve_lanes(*args, **kw)
+    plain = admm_kernel.fused_solve_lanes_reference(*args, **kw)
+    a64 = [None if t is None else t.double()
+           for t in (x, y, z, A, P, q, rho_vec, lb, ub, shift)]
+    x64, y64, z64, A64, P64, q64, r64, lb64, ub64, s64 = a64
+    op64 = socp.kkt_operator(P64, A64, r64)
+    plain64 = admm_kernel.fused_solve_lanes_reference(
+        x64, y64, z64, op64.K2, op64.Minv, A64, P64, q64, r64, lb64, ub64,
+        s64, **kw)
+    torch.cuda.synchronize()
+    names = ("x", "y", "z", "prim_res", "dual_res")
+    rows, ok = {}, True
+    for nm, g, p32, p64, r in zip(names, got, plain, plain64, ref):
+        g, p32, p64 = (t.double().cpu().numpy() for t in (g, p32, p64))
+        scale = max(1.0, float(np.abs(r).max()))
+        err = float(np.abs(g - r).max())
+        noise = float(np.abs(p32 - r).max())
+        bar = max(KERNEL_ATOL * scale, ROUNDING_FACTOR * noise)
+        f64_err = float(np.abs(p64 - r).max())
+        good = (err <= bar and f64_err <= ORACLE_RTOL * scale
+                and bool(np.isfinite(g).all()))
+        ok = ok and good
+        rows[nm] = {"kernel_err": err, "bar": bar, "plain32_err": noise,
+                    "plain64_err": f64_err, "ok": good}
+    print(f"native oracle: g++ build {build_s:.2f} s ({os.path.basename(lib)}"
+          f"); {B} agent QPs (nv={nv}, m={m}, d={nv + m}, "
+          f"iters={kw['iters']}, warm-started) in float64 on the host in "
+          f"{oracle_s:.3f} s ({oracle_s / B * 1e6:.1f} us a QP) against "
+          f"{entry_name(args, kw)} {kernel_ms:.4f} ms/launch for all {B} | "
+          f"{card}", flush=True)
+    for nm, r in rows.items():
+        print(f"  {nm}: kernel - oracle {r['kernel_err']:.3e} (bar "
+              f"{r['bar']:.3e}), plain float32 - oracle "
+              f"{r['plain32_err']:.3e}, plain float64 - oracle "
+              f"{r['plain64_err']:.3e} (bar {ORACLE_RTOL} x max(1, |ref|)) "
+              + ("ok" if r["ok"] else "FAIL"), flush=True)
+    report["oracle"] = {"build_s": build_s, "lanes": B, "d": nv + m,
+                        "iters": kw["iters"], "host_s": oracle_s,
+                        "kernel_ms": kernel_ms, "outputs": rows}
+    if not ok:
+        fail("phase 42 (a): the kernel or the float64 plain version "
+             "disagrees with the float64 oracle")
+    return max(r["kernel_err"] for r in rows.values())
+
+
+def contracts_check(card, report) -> dict:
+    """42(b): ``run_contracts(device="cuda")`` over every registry entry
+    whose ``needs`` is "" or "cuda" (the ``process_group`` entry is phase
+    40's); one line an entry with its host syncs (the dispatch count, the
+    card's own ``set_sync_debug_mode`` count, the dispatched and card-only
+    budgets), what the second
+    call rebuilt and the kernels it launched. Any finding or skip fails.
+    Returns the launches by kernel over the second calls."""
+    from tpu_aerial_transport_torch.analysis import contracts
+
+    names = sorted(n for n, c in contracts.REGISTRY.items()
+                   if c.needs in ("", "cuda"))
+    reports: dict = {}
+    t0 = time.perf_counter()
+    findings = contracts.run_contracts(names, device="cuda",
+                                       reports=reports)
+    total_s = time.perf_counter() - t0
+    launches: dict = {}
+    for name in names:
+        rep = reports[name]
+        if "skipped" in rep:
+            fail(f"phase 42 (b): {name} skipped on the card: "
+                 f"{rep['skipped']}")
+        for k, v in rep["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"contract {name}: host syncs {rep['syncs_total']} "
+              f"{rep['syncs']} (dispatch), {rep['sync_debug_warnings']} "
+              f"(set_sync_debug_mode) at {rep['sync_sites']}, budget "
+              f"{rep['budget']} dispatched, {rep['card_only']} card only "
+              f"| second call "
+              f"rebuilt {rep['rebuilds']} | launches {rep['launches']} | "
+              f"{rep['seconds']:.2f} s | {card}", flush=True)
+    print(f"contracts on the card: {len(names)} entries in {total_s:.1f} s, "
+          f"{len(findings)} findings, launches {launches} | {card}",
+          flush=True)
+    report["contracts"] = {"entries": reports, "seconds": total_s,
+                           "findings": [f.render() for f in findings]}
+    if findings:
+        fail("phase 42 (b): " + "; ".join(f.render() for f in findings))
+    return launches
+
+
+def lint_check(report) -> None:
+    """42(c): Tiers A and C of the lint over the port's tree, by file path
+    (no torch, no jax imported), exit 0."""
+    rows = {}
+    for tier in ([], ["--host"]):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, LINT), *tier,
+             "--assert-no-torch"], capture_output=True, text=True,
+            timeout=300)
+        what = "C (hostlint)" if tier else "A (torchlint)"
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        print(f"lint tier {what}: rc {proc.returncode}, {last}", flush=True)
+        rows[what] = {"rc": proc.returncode, "last": last}
+        if proc.returncode != 0:
+            fail(f"phase 42 (c): lint tier {what}: {proc.stdout[-2000:]}"
+                 f"{proc.stderr[-2000:]}")
+    report["lint"] = rows
+
+
+def analysis_phase(card, report, args, kw, kernel_ms):
+    """Phase 42: (a) the float64 oracle, (b) the contracts on the card,
+    (c) the lint tiers. Returns ``(kernel - oracle error, launches by
+    kernel in (b))``."""
+    t0 = time.perf_counter()
+    err = oracle_check(card, report, args, kw, kernel_ms)
+    launches = contracts_check(card, report)
+    lint_check(report)
+    report["phase42_s"] = time.perf_counter() - t0
+    print(f"phase 42: {report['phase42_s']:.1f} s | {card}", flush=True)
+    return err, launches
+
+
 def main() -> int:
     child = sys.argv[1:2] in (["--recovery-child"], ["--serving-child"])
     if not os.path.isdir(os.path.join(HERE, PKG)):
@@ -7737,6 +7920,11 @@ def main() -> int:
     # 41. Bundled serving: kernel libraries from an AOT bundle, no nvcc.
     phase_at["41"] = time.perf_counter() - t_start
     bundle_launches = bundle_phase(card, report)
+    # 42. The float64 oracle, the registry's contracts on the card, the
+    # lint tiers.
+    phase_at["42"] = time.perf_counter() - t_start
+    oracle_err, contract_launches = analysis_phase(card, report, args, kw,
+                                                   kernel_ms)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],
@@ -7746,6 +7934,10 @@ def main() -> int:
                   e_by),
     ] + bf16_rows + central_rows + chunk_rows + [ring_row] + rp_rows \
         + pmrl_rows
+    for row in kernels:
+        row["contract_launches"] = contract_launches.get(row["name"], 0)
+        if row["name"] == main_name:
+            row["oracle_max_abs_err"] = oracle_err
     report["kernels"] = kernels
     report["launches_elsewhere"] = {
         "fused_solve_cadmm_options": option_launches,

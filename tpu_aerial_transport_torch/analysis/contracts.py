@@ -1,11 +1,11 @@
-"""The entry-point registry: every public entry point of the port, with a
-builder of its callable and of fresh arguments at a tiny size.
+"""Tier B of the port's analysis: the entry-point registry and the
+contracts every registered entry point is held to.
 
-Counterpart of the JAX package's ``analysis/contracts.py`` REGISTRY, with
-its 35 names. Only the registry is ported: the JAX trace contracts (TC101
-to TC106) check jitted programs and wait with the rest of ``analysis/``.
-The AOT bundles (``aot/``) iterate it: one bundle variant per entry and
-shape signature.
+:data:`REGISTRY` is the counterpart of the JAX package's
+``analysis/contracts.py`` REGISTRY, with its 35 names. Each entry has a
+builder of its callable and of fresh arguments at a tiny size. The AOT
+bundles (``aot/``) iterate it: one bundle variant per entry and shape
+signature.
 
 A builder takes the device and returns ``(fn, make_args)``: ``fn`` the
 callable with its statics closed over, ``make_args()`` a fresh argument
@@ -21,6 +21,44 @@ batch). Differences from the JAX registry, by what the port is:
   ``parallel.ring`` entries need one device, not four;
 - ``parallel.pods:pods_control_step`` needs a process group of two or more
   processes (``needs="process_group"``).
+
+:func:`run_contracts` builds each entry that ``skip_reason(device)``
+allows, calls it twice with fresh arguments, and holds the second call to
+the contracts below, in their torch meaning (the JAX package's TC101 to
+TC106 check a jitted program's lowering; eager PyTorch has none):
+
+- **TC101 no rebuild** (JAX: no retrace): the second call grows neither the
+  process's CUDA-graph captures (``harness/cuda_graph.py
+  PROCESS_CAPTURES``), nor its kernel builds (``ops/_build.py
+  nvcc_builds()``), nor a per-shape cache the entry's callable holds (a
+  ``GraphedFn``'s graphs, a serving family's templates: the attributes in
+  :data:`CACHE_ATTRS`). Growth means something keyed on a per-call object
+  is rebuilt every call.
+- **TC102 no float64**: a ``TorchDispatchMode`` sees every op of the
+  call; an op with a float64 or complex128 output is a finding that names
+  it.
+- **TC103 host syncs within budget** (JAX: no host callback): in eager
+  PyTorch the host round trip is the synchronisation. The same mode counts
+  the ops that read a device value on the host (:data:`SYNC_OPS`, copies
+  from the card to the host, boolean-mask indexing) and holds the count to
+  the entry's ``entrypoints.SYNC_BUDGETS`` budget; an entry with no budget
+  is a finding. On the card the call also runs under
+  ``torch.cuda.set_sync_debug_mode("warn")``: the warnings, the card's own
+  count, may exceed the dispatched count only by the entry's
+  ``card_only`` syncs, those a library call makes inside itself (an SVD
+  in cuSOLVER).
+- **TC104 has no counterpart**: the TPU's (8, 128) sublane tile means
+  nothing to the port's float32 CUDA-core kernels, whose layouts are
+  decided on the host and held by ``tests/test_torch_kernel_layout.py``.
+- **TC105 donation**: for each entry of ``entrypoints.DONATION_CONTRACTS``,
+  at least that many output tensors share storage
+  (``untyped_storage().data_ptr()``) with an argument tensor. The table is
+  empty: an eager call returns new tensors, and the port's one donated
+  carry, ``jit_control_step(donate=True)``, is not a registry entry.
+- **TC106's counterpart is the card run itself**: ``chip_smoke.py`` runs
+  every registered entry, the ``needs="cuda"`` ones included, on the card
+  (``run_contracts(device="cuda")``). Tier-1 has none: its host has no
+  ``nvcc``.
 """
 
 from __future__ import annotations
@@ -32,6 +70,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 NEEDS = ("", "cuda", "process_group")
 
@@ -739,3 +778,360 @@ def _build_lane_surgery(device):
 @_register("serving.lanes:lane_surgery_centralized")
 def _build_lane_surgery_centralized(device):
     return _lane_surgery_build("centralized4", device)
+
+
+# ----------------------------------------------------------------------
+# Checks.
+# ----------------------------------------------------------------------
+
+# Run by tier-1 on every commit (tests/test_torch_contracts.py): the solver
+# core, one consensus controller and one rollout, a few seconds on the CPU.
+# The whole registry runs under -m slow, from ``tools/lint.py --contracts``
+# and on the card from chip_smoke.py.
+FAST_SUBSET = (
+    "ops.socp:solve_socp",
+    "ops.socp:solve_socp_padded",
+    "control.cadmm:control",
+    "harness.rollout:rollout",
+)
+
+# Ops that read a value of their input's device on the host (TC103): a
+# scalar read (``.item()``, ``bool(t)``), the error check behind
+# ``torch.linalg.inv``, and the ops that size their output on the host.
+SYNC_OPS = frozenset({
+    "aten._local_scalar_dense", "aten._linalg_check_errors",
+    "aten.nonzero", "aten.masked_select", "aten._unique", "aten._unique2",
+    "aten.unique_dim", "aten.unique_consecutive",
+})
+_INDEX_OPS = frozenset({"aten.index", "aten.index_put", "aten.index_put_",
+                        "aten._index_put_impl_"})
+# The dtypes TC102 looks for.
+_WIDE = (torch.float64, torch.complex128)  # torchlint: disable=TL004
+# Attributes of the objects an entry's callable reaches that hold a
+# per-shape cache (TC101): a GraphedFn's graphs, a serving family's
+# batched templates.
+CACHE_ATTRS = ("_graphs", "_templates_b", "_templates_dev")
+
+
+def _tensors(obj) -> list:
+    """The tensors of a tree of tuples, lists, dicts and dataclasses."""
+    out = []
+    stack = [obj]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (tuple, list)):
+            stack.extend(reversed(x))
+        elif isinstance(x, dict):
+            stack.extend(x[k] for k in sorted(x, key=str, reverse=True))
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            stack.extend(getattr(x, f.name)
+                         for f in reversed(dataclasses.fields(x)))
+    return out
+
+
+def sync_kind(func, args, kwargs, device_type: str = "cpu") -> str | None:
+    """The name TC103 counts ``func(*args, **kwargs)`` under, or None when
+    the op does not make the host wait for the call's device
+    (``device_type``): a read of a device value on the host, or a copy
+    between host and card (PyTorch synchronises the stream after a
+    blocking one, either way). On the CPU every such read counts, as the
+    stand-in for the card's synchronisation; on the card a read of a host
+    tensor does not."""
+    name = str(func.overloadpacket)
+    if name in SYNC_OPS:
+        first = args[0] if args else None
+        if (isinstance(first, torch.Tensor)
+                and first.device.type == device_type):
+            return name
+        return None
+    if name == "aten._to_copy":
+        dst = kwargs.get("device")
+        src = args[0].device.type
+        if (dst is not None and torch.device(dst).type != src
+                and not kwargs.get("non_blocking", False)):
+            return "copy_to_host" if src != "cpu" else "copy_from_host"
+    elif name == "aten.copy_":
+        dst, src = args[0].device.type, args[1].device.type
+        blocking = not (len(args) > 2 and args[2])
+        if dst != src and blocking:
+            return "copy_to_host" if src != "cpu" else "copy_from_host"
+        if device_type == "cpu" and args[0].dim() == 0 and args[1].dim() == 0:
+            # A Python scalar written into one element: on the card a copy
+            # from the host.
+            return "copy_from_host"
+    elif name == "aten.lift_fresh":
+        # torch.tensor(host data, device=...) on the call's device.
+        if device_type != "cpu" and args[0].device.type == device_type:
+            return "copy_from_host"
+    elif name in _INDEX_OPS:
+        idx = args[1] if len(args) > 1 else ()
+        if any(isinstance(t, torch.Tensor)
+               and t.dtype in (torch.bool, torch.uint8) for t in idx):
+            return "bool_mask_index"
+    return None
+
+
+class OpWatch(TorchDispatchMode):
+    """Counts, over the ops run inside it (``with OpWatch(device_type):``),
+    the host synchronisations (:func:`sync_kind`) and the ops with a
+    float64 or complex128 output."""
+
+    def __init__(self, device_type: str = "cpu"):
+        super().__init__()
+        self.device_type = device_type
+        self.syncs: dict[str, int] = {}
+        self.wide: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        kind = sync_kind(func, args, kwargs, self.device_type)
+        if kind is not None:
+            self.syncs[kind] = self.syncs.get(kind, 0) + 1
+        out = func(*args, **kwargs)
+        if any(t.dtype in _WIDE for t in _tensors(out)):
+            op = str(func)
+            self.wide[op] = self.wide.get(op, 0) + 1
+        return out
+
+
+def _cache_sizes(root, depth: int = 4) -> int:
+    """The entries of every per-shape cache (:data:`CACHE_ATTRS`) reachable
+    from ``root`` through closures, function attributes, bound methods,
+    instance attributes and tuples, ``depth`` hops deep."""
+    import types
+
+    seen: set[int] = set()
+    total = 0
+    frontier = [root]
+    for _ in range(depth):
+        nxt = []
+        for obj in frontier:
+            if id(obj) in seen or isinstance(obj, (torch.Tensor, type,
+                                                   types.ModuleType)):
+                continue
+            seen.add(id(obj))
+            if isinstance(obj, (tuple, list)):
+                nxt.extend(obj)
+                continue
+            if isinstance(obj, types.MethodType):
+                nxt.extend((obj.__func__, obj.__self__))
+                continue
+            if isinstance(obj, types.FunctionType):
+                nxt.extend(c.cell_contents for c in obj.__closure__ or ()
+                           if _cell_full(c))
+            attrs = getattr(obj, "__dict__", None)
+            if not isinstance(attrs, dict):
+                continue
+            for attr in CACHE_ATTRS:
+                if isinstance(attrs.get(attr), dict):
+                    total += len(attrs[attr])
+            nxt.extend(attrs.values())
+        frontier = nxt
+    return total
+
+
+def _cell_full(cell) -> bool:
+    try:
+        cell.cell_contents
+    except ValueError:
+        return False
+    return True
+
+
+def _launches() -> dict[str, int]:
+    """Every kernel launch counter of the port, by kernel name."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+    from tpu_aerial_transport_torch.parallel import ring
+
+    out = dict(admm_kernel.KERNEL_LAUNCHES)
+    out.update(admm_kernel.CHUNK_LAUNCHES)
+    out["ring_sum_kernel"] = ring.LAUNCHES["ring_sum"]
+    return out
+
+
+def _rebuild_counters(fn) -> dict[str, int]:
+    from tpu_aerial_transport_torch.harness import cuda_graph
+    from tpu_aerial_transport_torch.ops import _build
+
+    return {"captures": cuda_graph.PROCESS_CAPTURES["captures"],
+            "builds": _build.nvcc_builds(), "cache": _cache_sizes(fn)}
+
+
+def budget_of(contract: Contract) -> tuple[int, int] | None:
+    """The entry's TC103 budgets, ``(dispatched, card_only)``, or None when
+    ``entrypoints.SYNC_BUDGETS`` has no entry for it."""
+    from tpu_aerial_transport_torch.analysis import entrypoints
+
+    row = entrypoints.SYNC_BUDGETS.get(contract.name)
+    if row is None:
+        return None
+    return row["budget"], row.get("card_only", 0)
+
+
+def sync_findings(syncs: dict, budgets: tuple[int, int] | None,
+                  card_warnings: int | None, sites: dict) -> list[str]:
+    """TC103's messages for one call: ``syncs`` the dispatched host syncs
+    by kind, ``budgets`` the entry's ``(dispatched, card_only)``
+    (:func:`budget_of`), ``card_warnings`` the card's own count
+    (``set_sync_debug_mode``; None off the card) at ``sites``. The
+    dispatched count is held to its budget; on the card the warnings may
+    exceed it by the card-only syncs and no more."""
+    if budgets is None:
+        return ["no entrypoints.SYNC_BUDGETS entry: every registered entry "
+                "states its host-sync budget"]
+    budget, card_only = budgets
+    n_sync = sum(syncs.values())
+    out = []
+    if n_sync > budget:
+        out.append(f"{n_sync} host syncs {dict(syncs)} over the budget "
+                   f"{budget}")
+    if card_warnings is not None and card_warnings - n_sync > card_only:
+        out.append(f"{card_warnings} synchronizing-operation warnings of "
+                   f"torch.cuda.set_sync_debug_mode at {sites}, "
+                   f"{card_warnings - n_sync} beyond the {n_sync} "
+                   f"dispatched: over the card-only budget {card_only}")
+    return out
+
+
+def _sync_site_recorder(sites: dict):
+    """A ``warnings.showwarning`` that counts each synchronizing-operation
+    warning of ``torch.cuda.set_sync_debug_mode`` under the innermost
+    frame of the port (outside ``analysis/``) that made it, ``"path:line"``
+    (``"outside:file:line"`` when the entry has no frame on the stack)."""
+    import traceback
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        # A warning with no frame of the entry on its stack came from the
+        # harness around the call: kept apart, not the entry's.
+        site = f"outside:{os.path.basename(filename)}:{lineno}"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            f = fr.filename.replace(os.sep, "/")
+            if ("tpu_aerial_transport_torch/" in f
+                    and "/analysis/" not in f):
+                site = (f"{f.split('tpu_aerial_transport_torch/')[-1]}:"
+                        f"{fr.lineno}")
+                break
+        sites[site] = sites.get(site, 0) + 1
+
+    return show
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_entry(contract: Contract, device="cpu",
+                disabled: frozenset[str] = frozenset(),
+                report: dict | None = None) -> list:
+    """Run the contracts for one registry entry on ``device``: build it,
+    call it once, call it again with fresh arguments under the op watch,
+    and hold the second call to TC101, TC102, TC103 and TC105. An entry the
+    device cannot build (``skip_reason``) gives no finding. ``report``,
+    when given, is filled with what was counted: ``syncs`` (by kind),
+    ``syncs_total``, ``sync_debug_warnings`` (on the card) and
+    ``sync_sites`` (their places in the port), ``budget``, ``card_only``,
+    ``rebuilds``, ``launches`` (by kernel, second call), ``wide_ops``,
+    ``shared_outputs``, ``seconds``."""
+    import time
+    import warnings
+
+    from tpu_aerial_transport_torch.analysis import entrypoints
+    from tpu_aerial_transport_torch.analysis.rules import Finding
+
+    path = f"contracts:{contract.name}"
+    report = {} if report is None else report
+    skip = contract.skip_reason(device)
+    if skip:
+        report["skipped"] = skip
+        return []
+    t0 = time.perf_counter()
+    out: list = []
+
+    def finding(rule, message):
+        if rule not in disabled:
+            out.append(Finding(rule=rule, path=path, line=0, col=0,
+                               message=message))
+
+    fn, make_args = contract.build(torch.device(device))
+    fn(*make_args())
+    _sync(device)
+    args = make_args()
+    _sync(device)
+    before = _rebuild_counters(fn)
+    launches0 = _launches()
+    on_card = torch.device(device).type == "cuda"
+    watch = OpWatch(torch.device(device).type)
+    sites: dict[str, int] = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = _sync_site_recorder(sites)
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with watch:
+                result = fn(*args)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+    _sync(device)
+    after = _rebuild_counters(fn)
+    launches1 = _launches()
+    debug_warnings = sum(v for k, v in sites.items()
+                         if not k.startswith("outside:"))
+
+    grown = {k: (before[k], after[k]) for k in before
+             if after[k] != before[k]}
+    if grown:
+        finding("TC101", "the second call with fresh arguments rebuilt "
+                f"{grown} (before, after): something keyed on a per-call "
+                "object is rebuilt every call")
+    if watch.wide:
+        finding("TC102", "ops with a float64/complex128 output: "
+                f"{dict(sorted(watch.wide.items()))}")
+    n_sync = sum(watch.syncs.values())
+    budgets = budget_of(contract)
+    budget, card_only = budgets or (None, None)
+    for message in sync_findings(watch.syncs, budgets,
+                                 debug_warnings if on_card else None,
+                                 sites):
+        finding("TC103", message)
+    minimum = entrypoints.DONATION_CONTRACTS.get(contract.name, 0)
+    ptrs = {t.untyped_storage().data_ptr() for t in _tensors(args)}
+    shared = sum(t.untyped_storage().data_ptr() in ptrs
+                 for t in _tensors(result))
+    if shared < minimum:
+        finding("TC105", f"{shared} output tensors share storage with an "
+                f"argument, expected >= {minimum}: the carry went "
+                "copy-in/copy-out")
+    report.update(
+        syncs=dict(watch.syncs), syncs_total=n_sync,
+        sync_debug_warnings=debug_warnings if on_card else None,
+        budget=budget, card_only=card_only,
+        rebuilds={k: after[k] - before[k] for k in before},
+        launches={k: launches1[k] - launches0[k] for k in launches1
+                  if launches1[k] != launches0[k]},
+        sync_sites=dict(sorted(sites.items())),
+        wide_ops=dict(watch.wide), shared_outputs=shared,
+        seconds=time.perf_counter() - t0)
+    return out
+
+
+def run_contracts(names=None, device="cpu",
+                  disabled: frozenset[str] = frozenset(),
+                  reports: dict | None = None) -> list:
+    """Run the contracts for ``names`` (default: the whole registry) on
+    ``device``; ``reports``, when given, maps each name to its
+    :func:`check_entry` report."""
+    selected = names if names is not None else sorted(REGISTRY)
+    out: list = []
+    for name in selected:
+        rep: dict = {}
+        out.extend(check_entry(REGISTRY[name], device, disabled, rep))
+        if reports is not None:
+            reports[name] = rep
+    return out

@@ -531,7 +531,8 @@ def make_schur_plan(params: RQPParams, cfg: RQPCADMMConfig) -> SchurPlan:
 
     per_rho = []
     for r in _rho_schedule(cfg):
-        rho = torch.tensor(r, **kw)
+        # The plan is built once a config (callers pass plan=).
+        rho = torch.tensor(r, **kw)  # torchlint: disable=TL006
         agents = [one_agent(a, rho) for a in range(n)]
         per_rho.append([torch.stack(f) for f in zip(*agents)])
     plan = SchurPlan(*(torch.stack(f) for f in zip(*per_rho)))
@@ -549,8 +550,10 @@ def make_schur_plan(params: RQPParams, cfg: RQPCADMMConfig) -> SchurPlan:
             Mu=padv(plan.Mu, (3,)), NCt=padv(plan.NCt, (2,)),
             Nsum=padv(plan.Nsum, (2,)),
         )
-    scale = plan.scale.cpu().numpy()
-    assert np.allclose(scale, scale[:, :1], rtol=1e-4, atol=0.0), (
+    # A build-time check of the plan, once a config (callers pass plan=).
+    scale = plan.scale.cpu().numpy()  # torchlint: disable=TL002
+    assert np.allclose(  # torchlint: disable=TL003
+        scale, scale[:, :1], rtol=1e-4, atol=0.0), (
         "equality-row equilibration is no longer agent-invariant"
     )
     return plan
@@ -562,9 +565,11 @@ def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _e3(dtype, dev) -> torch.Tensor:
-    """``[0, 0, 1]`` built on the device (no host-to-device copy)."""
+    """``[0, 0, 1]`` built on the device (no host-to-device copy: a
+    Python scalar written into a single element is copied from the host,
+    a synchronisation with the card; ``fill_`` is a kernel)."""
     e3 = torch.zeros(3, dtype=dtype, device=dev)
-    e3[2] = 1.0
+    e3[2].fill_(1.0)
     return e3
 
 
@@ -692,9 +697,10 @@ def _schur_step_qp(params: RQPParams, cfg: RQPCADMMConfig, pk: SchurPlan,
     # SOC rows: own thrust cone + own norm cap.
     soc = torch.zeros((8, 12), **kw)
     shift_soc = torch.zeros((8,), **kw)
-    soc[0, 11] = cfg.sec_max_f_ang
+    # Single elements by fill_: no host-to-card copy (see _e3).
+    soc[0, 11].fill_(cfg.sec_max_f_ang)
     soc[1:4, 9:12] = eye3
-    shift_soc[4] = cfg.max_f
+    shift_soc[4].fill_(cfg.max_f)
     soc[5:8, 9:12] = eye3
 
     A_full = torch.cat([A, soc.expand(S, n, 8, 12)], dim=-2)
@@ -823,7 +829,7 @@ def _build_agent_qp(params: RQPParams, cfg: RQPCADMMConfig,
     shift_soc = torch.zeros((8,), **kw)
     soc[:, 0, 9:] = cfg.sec_max_f_ang * fz_row
     soc[:, 1:4, 9:] = own_block
-    shift_soc[4] = cfg.max_f
+    shift_soc[4].fill_(cfg.max_f)  # no host-to-card copy (see _e3).
     soc[:, 5:8, 9:] = own_block
 
     A_full = torch.cat([A, soc.expand(S, n, 8, nv)], dim=-2)
@@ -1279,7 +1285,8 @@ def control(
     k = 0
     while True:
         active = continue_pred(carry[4], carry[5], carry[8], carry[9])
-        if not bool(active.any()):
+        # The loop's exit test: the one deliberate host read an iteration.
+        if not bool(active.any()):  # torchlint: disable=TL001,TL005
             break
         new = consensus_iter(carry, active, k)
         carry = tuple(_where(active, a, b) for a, b in zip(new, carry))

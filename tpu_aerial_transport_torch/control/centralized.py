@@ -248,7 +248,9 @@ def _build_qp(params: RQPParams, cfg: RQPCentralizedConfig,
     S = state.xl.shape[0]
     eye3 = torch.eye(3, **kw)
     e3 = torch.zeros(3, **kw)
-    e3[2] = 1.0
+    # Single elements by fill_ here and below: a Python scalar written into
+    # one element is copied from the host, a synchronisation on the card.
+    e3[2].fill_(1.0)
     dvl_des, dwl_des = acc_des
     Rl = state.Rl  # (S, 3, 3)
 
@@ -343,10 +345,10 @@ def _build_qp(params: RQPParams, cfg: RQPCentralizedConfig,
     shift_soc = torch.zeros((8 * n,), **kw)
     for i in range(n):
         base, fi = 8 * i, 9 + 3 * i
-        soc[base, fi + 2] = cfg.sec_max_f_ang
+        soc[base, fi + 2].fill_(cfg.sec_max_f_ang)
         soc[base + 1:base + 4, fi:fi + 3] = eye3
         # Norm cap: the top element is the constant max_f (via the shift).
-        shift_soc[base + 4] = cfg.max_f
+        shift_soc[base + 4].fill_(cfg.max_f)
         soc[base + 5:base + 8, fi:fi + 3] = eye3
     A_full = torch.cat([A, soc.expand(S, 8 * n, nv)], dim=1)
     shift = torch.cat(

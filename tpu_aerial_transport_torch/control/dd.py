@@ -212,7 +212,9 @@ def _build_agent_qp(params: RQPParams, cfg: cadmm.RQPCADMMConfig,
     S = state.xl.shape[0]
     eye3 = torch.eye(3, **kw)
     e3 = torch.zeros(3, **kw)
-    e3[2] = 1.0
+    # Single elements by fill_ here and below: a Python scalar written into
+    # one element is copied from the host, a synchronisation on the card.
+    e3[2].fill_(1.0)
     # Shared (3,) or per scenario (S, 3), as C-ADMM takes it.
     dvl_des, dwl_des = (a.expand(S, 3)[:, None, :] for a in acc_des)
     Rl = state.Rl  # (S, 3, 3)
@@ -301,9 +303,9 @@ def _build_agent_qp(params: RQPParams, cfg: cadmm.RQPCADMMConfig,
     # SOC rows on f_i.
     soc = torch.zeros((8, nv), **kw)
     shift_soc = torch.zeros((8,), **kw)
-    soc[0, 11] = cfg.sec_max_f_ang
+    soc[0, 11].fill_(cfg.sec_max_f_ang)
     soc[1:4, 9:12] = eye3
-    shift_soc[4] = cfg.max_f
+    shift_soc[4].fill_(cfg.max_f)
     soc[5:8, 9:12] = eye3
     A_full = torch.cat([A, soc.expand(S, n, 8, nv)], dim=-2)
     shift = torch.cat(
@@ -658,7 +660,8 @@ def control(
     # The vmapped while_loop, written out (see control.cadmm).
     while True:
         active = continue_pred(carry[6], carry[7], carry[10], carry[11])
-        if not bool(active.any()):
+        # The loop's exit test: the one deliberate host read an iteration.
+        if not bool(active.any()):  # torchlint: disable=TL001,TL005
             break
         new = dd_iter(carry, active)
         carry = tuple(cadmm._where(active, a, b) for a, b in zip(new, carry))

@@ -182,7 +182,7 @@ def control(params: RPParams, cfg: RPCADMMConfig, f_eq: torch.Tensor,
     rho = torch.tensor(cfg.rho, dtype=dtype)
     P_aug = P + torch.diag(torch.cat([
         torch.zeros((6,), dtype=dtype, device=dev),
-        torch.full((3 * n,), float(rho), dtype=dtype, device=dev)]))
+        torch.full((3 * n,), cfg.rho, dtype=dtype, device=dev)]))
     rho_vec = socp.make_rho_vec(m, n_box, lb, ub, SOLVER_RHO)
     op = socp.kkt_operator(P_aug, A, rho_vec)
     fallback = f_eq.expand(n, n, 3)
@@ -242,7 +242,8 @@ def control(params: RPParams, cfg: RPCADMMConfig, f_eq: torch.Tensor,
     # The vmapped while_loop, written out (see the module docstring).
     while True:
         active = continue_pred(carry[4], carry[5], carry[7], carry[8])
-        if not bool(active.any()):
+        # The loop's exit test: the one deliberate host read an iteration.
+        if not bool(active.any()):  # torchlint: disable=TL001,TL005
             break
         new = consensus_iter(carry)
         carry = tuple(_where(active, a, b) for a, b in zip(new, carry))

@@ -178,9 +178,11 @@ def actuation_rows(cfg, n: int, S: int, A, lb, ub, kw):
     shift_soc = torch.zeros((8 * n,), **kw)
     for i in range(n):
         base, fi = 8 * i, 6 + 3 * i
-        soc[base, fi + 2] = cfg.sec_max_f_ang
+        # Single elements by fill_: a Python scalar written into one
+        # element is copied from the host, a synchronisation on the card.
+        soc[base, fi + 2].fill_(cfg.sec_max_f_ang)
         soc[base + 1:base + 4, fi:fi + 3] = eye3
-        shift_soc[base + 4] = cfg.max_f
+        shift_soc[base + 4].fill_(cfg.max_f)
         soc[base + 5:base + 8, fi:fi + 3] = eye3
     return soc.expand(S, 8 * n, nv), shift_soc
 

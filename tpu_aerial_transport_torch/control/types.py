@@ -70,5 +70,5 @@ def inactive_env_cbf(n_rows: int, vision_radius: float, dist_eps: float,
         rhs=torch.full((n_rows,), -alpha * (vision_radius - dist_eps),
                        dtype=dtype, device=device),
         collision=torch.zeros((), dtype=torch.bool, device=device),
-        min_dist=torch.tensor(vision_radius, dtype=dtype, device=device),
+        min_dist=torch.full((), vision_radius, dtype=dtype, device=device),
     )

@@ -367,7 +367,9 @@ def cone_mask_at(centers, camera_pos, direction, half_angle):
     norm = _norm(d)
     safe = torch.where(norm > 0, norm, torch.ones_like(norm))
     cosang = _dot(d / safe[..., None], direction[..., None, :2])
-    cos_half = float(torch.cos(torch.tensor(half_angle, dtype=torch.float32)))
+    # A host tensor: the float32 rounding of the JAX package, no card read.
+    cos_half = float(  # torchlint: disable=TL001
+        torch.cos(torch.tensor(half_angle, dtype=torch.float32)))
     return (norm == 0.0) | (cosang >= cos_half)
 
 

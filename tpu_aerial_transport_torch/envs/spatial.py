@@ -233,8 +233,12 @@ def candidate_slab(forest: forest_mod.Forest, cap_mid: torch.Tensor):
     ij = torch.nan_to_num(ij, nan=0.0)
     ci = torch.clamp(ij[..., 0], 0.0, float(grid.nx - 1)).to(torch.int64)
     cj = torch.clamp(ij[..., 1], 0.0, float(grid.ny - 1)).to(torch.int64)
-    flat = ci * grid.ny + cj
-    return grid.cell_idx[flat], grid.cell_valid[flat]
+    # Indexed by a 1-D tensor: a 0-d index (a single query) would be read
+    # on the host as a Python int, a synchronisation with the card.
+    flat = (ci * grid.ny + cj).reshape(-1)
+    K = grid.cell_idx.shape[-1]
+    return (grid.cell_idx[flat].reshape(ci.shape + (K,)),
+            grid.cell_valid[flat].reshape(ci.shape + (K,)))
 
 
 def bucketed_distance(forest: forest_mod.Forest, cap_a: torch.Tensor,

@@ -307,8 +307,9 @@ def main(argv=None) -> int:
     # Aggregate stats (reference _print_stats, rqp_example.py:62-80).
     iters = logs.iters.cpu()
     if bool((iters >= 0).any()):
+        # Host statistics of the logs, in float64 as the reference.
         mn, mx, avg, std = (float(x) for x in compute_aggregate_statistics(
-            iters[iters >= 0].to(torch.float64)))
+            iters[iters >= 0].to(torch.float64)))  # torchlint: disable=TL004
         print(f"Solver iterations: min: {mn:5.2f}, max: {mx:5.2f}, "
               f"avg: {avg:5.2f}, std: {std:5.2f}")
 
@@ -330,9 +331,10 @@ def main(argv=None) -> int:
             s, c, _ = run_chunk(s, c)
             sync()
             samples.append((time.perf_counter() - t0) / chunk)
-        mn, mx, avg, std = (1e3 * float(x) for x in
-                            compute_aggregate_statistics(
-                                torch.tensor(samples, dtype=torch.float64)))
+        # Host timings, in float64 as the reference.
+        stats = compute_aggregate_statistics(torch.tensor(
+            samples, dtype=torch.float64))  # torchlint: disable=TL004
+        mn, mx, avg, std = (1e3 * float(x) for x in stats)
         print(f"Solve time per MPC step [ms] (chunks of {chunk}): "
               f"min: {mn:6.3f}, max: {mx:6.3f}, avg: {avg:6.3f}, "
               f"std: {std:6.3f}"

@@ -58,13 +58,13 @@ GRAPH_COUNTS = {"captures": 0, "replays": 0}
 def _on_device(x, dev: torch.device) -> torch.Tensor:
     """``x`` as a float32 tensor on ``dev``: a tensor must already be there;
     a number or array is copied from the host."""
-    if isinstance(x, torch.Tensor):
-        if x.device != dev:
-            raise ValueError(
-                f"a gain or parameter on {x.device}, the state on {dev}: make "
-                "it on the state's device")
-        return x.to(torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    if not isinstance(x, torch.Tensor):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    if x.device != dev:
+        raise ValueError(
+            f"a gain or parameter on {x.device}, the state on {dev}: make "
+            "it on the state's device")
+    return x.to(torch.float32)
 
 
 def _checkpointed(fn: Callable) -> Callable:
