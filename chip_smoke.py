@@ -88,8 +88,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
 21. the CUDA-graph substeps: on the headline state after a warm-up step,
    the graph replay bitwise equal to the eager substeps, and the entry
    period's physics likewise; eager and graph substeps timed in turns; the
-   fixed headline with the graph on and off in turns, one step of each
-   profiled; the entry's periods/s with and without the graph;
+   fixed headline with the graph on and off in turns (phase 43 profiles
+   both); the entry's periods/s with and without the graph;
 22. the logged rollout through ``harness.rollout.jit_rollout``: C-ADMM at
    256 x 8 with the forest reference for ``LOG_STEPS`` high-level steps,
    every log leaf finite, one whole-solve launch per consensus iteration
@@ -369,6 +369,21 @@ to stdout; phase 41's children print their tools' JSON lines.
    of the ``kernels`` line gains the phase's launches
    (``contract_launches``); (c) the lint's Tiers A and C
    over the port's tree (``tools/lint.py``, by file path) exit 0.
+43. the operator's tools (``tpu_aerial_transport_torch/tools``) on the
+   card: (a) ``TOOL_STEPS`` fixed-headline steps under ``torch.profiler``,
+   with the CUDA graph off and on, each trace exported and read back by
+   ``op_profile --by-phase``: the whole-solve kernel at 21 launches a step
+   in the trace and the counters, ``local_solve`` and ``consensus`` among
+   the phases, at least ``ATTRIBUTION_BAR`` of the graph-off device time
+   in ``tat.*`` phases, and the tool's device time per phase within
+   ``PHASE_AGREEMENT`` of ``phase_breakdown``'s on the graph-off capture;
+   (b) ``profile_dd64`` at n = 64, batch 64, one rep, its differences
+   finite and its kernels launched in every variant; (c) ``run_health
+   --validate`` and its summary over the metrics files phases 33 and 37-41
+   leave under ``build/`` (``TOOL_METRICS``), every row kind rendering its
+   section, and ``trace_view --out`` of the pods run and the guarded
+   server's spans, which ``--validate`` accepts with phase 40's trace; (d)
+   ``probe_chip``: one logged probe, rc 0.
 
 Output: timing lines carry the card's name and power limit; a ``kernels``
 JSON line, the ``nvidia-smi`` name/power-limit line, and last
@@ -389,19 +404,6 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "tpu_aerial_transport_torch"
-# The port's kernels by their __global__ names (no name is a substring of
-# another), and the phase their device time is attributed to.
-OWN_KERNELS = {"fused_solve_kernel": "fused_solve",
-               "fused_solve_early_kernel": "fused_solve_early",
-               "fused_solve_bf16_kernel": "fused_solve_bf16",
-               "fused_solve_early_bf16_kernel": "fused_solve_early_bf16",
-               "warp_solve_kernel": "fused_solve",
-               "warp_solve_early_kernel": "fused_solve_early",
-               "warp_solve_bf16_kernel": "fused_solve_bf16",
-               "warp_solve_early_bf16_kernel": "fused_solve_early_bf16",
-               "admm_chunk_kernel": "admm_chunk",
-               "warp_chunk_kernel": "admm_chunk",
-               "ring_sum_kernel": "ring_sum"}
 # Each kernel's earlier time at the shapes timed here, from PERF.md's kernel
 # table (NVIDIA H100 80GB HBM3, 700.00 W): the whole-solve kernel's
 # one-block-a-lane body at the agent QPs, the cluster ring sum and the chunk
@@ -531,9 +533,9 @@ RP_SHARDED_FORCE_BAR, RP_SHARDED_ITERS_APART = 2e-4, 1
 # 20 reach under 1%); (f) the trajopt horizon and Adam iterations (the
 # JAX test's 60 and 200).
 DIFF_N = 8
-DIFF_CPU_STEPS, DIFF_REMAT_STEPS = 10, 5
+DIFF_CPU_STEPS, DIFF_REMAT_STEPS = 5, 5
 DIFF_AB_STEPS, DIFF_AB_ITERS = 2, 3
-DIFF_TUNE_STEPS, DIFF_TUNE_ITERS = 10, 25
+DIFF_TUNE_STEPS, DIFF_TUNE_ITERS = 5, 25
 DIFF_SYSID_STEPS, DIFF_SYSID_ITERS = 10, 20
 DIFF_TRAJ_STEPS, DIFF_TRAJ_ITERS = 10, 10
 # Card against CPU (value rtol; gradients rtol and atol), remat against no
@@ -566,7 +568,7 @@ SERVE_SIGTERM_AFTER = {"scen": 1, "sess": 3}
 SESSIONS, SESSION_STEPS = 256, 10
 # Phase 38, the user's drivers (tpu_aerial_transport_torch/examples), one
 # scenario each as a user runs them: (a) rqp_forest at n = 8 (C-ADMM, DD)
-# and n = 3 (centralized) for DRIVER_T s (100 MPC steps), C-ADMM's timing
+# and n = 3 (centralized) for DRIVER_T s (50 MPC steps), C-ADMM's timing
 # pass in chunks of DRIVER_TIME_CHUNK steps, the first DRIVER_CPU_STEPS
 # steps (DRIVER_CPU_T s) held against the CPU; (b) the chunked C-ADMM run
 # (DRIVER_CHUNK_T s in DRIVER_CHUNKS chunks), SIGTERMed by this script
@@ -577,7 +579,7 @@ SESSIONS, SESSION_STEPS = 256, 10
 # CITY_T s (the example's defaults); (e) convergence_rates at its
 # defaults, the card's curves within CONV_BAR of the CPU's; (g) the
 # session example's nominal storm with the live hub.
-DRIVER_N, DRIVER_T, DRIVER_TIME_CHUNK = 8, 1.0, 10
+DRIVER_N, DRIVER_T, DRIVER_TIME_CHUNK = 8, 0.5, 10
 DRIVER_CPU_T, DRIVER_CPU_STEPS = 0.035, 3
 DRIVER_CHUNK_T, DRIVER_CHUNKS, DRIVER_SIGTERM_AFTER = 0.4, 4, 2
 FAULT_STEPS = 40
@@ -630,6 +632,8 @@ BUNDLE_ENTRIES = ("serving.batcher:serving_chunk",
 BUNDLE_BUCKETS = (8, 16)
 BUNDLE_REQUESTS, BUNDLE_SEED, BUNDLE_CPU_SAMPLES = 24, 11, 4
 BUNDLE_STALE_REQUESTS = 8
+# Phase 37(e)'s metrics file, in its run directory.
+SERVING_METRICS = "serving.metrics.jsonl"
 
 
 def fail(msg: str) -> None:
@@ -854,6 +858,8 @@ def solve_row(timing, launches, err, plain_ms, bound_by) -> dict:
 
 def own_in_trace(prof) -> dict:
     """Launches of each of the port's kernels in a trace, by name."""
+    from tpu_aerial_transport_torch.tools.op_profile import OWN_KERNELS
+
     found = {}
     for e in prof.key_averages():
         for name in OWN_KERNELS:
@@ -875,6 +881,8 @@ def per_launch_us(prof, kernel: str):
 
 def phase_breakdown(prof) -> dict:
     """Device and host microseconds per innermost ``tat.*`` phase."""
+    from tpu_aerial_transport_torch.tools.op_profile import OWN_KERNELS
+
     def dev(ev):
         v = getattr(ev, "self_device_time_total", None)
         return v if v is not None else getattr(ev, "self_cuda_time_total", 0)
@@ -2212,8 +2220,9 @@ def graph_phase(card, report, run, css0, states0):
     warm-up step, the graph replay bitwise equal to the eager substeps, and
     the entry period's physics likewise; eager and graph substeps timed in
     turns (CUDA events around host-driven calls); the fixed headline with
-    the graph on and off in turns; one step of each profiled; the entry's
-    periods/s with and without the graph in turns."""
+    the graph on and off in turns (phase 43(a) profiles both); the entry's
+    periods/s with and without the graph in turns (phase 13 profiles a
+    period)."""
     import torch
 
     from tpu_aerial_transport_torch import entry
@@ -2267,12 +2276,6 @@ def graph_phase(card, report, run, css0, states0):
           f"MPC steps each): on {rates['on'][0]:.2f} and {rates['on'][1]:.2f}"
           f", off {rates['off'][0]:.2f} and {rates['off'][1]:.2f} "
           f"scenario-MPC-steps/s | {card}", flush=True)
-    profiles = {}
-    for arm, fn in (("on", run), ("off", run_off)):
-        wall, ph = profile_step(lambda: fn(css0, states0, 1))
-        print_profile(f"one fixed-headline step, graph {arm}", wall, ph, card)
-        profiles[arm] = {"wall_ms": wall, "phases": ph}
-
     step_g, (cs_e, st_e, acc_e) = entry.entry()
     step_x, _ = entry.entry(cuda_graph=False)
     out_g = step_g(cs_e, st_e, acc_e)
@@ -2300,13 +2303,10 @@ def graph_phase(card, report, run, css0, states0):
           f" periods each): on {periods['on'][0]:.2f} and "
           f"{periods['on'][1]:.2f}, off {periods['off'][0]:.2f} and "
           f"{periods['off'][1]:.2f} | {card}", flush=True)
-    wall, ph = profile_step(lambda: step_g(cs_e, st_e, acc_e))
-    print_profile("one entry period, graph on", wall, ph, card)
     report["graph"] = {
         "substeps_bitwise_equal": equal, "entry_bitwise_equal": e_equal,
         "substeps_ms_in_turns": turns, "headline_rates_in_turns": rates,
-        "headline_profiles": profiles, "entry_periods_per_s_in_turns":
-        periods, "entry_profile": {"wall_ms": wall, "phases": ph},
+        "entry_periods_per_s_in_turns": periods,
     }
 
 
@@ -5490,6 +5490,7 @@ def serving_guard_checks(card, server, fams):
 
     import torch
 
+    from tpu_aerial_transport_torch.obs import export, trace
     from tpu_aerial_transport_torch.resilience import backend
     from tpu_aerial_transport_torch.resilience.recovery import RunJournal
     from tpu_aerial_transport_torch.serving import server as server_mod
@@ -5500,7 +5501,11 @@ def serving_guard_checks(card, server, fams):
     shutil.rmtree(run_dir, ignore_errors=True)
     os.environ[backend.FAULTS_ENV] = "crash@3"
     try:
-        s = server(run_dir=run_dir)
+        # Its metrics and spans (one file, SERVING_METRICS) are what phase
+        # 43 reads back with the operator's tools.
+        writer = export.MetricsWriter(os.path.join(run_dir, SERVING_METRICS))
+        s = server(run_dir=run_dir, metrics=writer,
+                   tracer=trace.Tracer(writer, track="server"))
     finally:
         del os.environ[backend.FAULTS_ENV]
     _, got = serve_drain(s, stream)
@@ -7338,6 +7343,279 @@ def analysis_phase(card, report, args, kw, kernel_ms):
     return err, launches
 
 
+# Phase 43, the operator's tools on the card: the fixed headline steps each
+# profiled capture holds, the JAX tool's attribution bar
+# (tests/test_op_profile.py:242), and how far the tool's device time per
+# phase may be from phase_breakdown's on the same capture.
+TOOL_STEPS = 3
+ATTRIBUTION_BAR = 0.80
+PHASE_AGREEMENT = 0.01
+# The metrics and trace files earlier phases leave under build/, by phase.
+TOOL_METRICS = {
+    "33": ("recovery_run/*.metrics.jsonl",),
+    "37": ("serving_guard/" + SERVING_METRICS,),
+    "38": ("drivers/sessions/*.metrics.jsonl",),
+    "39": ("fleet_run/**/*.metrics.jsonl",),
+    "40": ("pods_run/**/*.metrics.jsonl",),
+    "41": ("aot_run/bundled.jsonl", "aot_run/stale.jsonl"),
+}
+TOOL_TRACES = ("pods_run/**/*.trace.json", "fleet_run/**/*.trace.json")
+# Row kind -> (run_health summary key, the header its section renders).
+HEALTH_SECTIONS = {
+    "chunk": ("chunks", "## chunk wall-times"),
+    "resume": ("interruptions", "## resume / retry / preemption events"),
+    "retry": ("interruptions", "## resume / retry / preemption events"),
+    "preempted": ("interruptions", "## resume / retry / preemption events"),
+    "backend_event": ("backend", "## backend health"),
+    "serving_event": ("serving", "## serving SLO"),
+    "session_event": ("sessions", "## closed-loop sessions"),
+    "fleet_event": ("fleet", "## serving fleet"),
+    "alert": ("alerts", "## slo alerts"),
+    "aot_serve": ("aot", "## AOT serve ladder"),
+}
+# The sections the earlier phases' files must render between them.
+HEALTH_REQUIRED = {"chunks", "interruptions", "backend", "serving",
+                   "sessions", "fleet", "aot", "critical_path"}
+
+
+def phases_apart(tool_us: dict, pb: dict) -> dict:
+    """Per phase, the tool's device microseconds against
+    ``phase_breakdown``'s on the same capture, relative: the tool's
+    ``(unattributed)`` against the kernels ``phase_breakdown`` finds
+    outside every ``tat.*`` range ("other") or in no host range."""
+    from tpu_aerial_transport_torch.tools.op_profile import UNATTRIBUTED
+
+    dev = pb["device_us"]
+    ref = {k: v for k, v in dev.items()
+           if k not in ("other", "unattributed") and v}
+    ref[UNATTRIBUTED] = dev.get("other", 0.0) + dev.get("unattributed", 0.0)
+    out = {}
+    for k in set(ref) | {k for k, v in tool_us.items() if v}:
+        a, b = tool_us.get(k, 0.0), ref.get(k, 0.0)
+        out[k] = abs(a - b) / max(abs(b), 1e-9)
+    return out
+
+
+def tools_profile(card, root) -> dict:
+    """Phase 43(a): ``op_profile --by-phase`` over a ``torch.profiler``
+    trace of TOOL_STEPS fixed-headline steps, with the graph on and off."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_aerial_transport_torch.harness import rollout
+    from tpu_aerial_transport_torch.ops import admm_kernel
+    from tpu_aerial_transport_torch.tools import op_profile
+
+    out = {}
+    for arm, graph in (("off", False), ("on", True)):
+        run, css0, states0 = rollout.build(
+            n=N_AGENTS, n_scenarios=N_SCENARIOS, max_iter=20,
+            inner_iters=20, device="cuda", cuda_graph=graph)
+        run(css0, states0, 1)  # warm-up: kernel loads, the graph capture.
+        torch.cuda.synchronize()
+        zero_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(css0, states0, TOOL_STEPS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counted = {k: v for k, v in admm_kernel.KERNEL_LAUNCHES.items() if v}
+        path = os.path.join(root, f"headline_graph_{arm}.json")
+        prof.export_chrome_trace(path)
+        # Graph on, phase_breakdown finds the replayed graph's kernels in
+        # no host range, where the tool finds them under their
+        # cudaGraphLaunch in tat.dynamics; the graph-off capture, which both
+        # read alike, is the one compared (prof.events() takes seconds).
+        pb = phase_breakdown(prof) if not graph else None
+        jpath = path[:-5] + ".phases.json"
+        rc, table, _ = run_driver(op_profile.main, [path, "--by-phase",
+                                                    "--json", jpath])
+        with open(jpath) as fh:
+            got = json.load(fh)
+        tool_us = {r["phase"]: r["total_ms"] * 1e3 for r in got["phases"]}
+        apart = phases_apart(tool_us, pb) if pb else {}
+        busy = got["op_total_ms"] / wall_ms
+        print(f"phase 43 (a) op_profile --by-phase over {TOOL_STEPS} "
+              f"fixed-headline steps ({N_SCENARIOS} x {N_AGENTS}), graph "
+              f"{arm}: wall {wall_ms:.2f} ms (profiler on), device busy "
+              f"{got['op_total_ms']:.3f} ms = {100 * busy:.1f}%, "
+              f"{100 * got['attributed_frac']:.2f}% of device time in tat.* "
+              f"phases; own kernels {got['own_kernel_launches']} (counters "
+              f"{counted}) | {card}", flush=True)
+        print("\n".join(table), flush=True)
+        for name in sorted(tool_us, key=lambda p: -tool_us[p]):
+            print(f"  {name}: device {tool_us[name] / 1e3:.3f} ms"
+                  + (f" (phase_breakdown {100 * apart[name]:.4f}% apart)"
+                     if name in apart else "")
+                  + f", host {got['host_ms_by_phase'].get(name, 0.0):.3f} ms",
+                  flush=True)
+        out[arm] = {"wall_ms": wall_ms, "tool": got, "counters": counted,
+                    "phase_breakdown": pb, "apart": apart}
+        warp = got["own_kernel_launches"].get("warp_solve_kernel", 0)
+        if rc or counted != {"warp_solve_kernel": 21 * TOOL_STEPS} \
+                or warp != 21 * TOOL_STEPS:
+            fail(f"phase 43 (a), graph {arm}: op_profile rc {rc}, "
+                 f"{warp} whole-solve launches in the trace, counters "
+                 f"{counted}; expected 21 a step")
+        if not {"local_solve", "consensus"} <= set(tool_us):
+            fail(f"phase 43 (a), graph {arm}: phases {sorted(tool_us)}")
+    off = out["off"]
+    if off["tool"]["attributed_frac"] < ATTRIBUTION_BAR:
+        fail(f"phase 43 (a): {off['tool']['attributed_frac']:.4f} of the "
+             f"graph-off device time in tat.* phases < {ATTRIBUTION_BAR}")
+    worst = max(off["apart"].values())
+    print(f"phase 43 (a): the tool's device time per phase against "
+          f"phase_breakdown's on the graph-off capture: at most "
+          f"{100 * worst:.4f}% apart | {card}", flush=True)
+    if worst > PHASE_AGREEMENT:
+        fail(f"phase 43 (a): tool and phase_breakdown {off['apart']}")
+    return out
+
+
+def tools_dd64(card) -> dict:
+    """Phase 43(b): ``profile_dd64`` at its defaults (n = 64, batch 64) with
+    one rep, each variant's launches counted."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+    from tpu_aerial_transport_torch.tools import profile_dd64
+
+    variants = []
+    timed = profile_dd64.timed
+
+    def counting(*args, **kw):
+        zero_launches()
+        ms = timed(*args, **kw)
+        variants.append({"ms": ms, **{
+            k: v for k, v in {**admm_kernel.KERNEL_LAUNCHES,
+                              **admm_kernel.CHUNK_LAUNCHES}.items() if v}})
+        return ms
+
+    profile_dd64.timed = counting
+    try:
+        res, printed, _ = run_driver(profile_dd64.main, ["--reps", "1"])
+    finally:
+        profile_dd64.timed = timed
+    line = json.loads("\n".join(printed))
+    print("phase 43 (b) profile_dd64 (n = 64, batch 64, 1 rep): "
+          + json.dumps(line) + f" | {card}", flush=True)
+    print(f"  launches by variant (8x40, 8x20, 16x20, adaptive, adaptive "
+          f"inner_tol; warm-up step included): {json.dumps(variants)}",
+          flush=True)
+    nums = [v for v in line.values() if isinstance(v, float)]
+    if (res or line["platform"] != "cuda" or len(variants) != 5
+            or not all(math.isfinite(v) for v in nums)
+            or not all(len(v) > 1 for v in variants)):
+        fail(f"phase 43 (b): rc {res}, {line}, launches {variants}")
+    return {"split": line, "variants": variants}
+
+
+def tools_health(card, root) -> dict:
+    """Phase 43(c): ``run_health`` and ``trace_view`` over the metrics and
+    trace files phases 33 and 37-41 left under build/."""
+    import glob
+
+    from tpu_aerial_transport_torch.obs import export
+    from tpu_aerial_transport_torch.tools import run_health, trace_view
+
+    build = os.path.join(HERE, "build")
+    files, rendered = {}, set()
+    for phase, patterns in TOOL_METRICS.items():
+        found = sorted({p for pat in patterns for p in glob.glob(
+            os.path.join(build, pat), recursive=True)})
+        if not found:
+            fail(f"phase 43 (c): phase {phase} left no {patterns}")
+        for path in found:
+            rc, _, _ = run_driver(run_health.main, ["--validate", path])
+            events = export.read_events(path)
+            summary = run_health.summarize(events)
+            _, lines, _ = run_driver(run_health.render, summary)
+            text = "\n".join(lines)
+            want = {HEALTH_SECTIONS[e["event"]]
+                    for e in events if e.get("event") in HEALTH_SECTIONS}
+            if any(e.get("event") == "trace_event" and e.get("name")
+                   == "request" for e in events):
+                want.add(("critical_path", "## critical path"))
+            missing = sorted(k for k, head in want
+                             if not summary.get(k) or head not in text)
+            files[os.path.relpath(path, build)] = {
+                "phase": phase, "validate_rc": rc, "rows": len(events),
+                "sections": sorted(k for k, _ in want), "missing": missing}
+            if rc or missing:
+                fail(f"phase 43 (c): {path}: --validate rc {rc}, sections "
+                     f"with no rows {missing}")
+            rendered |= {k for k, _ in want}
+    if not HEALTH_REQUIRED <= rendered:
+        fail(f"phase 43 (c): no file rendered "
+             f"{sorted(HEALTH_REQUIRED - rendered)}")
+    traces = sorted({p for pat in TOOL_TRACES for p in glob.glob(
+        os.path.join(build, pat), recursive=True)})
+    stitched = os.path.join(root, "stitched.trace.json")
+    sources = sorted({os.path.dirname(p) for p in glob.glob(
+        os.path.join(build, "pods_run", "**", "trace.*.metrics.jsonl"),
+        recursive=True)}) + [os.path.join(build, "serving_guard",
+                                          SERVING_METRICS)]
+    rc_out, summary, _ = run_driver(trace_view.main, sources + [
+        "--out", stitched, "--critical-path"])
+    rc_val, _, _ = run_driver(trace_view.main, ["--validate", stitched]
+                              + traces)
+    view = json.loads("\n".join(summary)) if not rc_out else {}
+    print(f"phase 43 (c) run_health --validate and render over "
+          f"{len(files)} files of phases {sorted(TOOL_METRICS)}: every "
+          f"row kind rendered its section; sections "
+          f"{sorted(rendered)}; trace_view --out of {len(sources)} sources: "
+          f"{view.get('rows')} rows on tracks {view.get('tracks')}, "
+          f"--validate rc {rc_val} over it and {len(traces)} trace files "
+          f"| {card}", flush=True)
+    if rc_out or rc_val or not traces:
+        fail(f"phase 43 (c): trace_view --out rc {rc_out}, --validate rc "
+             f"{rc_val}, {len(traces)} trace files")
+    return {"files": files, "trace_files": traces, "stitched": view}
+
+
+def tools_phase(card, report) -> dict:
+    """Phase 43, the operator's tools on the card: (a) ``op_profile`` over
+    ``torch.profiler`` traces of the fixed headline, graph on and off,
+    against the launch counters and ``phase_breakdown``; (b)
+    ``profile_dd64`` at n = 64; (c) ``run_health`` and ``trace_view`` over
+    the files of earlier phases; (d) ``probe_chip`` once."""
+    import shutil
+
+    from tpu_aerial_transport_torch.tools import probe_chip
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "tools_run")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = report["tools"] = {}
+    part_s = out["part_s"] = {}
+    for part, key, run in (("a", "op_profile", lambda: tools_profile(card,
+                                                                     root)),
+                           ("b", "profile_dd64", lambda: tools_dd64(card)),
+                           ("c", "health", lambda: tools_health(card,
+                                                                root))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        part_s[part] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log = os.path.join(root, "probe_chip.log")
+    rc, printed, _ = run_driver(probe_chip.main, ["--log", log])
+    with open(log) as fh:
+        logged = fh.read().splitlines()
+    print(f"phase 43 (d) probe_chip: rc {rc}, logged {logged} | {card}",
+          flush=True)
+    if rc or len(logged) != 1 or "ALIVE" not in logged[0]:
+        fail(f"phase 43 (d): probe_chip rc {rc}: {printed}")
+    out["probe_chip"] = logged[0]
+    part_s["d"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 43: {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items())
+          + f") | {card}", flush=True)
+    return {"profile": 21 * TOOL_STEPS * 2, "profile_dd64": sum(
+        v for var in out["profile_dd64"]["variants"]
+        for k, v in var.items() if k != "ms")}
+
+
 def main() -> int:
     child = sys.argv[1:2] in (["--recovery-child"], ["--serving-child"])
     if not os.path.isdir(os.path.join(HERE, PKG)):
@@ -7925,6 +8203,10 @@ def main() -> int:
     phase_at["42"] = time.perf_counter() - t_start
     oracle_err, contract_launches = analysis_phase(card, report, args, kw,
                                                    kernel_ms)
+    # 43. The operator's tools: op_profile, profile_dd64, run_health,
+    # trace_view and probe_chip on the card.
+    phase_at["43"] = time.perf_counter() - t_start
+    tool_launches = tools_phase(card, report)
 
     kernels = [
         solve_row(main_timing, launches["fused_solve"],
@@ -7946,6 +8228,7 @@ def main() -> int:
         "fused_solve_fleet_replicas": fleet_launches,
         "pods_workers": pods_launches,
         "bundled_serving": bundle_launches,
+        "operator_tools": tool_launches,
     }
     path = os.environ.get("TAT_SMOKE_REPORT") or os.path.join(
         HERE, "build", "chip_smoke.json")

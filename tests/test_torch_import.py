@@ -74,7 +74,9 @@ def test_import_leaves_jax_out_of_sys_modules():
               "serving.fleet", "tools", "tools.fleet_local",
               "tools.fleet_console", "examples.serve_fleet",
               "parallel.pods", "tools.pods_local", "aot", "aot.bundle",
-              "analysis", "analysis.contracts", "tools.aot_bundle"):
+              "analysis", "analysis.contracts", "tools.aot_bundle",
+              "tools.trace_view", "tools.run_health", "tools.op_profile",
+              "tools.profile_dd64", "tools.probe_chip", "tools.ci_check"):
         assert "tpu_aerial_transport_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -143,7 +145,10 @@ def test_source_scan_covers_the_slice():
               "serving/fleet.py", "tools/__init__.py",
               "tools/fleet_local.py", "tools/fleet_console.py",
               "examples/serve_fleet.py", "parallel/pods.py",
-              "tools/pods_local.py"):
+              "tools/pods_local.py", "tools/trace_view.py",
+              "tools/run_health.py", "tools/op_profile.py",
+              "tools/profile_dd64.py", "tools/probe_chip.py",
+              "tools/ci_check.py"):
         assert os.path.join("tpu_aerial_transport_torch", f) in rel, f
 
 

@@ -515,6 +515,11 @@ def test_knob_registry_has_no_drift():
     chip_smoke.py is registered (or a prefix passthrough), and every
     registered knob is read somewhere."""
     registry = os.path.join(PKG, "analysis", "knobs.py")
+    # The JAX knobs the port has not, recorded as rows of NO_COUNTERPART's
+    # KNOBS table in entrypoints.py, are named there and read nowhere.
+    table = os.path.join(PKG, "analysis", "entrypoints.py")
+    recorded = {k.split(":", 1)[1] for k in entrypoints.NO_COUNTERPART
+                if k.startswith("KNOBS:")}
     seen: dict[str, set] = {}
     for path in list(linter.iter_py_files([PKG])) + [
             os.path.join(REPO, "chip_smoke.py")]:
@@ -522,6 +527,8 @@ def test_knob_registry_has_no_drift():
             continue
         with open(path, encoding="utf-8") as fh:
             for tok in _KNOB_RE.findall(fh.read()):
+                if os.path.abspath(path) == table and tok in recorded:
+                    continue
                 seen.setdefault(tok, set()).add(os.path.relpath(path, REPO))
     unregistered = {t: sorted(p) for t, p in seen.items()
                     if t not in knobs.KNOBS

@@ -20,7 +20,14 @@ The counterparts of the JAX package's ``analysis/entrypoints.py`` tables:
 - :data:`NO_COUNTERPART`: the rows of the JAX tables that have no
   counterpart here, each with the reason. The JAX ``TILE_WAIVERS`` (TC104)
   and ``LOWERING_WAIVERS`` (TC106) have none as a whole: see
-  ``analysis/contracts.py``.
+  ``analysis/contracts.py``. Three more tables hold what of the JAX tree
+  keeps no counterpart: ``FILES:<path>`` (a file of the JAX package, a
+  repo-root tool or example, or ``bench.py``, with no port file at the
+  same path), ``NAMES:<path>:<name>`` (a public name or command-line flag
+  of a JAX file with no port counterpart) and ``KNOBS:<NAME>`` (a JAX
+  environment knob the port's ``analysis/knobs.py`` lacks).
+  ``tests/test_torch_completeness.py`` holds the tables against both
+  trees.
 
 Keys are POSIX path suffixes relative to the repo root.
 """
@@ -226,6 +233,132 @@ NO_COUNTERPART: dict[str, str] = {
     "DONATION_CONTRACTS:serving.lanes:lane_surgery_centralized":
         "the same select program as serving.lanes:lane_surgery, on the "
         "centralized family's carry",
+    # FILES: what of the JAX tree has no port file at the same path.
+    "FILES:bench.py":
+        "the JAX package's benchmark harness; the port's benchmark comes in "
+        "a benchmark PR of its own (ROADMAP Queue 1), which writes its "
+        "harness from the port's cells",
+    "FILES:tools/bench_retry.py":
+        "bench.py's retrying driver for wedged TPU rounds; it waits for the "
+        "port's benchmark PR with bench.py",
+    "FILES:tools/tpu_watch.sh":
+        "the TPU rounds' chip watcher around bench.py; it waits for the "
+        "port's benchmark PR with bench.py",
+    "FILES:tools/jaxlint.py":
+        "its counterpart is tpu_aerial_transport_torch/tools/lint.py (the "
+        "lint tiers A and C and the registry's contracts, on torch)",
+    "FILES:tools/ci_check.sh":
+        "its counterpart is tpu_aerial_transport_torch/tools/ci_check.py, "
+        "which chains the port's gates in one process",
+    "FILES:tpu_aerial_transport/utils/compat.py":
+        "a JAX-version shim (shard_map, orbax); no port module needs one: "
+        "see the NAMES rows of utils/compat.py",
+    "FILES:tpu_aerial_transport/utils/platform.py":
+        "JAX platform, XLA-cache and virtual-device set-up; no port module "
+        "needs one: see the NAMES rows of utils/platform.py",
+    # NAMES: public names and flags of a JAX file with no port counterpart.
+    "NAMES:tpu_aerial_transport/utils/compat.py:shard_map":
+        "the port's agent and scenario shards are an explicit shard axis "
+        "of one program on the card (parallel/mesh.py make_mesh), not a "
+        "shard_map over devices",
+    "NAMES:tpu_aerial_transport/utils/compat.py:pytree_io":
+        "orbax's pytree checkpointing; the port saves and loads state with "
+        "harness/checkpoint.py save_state and load_state",
+    "NAMES:tpu_aerial_transport/utils/platform.py:honor_jax_platforms_env":
+        "JAX_PLATFORMS against a site hook; the port's entry points take "
+        "device= and resolve_device (tpu_aerial_transport_torch/"
+        "__init__.py) never falls back from the card",
+    "NAMES:tpu_aerial_transport/utils/platform.py:XLA_CACHE_ENV":
+        "XLA's persistent compilation cache; the port compiles its kernels "
+        "once into ops/_build.py's build directory, and the AOT bundles "
+        "carry them prebuilt",
+    "NAMES:tpu_aerial_transport/utils/platform.py:default_cache_dir":
+        "the XLA cache's default path; the port's counterpart is "
+        "ops/_build.py build_dir() and the AOT bundles (aot/bundle.py)",
+    "NAMES:tpu_aerial_transport/utils/platform.py:enable_persistent_cache":
+        "turns XLA's persistent cache on; the port's build directory is "
+        "always on (ops/_build.py), and the AOT bundles carry prebuilt "
+        "libraries",
+    "NAMES:tpu_aerial_transport/utils/platform.py:VIRTUAL_DEVICES_ENV":
+        "XLA's forced host device count; the port runs its shards as a "
+        "shard axis on one card, and the tier-1 pods ranks as threads",
+    "NAMES:tpu_aerial_transport/utils/platform.py:virtual_device_count":
+        "reads the virtual-device knob; the port needs no virtual devices "
+        "(the shard axis on one card, pods ranks as threads)",
+    "NAMES:tpu_aerial_transport/utils/platform.py:apply_virtual_devices":
+        "sets XLA_FLAGS for virtual devices; the port needs no virtual "
+        "devices (the shard axis on one card, pods ranks as threads)",
+    "NAMES:tools/op_profile.py:load_xplanes":
+        "reads XLA xplane protos; the port's tool reads torch.profiler "
+        "Chrome traces with load_traces",
+    "NAMES:tools/op_profile.py:device_op_times":
+        "a back-compatibility shim over op_aggregate for callers of the "
+        "JAX tool's first version; the port's tool has no such callers",
+    "NAMES:tools/op_profile.py:load_hlo_map":
+        "maps compiled HLO instructions to their scopes; PyTorch writes no "
+        "HLO, and each kernel's launch carries its scope in the trace",
+    "NAMES:tools/op_profile.py:find_hlo_dump":
+        "finds the HLO text bench.py --profile writes beside a trace; "
+        "PyTorch writes no HLO",
+    "NAMES:tools/op_profile.py:--hlo":
+        "names the HLO text for load_hlo_map; PyTorch writes no HLO, and "
+        "each kernel's launch carries its scope in the trace",
+    "NAMES:tools/aot_bundle.py:--platform":
+        "a JAX export target other than this host's backend; the port "
+        "builds and serves a bundle on the device --device names",
+    "NAMES:tools/aot_bundle.py:--no-exec":
+        "skips serialized XLA executables; a port bundle holds kernel "
+        "libraries and shapes, and no executable",
+    "NAMES:tools/aot_bundle.py:--cache-dir":
+        "the XLA compilation cache of the serve ladder's cached rung; the "
+        "port's cached rung is the kernel build directory",
+    "NAMES:tools/pods_local.py:--platform":
+        "the JAX platform of the workers; the port's harness takes "
+        "--device (cuda or cpu)",
+    "NAMES:tools/aot_bundle.py:REPO":
+        "the repo root put on sys.path for a run by file path; the port's "
+        "tools run as python -m from the package",
+    "NAMES:tools/probe_chip.py:REPO":
+        "the repo root of the JAX tool's log path; the port's tool puts its "
+        "log under the build directory beside the package (LOG)",
+    "NAMES:examples/serve_fleet.py:REPO":
+        "the repo root put on sys.path for a run by file path; the port's "
+        "examples run as python -m from the package",
+    "NAMES:examples/serve_scenarios.py:REPO":
+        "the repo root put on sys.path for a run by file path; the port's "
+        "examples run as python -m from the package",
+    "NAMES:examples/serve_sessions.py:REPO":
+        "the repo root put on sys.path for a run by file path; the port's "
+        "examples run as python -m from the package",
+    "NAMES:examples/serve_sessions.py:HERE":
+        "the examples directory put on sys.path for a run by file path; "
+        "the port's examples run as python -m from the package",
+    # KNOBS: JAX environment knobs the port's registry lacks.
+    "KNOBS:TAT_MATMUL_PRECISION":
+        "the port pins full float32 matmuls (TF32 off) at import "
+        "(tpu_aerial_transport_torch/__init__.py), with no override",
+    "KNOBS:TAT_SERVING_DISPATCH":
+        "the port's serving/lanes.py resolve_dispatch takes no environment "
+        "override: dispatch= on ScenarioServer only",
+    "KNOBS:TAT_SERVING_SURGERY":
+        "the port's serving/lanes.py resolve_surgery takes no environment "
+        "override: surgery= on ScenarioServer only",
+    "KNOBS:TAT_SWEEP_CELLS":
+        "bench.py's sweep filter; it waits for the port's benchmark PR "
+        "with bench.py",
+    "KNOBS:TAT_SWEEP_SHARDED_N":
+        "bench.py's sharded-cell agent count; it waits for the port's "
+        "benchmark PR with bench.py",
+    "KNOBS:TAT_VIRTUAL_DEVICES":
+        "XLA's virtual host devices; see the NAMES rows of "
+        "utils/platform.py (the shard axis on one card, pods ranks as "
+        "threads)",
+    "KNOBS:TAT_XLA_CACHE_DIR":
+        "XLA's persistent compilation cache; see the NAMES rows of "
+        "utils/platform.py (the kernel build directory and the AOT bundles)",
+    "KNOBS:TPU_AERIAL_FUSED":
+        "the port's route comes from ops/socp.py resolve_route(fused) at "
+        "config build, with no environment override",
 }
 
 # TC103: entry -> {"budget": int, "reason": str}, and "card_only": int

@@ -121,6 +121,7 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
                     consensus_impl: str = "auto",
                     forest: forest_mod.Forest | None = None,
                     track_agent_stats: bool = False,
+                    force_fixed_iters: bool = False,
                     device="cuda") -> Controller:
     """The bench set-up's high-level controller: ``rqp_setup(n)``, the
     forest given (None: the seed-0 mountain world; a city-scale world
@@ -137,8 +138,11 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
     is the single program, which takes no ``consensus_impl`` but
     ``"auto"``. ``track_agent_stats`` (C-ADMM and DD) puts every agent's
     exit-time QP residual on the stats, for the run-health telemetry's
-    ``track_agents``. ``control`` takes and returns batched states and an
-    ``acc_des`` shared (``(3,)`` each) or per scenario (``(S, 3)``)."""
+    ``track_agents``. ``force_fixed_iters`` (C-ADMM and DD; the JAX bench's
+    knob) sets the consensus tolerance to 0, which no residual meets, so
+    every step runs ``max_iter + 1`` consensus iterations. ``control``
+    takes and returns batched states and an ``acc_des`` shared (``(3,)``
+    each) or per scenario (``(S, 3)``)."""
     if controller not in CONTROLLERS:
         raise ValueError(
             f"controller={controller!r}: expected one of {CONTROLLERS}")
@@ -147,6 +151,9 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
     if controller != "cadmm" and (tau_incr != 1.0 or inner_iters_warm
                                   or reduced_qp is not None):
         raise ValueError(f"{cadmm_kw} are C-ADMM options, not {controller}'s")
+    if controller == "centralized" and force_fixed_iters:
+        raise ValueError("force_fixed_iters: the centralized controller has "
+                         "no consensus loop")
     if controller == "centralized" and track_agent_stats:
         raise ValueError("track_agent_stats: the centralized controller "
                          "has no agent solves")
@@ -192,6 +199,8 @@ def make_controller(controller: str, n: int, max_iter: int = 20,
         consensus_impl=consensus_impl, track_agent_stats=track_agent_stats,
         device=dev, **(cadmm_kw if controller == "cadmm" else {}),
     )
+    if force_fixed_iters:
+        cfg = cadmm.set_tolerance(cfg, 0.0)
     if controller == "cadmm":
         cs0 = cadmm.init_cadmm_state(params, cfg, f_eq)
         plan = cadmm.make_plan(params, cfg)

@@ -1,5 +1,5 @@
 """Host-side distributed tracing: spans from admission to device, across
-the chunk driver, recovery and (once ported) serving and pods.
+the chunk driver, recovery, serving, the fleet and pods.
 
 The port's own copy of the JAX package's ``obs/trace.py`` (the port
 imports nothing of the JAX package, not even its stdlib-only modules),
@@ -9,9 +9,12 @@ writes stitch, render and validate under the other's functions. A
 ``parent_id``, structured attributes, one *track* per process. In the
 port, ``resilience.recovery`` opens ``run`` / ``chunk`` / ``snapshot`` /
 ``resume`` spans around the chunk driver, ``retry`` and ``preempted``
-instants among them; the serving names (``request``, ``queue_wait``,
-``chunk_dispatch``, ...) are the JAX package's serving tier's, kept for
-:func:`critical_path`.
+instants among them; ``serving/server.py`` opens the serving names
+(``request``, ``queue_wait``, ``batch_form``, ``chunk_dispatch``,
+``harvest``, ``lane_surgery``, ...) that :func:`critical_path` reads,
+``serving/fleet.py`` the fleet's re-homing spans, and
+``parallel/pods.py`` gives each process its own track
+(``p{pid}of{N}``) in the run directory's per-process trace files.
 
 **Clock model.** Every span records both a monotonic timestamp pair
 (``t0_mono``/``t1_mono``: exact durations, immune to wall-clock steps)
