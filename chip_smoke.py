@@ -48,14 +48,18 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    (``admm_chunk_kernel``); hold both bodies against their plain version on
    captured inputs (the headline's with and without the shift, ragged,
    shorter chunks; DD's d = 56 from phase 7; the full QP's) and time each
-   body and x-row layout in turns on the same inputs beside the bound;
+   body and x-row layout in turns on the same inputs beside the bound, the
+   block body at d = 72 also split into staging and iterations
+   (``block_split``);
 10-12. the bf16 headline, bf16 DD and the bf16 kernel forms against their
    plain version;
 13. the entry step and the centralized rollout, the shared-memory body's
    early form at their d = 67 and 79; then C-ADMM with the full agent QP at
    n = 8 (``reduced_qp=False``, d = 72) fixed, bf16 fixed and bf16 adaptive:
    the shared-memory body's other three forms on a path, checked and
-   timed;
+   timed, the fixed form also split into staging and iterations
+   (``block_split``: 0 iterations against all of them, one lane an SM and
+   the whole batch);
 14. C-ADMM at n = 3 (the full QP), with ``tau_incr=1.5`` and with
    ``inner_iters_warm=10``;
 15. agent-sharded C-ADMM (n = 8, one agent a shard, 8 shards on the card,
@@ -173,7 +177,8 @@ Phases, each fatal on failure (the script exits non-zero and prints no result):
    the card's state at its start: the control step against the card's
    (forces 1e-2 N, iterations equal) and the physics from the card's
    forces against the card's next state (1e-4); (f) the kernel against its plain version on (a)'s and (b)'s
-   inputs at the kernel bar, timed beside its bound;
+   inputs at the kernel bar, timed beside its bound, (a)'s also split into
+   staging and iterations (``block_split``);
 35. the PMRL model at 256 x 8 (``pmrl_setup(8)``) in the JAX setpoint
    test's loop (dt 1e-2; seeded setpoints): one warm-up and ``TIMED_STEPS``
    timed steps, one ``fused_solve_early_kernel`` launch a step (d = 111),
@@ -408,19 +413,23 @@ PKG = "tpu_aerial_transport_torch"
 # table (NVIDIA H100 80GB HBM3, 700.00 W): the whole-solve kernel's
 # one-block-a-lane body at the agent QPs, the cluster ring sum and the chunk
 # kernel's one-block body at the headline; and, by (entry point, d, lanes),
-# the shared-memory body's times before its K2 rows were summed in two
-# chains (chip run 3 of PR 10).
+# the block bodies with one thread a K2 row in shared memory, eight chains
+# (chip run 10 of PR 13 at d = 67, 72 and 79; chip run 12 of PR 11 at d =
+# 111), which the register-row layout replaced.
 EARLIER_MS = {"warp_solve_kernel": 0.0623, "warp_solve_early_kernel": 0.0656,
               "warp_solve_bf16_kernel": 0.0705,
               "warp_solve_early_bf16_kernel": 0.1598,
               "ring_sum_kernel": 0.0060, "admm_chunk_kernel": 0.0504,
-              ("fused_solve_early_kernel", 67, 1): 0.0384,
-              ("fused_solve_early_kernel", 67, 256): 0.1522,
-              ("fused_solve_early_kernel", 79, 256): 0.1658,
-              ("fused_solve_kernel", 72, 2048): 0.1704,
-              ("fused_solve_bf16_kernel", 72, 2048): 0.2422,
-              ("fused_solve_early_bf16_kernel", 72, 2048): 0.2730,
-              ("admm_chunk_kernel", 72, 2048): 0.0989}
+              ("fused_solve_early_kernel", 67, 1): 0.0545,
+              ("fused_solve_early_kernel", 67, 256): 0.2085,
+              ("fused_solve_early_kernel", 79, 256): 0.2237,
+              ("fused_solve_kernel", 72, 2048): 0.2270,
+              ("fused_solve_bf16_kernel", 72, 2048): 0.2553,
+              ("fused_solve_early_bf16_kernel", 72, 2048): 0.2938,
+              ("admm_chunk_kernel", 72, 2048): 0.1244,
+              ("fused_solve_kernel", 111, 256): 0.3668,
+              ("fused_solve_kernel", 111, 2048): 0.4479,
+              ("fused_solve_early_kernel", 111, 256): 0.3583}
 
 N_AGENTS, N_SCENARIOS, TIMED_STEPS = 8, 256, 10
 # Steps of each chunked-route arm (fixed and adaptive), after a warm-up.
@@ -797,6 +806,22 @@ def entry_name(args, kw) -> str:
                                     kw.get("precision", "f32")]
 
 
+def resident_check(what, info, nv, m, chunk=False):
+    """In the block bodies' register-row layout, the lanes an SM the
+    library keeps resident must be those its register budget gives
+    (``admm_kernel.block_lanes_per_sm``, from the launch bounds' budget in
+    csrc/admm_common.cuh)."""
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    if not admm_kernel.register_rows(nv + m):
+        return
+    want = admm_kernel.block_lanes_per_sm(nv, m, chunk)
+    if info["lanes_per_sm"] != want:
+        fail(f"{what}: {info['name']} keeps {info['lanes_per_sm']} lanes "
+             f"resident an SM at {info['registers']} registers, its register "
+             f"budget's geometry {want}")
+
+
 def kernel_timing(what, args, kw, bound_ms, card, reps=100) -> dict:
     """The whole-solve kernel on one captured case, timed (CUDA graph)
     beside its bound and its earlier time (EARLIER_MS); at an agent QP in
@@ -815,6 +840,7 @@ def kernel_timing(what, args, kw, bound_ms, card, reps=100) -> dict:
             info["smem_bytes"]) != tuple(geo[1:]):
         fail(f"{what}: the library launches {info}, the wrapper's geometry "
              f"is {geo}")
+    resident_check(what, info, nv, m)
 
     def run(body):
         return cuda_ms(lambda: admm_kernel.fused_solve_lanes(
@@ -842,6 +868,39 @@ def kernel_timing(what, args, kw, bound_ms, card, reps=100) -> dict:
           f"shared a block) | {card}", flush=True)
     return {"ms": ms, "turns_ms": turns, "bound_ms": bound_ms,
             "earlier_ms": earlier, **info}
+
+
+def block_split(what, a, k, card, chunk=False) -> dict:
+    """Where a fixed-form block-body solve's time goes (CUDA graphs), or a
+    chunk's with ``chunk``: 0 iterations (staging, and for a solve the w2
+    build and the exit residuals) against all of them, with one lane an SM
+    (a lane's own latency) and with the whole batch."""
+    import torch
+
+    from tpu_aerial_transport_torch.ops import admm_kernel
+
+    fn = (admm_kernel.admm_chunk_lanes if chunk
+          else admm_kernel.fused_solve_lanes)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    B, iters = a[0].shape[0], k["iters"]
+    sizes = (min(n_sm, B), B)
+    ms = {}
+    for b in sizes:
+        a_b = [None if t is None else t[:b].contiguous() for t in a]
+        for it in (0, iters):
+            ms[b, it] = cuda_ms(lambda: fn(*a_b, **dict(k, iters=it)), 100)
+    per_it = {b: (ms[b, iters] - ms[b, 0]) / iters * 1e3 for b in sizes}
+    print(f"block-body split ({what}, d="
+          f"{k['nv'] + a[5 if chunk else 8].shape[-1]}, CUDA graphs): 0 and "
+          f"{iters} iterations at {sizes[0]} lanes (one an SM) "
+          f"{ms[sizes[0], 0]:.4f} and {ms[sizes[0], iters]:.4f} ms, at {B} "
+          f"lanes {ms[B, 0]:.4f} and {ms[B, iters]:.4f} ms: staging"
+          + ("" if chunk else ", w2 and exit residuals")
+          + f" {ms[B, 0]:.4f} ms, {per_it[B]:.3f} us an iteration "
+          f"({per_it[sizes[0]]:.3f} us for a lane alone) | {card}",
+          flush=True)
+    return {"ms": {f"B{b}_iters{i}": v for (b, i), v in ms.items()},
+            "us_per_iteration": {f"B{b}": v for b, v in per_it.items()}}
 
 
 def solve_row(timing, launches, err, plain_ms, bound_by) -> dict:
@@ -1452,6 +1511,8 @@ def chunk_timing(what, a, k, card, forms, reps=100) -> dict:
                 info["smem_bytes"]) != tuple(geo[2:]):
             fail(f"{what}: the library launches {info}, the wrapper's "
                  f"geometry is {geo}")
+        if body == "block":
+            resident_check(what, info, nv, m, chunk=True)
         t = turns[body, x_rows]
         ms = sum(t) / len(t)
         label = f"{info['name']}" + (f"[{x_rows}]" if x_rows else "")
@@ -1582,6 +1643,8 @@ def chunk_phases(card, report, css0, states0, dd_args, lanes):
         "full_qp_d72": chunk_timing("the full QP at n = 8", f_args, f_kw,
                                     card, ((None, None),)),
     }
+    timing["full_qp_d72"]["split"] = block_split(
+        "the full QP's chunk at n = 8", f_args, f_kw, card, chunk=True)
     w_ms = timing["headline"]["forms"]["warp_chunk_kernel[split]"]["ms"]
     w_plain = cuda_ms(
         lambda: admm_kernel.admm_chunk_lanes_reference(*c_args, **c_kw), 5)
@@ -1856,6 +1919,8 @@ def full_qp_phase(card, report):
         b_ms, b_by = bound(bytes_, flops)
         timing = kernel_timing(f"{what}'s first consensus iteration", a, k,
                                b_ms, card)
+        if form == "fused_solve":
+            timing["split"] = block_split(what, a, k, card)
         rows.append(solve_row(timing, launches[form], err, plain, b_by))
         report["full_qp_n8"][form] = {
             "scenario_mpc_steps_per_s": N_SCENARIOS * CHUNK_STEPS / secs,
@@ -4300,6 +4365,8 @@ def rp_phase(card, report):
     report["rp"]["kernel_checks"] = checks
     for (case, a, k), controller in zip(cases, ("centralized", "cadmm")):
         timing, plain, b_by = fixed_timing(case, a, k, card)
+        if controller == "centralized":
+            timing["split"] = block_split(case, a, k, card)
         row = solve_row(timing, report["rp"][controller]["launches"][
             "fused_solve"], max(checks[case]["max_abs_err"].values()), plain,
             b_by)
@@ -5684,12 +5751,6 @@ def serving_session_checks(card, server, fam):
             "slow_rungs": rungs}
 
 
-# The K2 row layouts compared by ``--k2-chains``: (chains, the longest row
-# summed in one chain). Chains 1 is one chain at every shape; (8, 64) is
-# the shipped layout.
-K2_VARIANTS = ((1, 128), (2, 64), (4, 64), (8, 64), (16, 64))
-
-
 def have_matplotlib() -> bool:
     import importlib.util
 
@@ -6947,236 +7008,6 @@ def bundle_phase(card, report):
             "ring_sum": probe["ring_sum"]}
 
 
-def k2_cases():
-    """The shared-memory body's inputs at every shape it takes on a path,
-    captured from the path's first launch: the entry step (d = 67, B = 1),
-    the centralized steps at n = 3 and 4 (d = 67 and 79, 256 lanes, 120
-    iterations, early exit), C-ADMM with the full agent QP (d = 72, 2048
-    lanes, 20 fixed), a served ``centralized4`` chunk (d = 79, 256 lanes, 4
-    iterations, early exit; and at 4 lanes, as ``tests/test_torch_card.py``
-    serves it), the RP centralized step (d = 111, 256 lanes,
-    150 fixed) and the PMRL step (d = 111, 256 lanes, at most 150, early
-    exit decided by rounding). ``{name: (args, kw)}`` on the card."""
-    import numpy as np
-    import torch
-
-    from tpu_aerial_transport_torch import entry
-    from tpu_aerial_transport_torch.control import (
-        pmrl_centralized,
-        rp_centralized,
-    )
-    from tpu_aerial_transport_torch.harness import rollout, setup
-    from tpu_aerial_transport_torch.ops import admm_kernel
-    from tpu_aerial_transport_torch.serving import batcher
-    from tpu_aerial_transport_torch.serving import server as server_mod
-    from tpu_aerial_transport_torch.serving.queue import ScenarioRequest
-
-    cases = {}
-
-    def grab(name, fn):
-        args = []
-        with capturing(admm_kernel, "fused_solve_lanes", args):
-            fn()
-        torch.cuda.synchronize()
-        cases[name] = args[0]
-
-    step_e, (cs0, st0, acc) = entry.entry()
-    grab("entry_d67_B1", lambda: step_e(cs0, st0, acc))
-    for n, d in ((3, 67), (4, 79)):
-        step_n, css0, st0_n = workload("centralized", n, N_SCENARIOS)
-        grab(f"central_d{d}_B256", lambda: step_n(css0, st0_n))
-    step, css0, st0 = workload("cadmm", N_AGENTS, N_SCENARIOS,
-                               reduced_qp=False, pad_operators=True,
-                               effort="fixed")
-    grab("full_qp_d72_B2048", lambda: step(css0, st0))
-    rng = np.random.default_rng(0)
-    srv = server_mod.ScenarioServer(
-        families=[batcher.make_family("centralized4", "cuda")],
-        buckets=(N_SCENARIOS,), capacity=N_SCENARIOS, device="cuda")
-    reqs = [ScenarioRequest(
-        family="centralized4", horizon=2,
-        x0=tuple(float(v) for v in rng.normal(0.0, 1.0, 3)),
-        v0=tuple(float(v) for v in rng.normal(0.0, 0.2, 3)),
-        request_id=f"k{i}") for i in range(N_SCENARIOS)]
-    grab("served_central4_d79_B256", lambda: serve_drain(srv, reqs))
-    srv4 = server_mod.ScenarioServer(
-        families=[batcher.make_family("centralized4", "cuda")],
-        buckets=(4,), device="cuda")
-    grab("served_central4_d79_B4", lambda: serve_drain(srv4, [
-        ScenarioRequest(family="centralized4", horizon=2,
-                        x0=(0.2 * i, 0.1, 1.0), request_id=f"q{i}")
-        for i in range(4)]))
-    params, _, state0 = setup.rp_setup(N_AGENTS, device="cuda")
-    f_eq = rp_centralized.equilibrium_forces(params)
-    cfg = rp_centralized.make_config(params)
-    cs = rollout.stack_scenarios(rp_centralized.init_ctrl_state(params, cfg),
-                                 N_SCENARIOS)
-    states, phase = rp_starts(state0, N_SCENARIOS)
-    grab("rp_central_d111_B256", lambda: rp_centralized.control(
-        params, cfg, f_eq, cs, states, circle_acc(0, states, phase)))
-    params, _, state0 = setup.pmrl_setup(N_AGENTS, device="cuda")
-    cfg = pmrl_centralized.make_config(params)
-    cs = rollout.stack_scenarios(
-        pmrl_centralized.init_ctrl_state(params, cfg, state0), N_SCENARIOS)
-    states, target = pmrl_starts(state0, N_SCENARIOS)
-    grab("pmrl_d111_B256", lambda: pmrl_steps(params, cfg, cs, states,
-                                              target, 1))
-    return cases
-
-
-def sass_counts(lib: str, kernel: str) -> dict | None:
-    """Instructions of ``kernel`` in the built library ``lib`` by opcode
-    (``cuobjdump -sass``), or None without cuobjdump."""
-    import re
-    import shutil
-
-    tool = (shutil.which("cuobjdump")
-            or ("/usr/local/cuda/bin/cuobjdump"
-                if os.path.exists("/usr/local/cuda/bin/cuobjdump") else None))
-    if tool is None:
-        return None
-    out = subprocess.run([tool, "-sass", lib], capture_output=True,
-                         text=True, timeout=300).stdout
-    counts, on = {}, False
-    for line in out.splitlines():
-        if "Function :" in line:
-            on = line.split("Function :")[1].strip() == kernel
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
-                     line)
-        if on and m:
-            op = m.group(1).split(".")[0]
-            counts[op] = counts.get(op, 0) + 1
-    return counts or None
-
-
-def k2_variant(chains: int, one_max: int, inputs: str, build_only: bool):
-    """One K2 row layout, built with -D into its own library: with
-    ``build_only`` the build alone; else each captured case through it,
-    held against the plain version (the smoke's kernel bar; early-exit
-    cases also in their fixed form) and timed (CUDA graph, 50 calls), and
-    the fixed-iteration block body's instructions counted. Prints one JSON
-    line."""
-    import torch
-
-    from tpu_aerial_transport_torch.ops import _build, admm_kernel
-
-    _build.NVCC_FLAGS = _build.NVCC_FLAGS + (
-        f"-DK2_CHAINS={chains}", f"-DK2_ONE_CHAIN_MAX_D={one_max}")
-    t0 = time.perf_counter()
-    _build.build(("fused_solve",))
-    if build_only:
-        print(json.dumps({"built_s": time.perf_counter() - t0}), flush=True)
-        return 0
-    cases = torch.load(inputs, weights_only=False)
-    names = ("x", "y", "z", "prim_res", "dual_res")
-    out = {"chains": chains, "one_chain_max_d": one_max, "cases": {}}
-    for case, (a, k) in cases.items():
-        a = [None if t is None else t.cuda() for t in a]
-        forms = [("", a, k)]
-        if admm_kernel._early(k.get("check_every", 0), k.get("tol", 0.0)):
-            forms.append(("_fixed", *fixed_form(a, k)))
-        for suffix, fa, fk in forms:
-            got = admm_kernel.fused_solve_lanes(*fa, **fk)
-            ref = admm_kernel.fused_solve_lanes_reference(*fa, **fk)
-            ref64 = plain64(fa, fk)
-            lanes = None
-            row = {}
-            if len(got) > 5:
-                same = got[5] == ref[5]
-                row["eff_equal_share"] = float(same.float().mean())
-                lanes = same & (ref64[5] == ref[5])
-            errs, noise, ok = agreement(names, got[:5], ref[:5], ref64[:5],
-                                        lanes)
-            ratio = {}
-            for nm, r in zip(names, ref[:5]):
-                r = r if lanes is None else r[lanes]
-                if not r.numel():
-                    ratio[nm] = 0.0
-                    continue
-                bar = max(KERNEL_ATOL * max(1.0, float(r.abs().max())),
-                          ROUNDING_FACTOR * noise[nm])
-                ratio[nm] = errs[nm] / bar
-            row["lanes_compared"] = (int(got[0].shape[0]) if lanes is None
-                                     else int(lanes.sum()))
-            if case.startswith("pmrl") and not suffix:
-                # Rounding decides PMRL's stops: phase 35's rule.
-                share64 = float((ref[5] != ref64[5]).float().mean())
-                row["eff_differ_bar"] = flip_bar(share64, got[5].shape[0])
-                ok = (ok and stopped_within_tol(got, fa, fk)
-                      and 1.0 - row["eff_equal_share"]
-                      <= row["eff_differ_bar"])
-            elif "eff_equal_share" in row:
-                ok = ok and row["eff_equal_share"] >= EFF_EQUAL_SHARE
-            row.update(ok=ok, err_over_bar=max(ratio.values()),
-                       worst=max(ratio, key=ratio.get),
-                       ms=cuda_ms(lambda: admm_kernel.fused_solve_lanes(
-                           *fa, **fk), 50))
-            out["cases"][case + suffix] = row
-    out["sass_fused_solve_kernel"] = sass_counts(
-        _build.library_path("fused_solve"),
-        "_Z18fused_solve_kernelPKfS0_S0_S0_S0_S0_S0_S0_S0_S0_S0_S0_S0_"
-        "PfS1_S1_S1_Piiiiiififf7SocDimsi")
-    print(json.dumps(out), flush=True)
-    return 0
-
-
-def k2_chains(card) -> int:
-    """``--k2-chains``: the shared-memory body's K2 row layouts
-    (K2_VARIANTS) on the captured inputs of every shape it takes, each
-    layout's build in a child of its own (all built at once, then run one
-    at a time): per case the error over the kernel bar and ms a launch;
-    the table to standard output and ``chiprun_out/k2_chains.json``."""
-    import torch
-
-    from tpu_aerial_transport_torch.ops import _build
-
-    _build.build()
-    out_dir = os.path.join(HERE, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    inputs = os.path.join(HERE, "build", "k2_inputs.pt")
-    os.makedirs(os.path.dirname(inputs), exist_ok=True)
-    cases = k2_cases()
-    torch.save({c: ([None if t is None else t.cpu() for t in a], k)
-                for c, (a, k) in cases.items()}, inputs)
-    print(f"k2 layouts: cases {sorted(cases)} | {card}", flush=True)
-
-    def child(v, build_only):
-        return subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--k2-variant",
-             *map(str, v), inputs] + (["--build-only"]
-                                              if build_only else []),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            cwd=HERE)
-
-    t0 = time.perf_counter()
-    builds = [child(v, True) for v in K2_VARIANTS]
-    for v, p in zip(K2_VARIANTS, builds):
-        so, se = p.communicate(timeout=900)
-        if p.returncode:
-            fail(f"k2 layout {v}: build exited {p.returncode}: {se[-2000:]}")
-    print(f"k2 layouts: {len(K2_VARIANTS)} builds at once in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rows = []
-    for v in K2_VARIANTS:
-        p = child(v, False)
-        so, se = p.communicate(timeout=900)
-        if p.returncode:
-            fail(f"k2 layout {v}: exited {p.returncode}: {se[-2000:]}")
-        row = json.loads(so.strip().splitlines()[-1])
-        rows.append(row)
-        print(f"k2 layout {v[0]} chains (one chain up to d = {v[1]}): "
-              + "; ".join(f"{c} {r['ms']:.4f} ms, err/bar "
-                          f"{r['err_over_bar']:.3f} ({r['worst']})"
-                          + ("" if r["ok"] else " FAIL")
-                          for c, r in row["cases"].items())
-              + f" | sass {row['sass_fused_solve_kernel']} | {card}",
-              flush=True)
-    with open(os.path.join(out_dir, "k2_chains.json"), "w") as fh:
-        json.dump({"card": card, "variants": rows}, fh, indent=1)
-    return 0
-
-
 # Phase 42: the float64 oracle (native/) against the whole-solve kernel on
 # the headline's agent QPs, the registry's contracts on the card, and the
 # lint tiers. The oracle and the float64 plain version are two float64
@@ -7633,11 +7464,6 @@ def main() -> int:
         return serving_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--driver-child"]:
         return driver_child(sys.argv[2])
-    if sys.argv[1:2] == ["--k2-variant"]:
-        return k2_variant(*map(int, sys.argv[2:4]), sys.argv[4],
-                          "--build-only" in sys.argv)
-    if sys.argv[1:2] == ["--k2-chains"]:
-        return k2_chains(card_line())
     if child:
         mode, run_dir, S = sys.argv[2:5]
         return recovery_child(mode, run_dir, int(S))

@@ -68,34 +68,50 @@ def test_agent_qps_take_the_warp_body(controller, n, nv, m, lane_floats):
                               geo.smem_bytes)
 
 
-@pytest.mark.parametrize("n,d,threads", [(3, 67, 96), (4, 79, 96),
-                                         (8, 127, 128)])
-def test_centralized_qps_take_the_shared_memory_body(n, d, threads):
-    """The centralized QPs (m > 32) keep one block of whole warps per lane
-    with every operator in shared memory."""
+# The register-row layout's shared memory a lane, in floats, region by
+# region (csrc/admm_common.cuh rb_smem, one thread a K2 row): K2 at d's
+# stride, Minv and P (nv rows) and A (m rows) at nv's stride, each rounded
+# to whole 16-byte words; two u buffers of the instantiation's row length
+# at an odd count of 16-byte words (d <= 72: 76; <= 80: 84; <= 112: 116;
+# <= 128: 132); d, m and 68 floats of scratch, each whole words. A stride is
+# k | 1 for k not a multiple of 4, else an odd count of 16-byte words.
+@pytest.mark.parametrize("n,d,threads,lane_floats", [
+    # nv = 18, m = 49: 67 x 67, 2 x 18 x 19, 49 x 19, 2 x 76, 68, 52, 68.
+    (3, 67, 96, 4492 + 2 * 344 + 932 + 2 * 76 + 68 + 52 + 68),
+    # nv = 21, m = 58: 79 x 79, 2 x 21 x 21, 58 x 21, 2 x 84, 80, 60, 68.
+    (4, 79, 96, 6244 + 2 * 444 + 1220 + 2 * 84 + 80 + 60 + 68),
+    # nv = 33, m = 94: 127 x 127, 2 x 33 x 33, 94 x 33, 2 x 132, 128, 96, 68.
+    (8, 127, 128, 16132 + 2 * 1092 + 3104 + 2 * 132 + 128 + 96 + 68),
+])
+def test_centralized_qps_take_the_shared_memory_body(n, d, threads,
+                                                     lane_floats):
+    """The centralized QPs (m > 32) keep one block of whole warps per lane,
+    one thread a K2 row held in registers (staged once through shared
+    memory), Minv, P and A in shared memory."""
     nv, m, n_box, soc = _central_dims(n)
-    assert nv + m == d
+    assert nv + m == d and admm_kernel.register_rows(d)
     geo = admm_kernel.fused_solve_geometry(nv, m)
-    assert geo == admm_kernel.Geometry(
-        "shared", 1, threads, admm_kernel.fused_solve_smem_bytes(nv, m))
+    assert geo == admm_kernel.Geometry("shared", 1, threads, 4 * lane_floats)
     admm_kernel._check_layout("fused_solve", nv, m, n_box, soc, 120,
                               geo.smem_bytes)
 
 
 @pytest.mark.parametrize("n,route,threads,smem", [
-    # 4 (d (d|1) + (2 nv + m) (nv|1) + 2 d + 66): n = 3, nv = 15, m = 36.
+    # d = 51, K2 in shared memory: 4 (d (d|1) + (2 nv + m) (nv|1) + 2 d +
+    # 66), nv = 15, m = 36.
     (3, "kernel", 64, 4 * (51 * 51 + 66 * 15 + 102 + 66)),
-    # n = 8, nv = 30, m = 81: above the 48 KB default, 16 SOC blocks.
-    (8, "kernel", 128, 4 * (111 * 111 + 141 * 31 + 222 + 66)),
+    # n = 8, d = 111 in registers: 111 x 111, 2 x 30 x 31, 81 x 31, 2 x 116,
+    # 112, 84, 68 (above the 48 KB default, 16 SOC blocks).
+    (8, "kernel", 128, 4 * (12324 + 2 * 932 + 2512 + 2 * 116 + 112 + 84
+                            + 68)),
     (9, "scan", None, None),  # 18 SOC blocks.
 ])
 def test_rp_and_pmrl_qps_take_the_shared_memory_body(n, route, threads,
                                                      smem):
     """The RP and PMRL controllers' QP (m = 9n + 9 > 32 rows) takes the
-    whole-solve kernel's shared-memory body up to n = 8 (67,920 B of
-    shared memory at d = 111, exactly MAX_SOC_BLOCKS blocks) and route
-    "scan" from n = 9; the controllers' fixed and early-exit solves
-    resolve alike."""
+    whole-solve kernel's block body up to n = 8 (68,784 B of shared memory
+    at d = 111, exactly MAX_SOC_BLOCKS blocks) and route "scan" from n = 9;
+    the controllers' fixed and early-exit solves resolve alike."""
     nv = 6 + 3 * n
     n_box, m, soc = rp_centralized.qp_dims(n)
     assert pmrl_centralized.qp_dims(n) == (n_box, m, soc)
@@ -207,20 +223,24 @@ def test_agent_qps_take_the_warp_chunk_body(controller, n, nv, m, x_rows,
                               geo.smem_bytes)
 
 
-@pytest.mark.parametrize("nv,m,threads", [
-    (40, 32, 96),  # C-ADMM's full QP at n = 8, padded: d = 72.
-    (33, 31, 64), (12, 33, 64),  # d = 64, one side past 32.
-    (57, 94, 160),  # a centralized-sized QP.
+@pytest.mark.parametrize("nv,m,threads,lane_floats", [
+    # C-ADMM's full QP at n = 8, padded: d = 72, K2 rows in registers (72 x
+    # 76 staged), two u buffers of 76, m.
+    (40, 32, 96, 72 * 76 + 2 * 76 + 32),
+    # d = 64 and 45, one side past 32, and a centralized-sized QP (d = 151):
+    # K2 in shared memory at an odd stride, two d-vectors.
+    (33, 31, 64, 64 * 65 + 2 * 64), (12, 33, 64, 45 * 45 + 2 * 45),
+    (57, 94, 160, 151 * 151 + 2 * 151),
 ])
-def test_chunk_shapes_beyond_the_warp_take_the_block_body(nv, m, threads):
+def test_chunk_shapes_beyond_the_warp_take_the_block_body(nv, m, threads,
+                                                          lane_floats):
     """Past 32 x rows or 32 constraint rows the chunk kernel keeps one
-    block of whole warps a lane with K2 in shared memory (odd row stride,
-    two d-vectors); the warp body cannot be forced there, and the split
-    layout only up to 16 x rows."""
-    d = nv + m
+    block of whole warps a lane, one thread a K2 row: held in registers
+    where d is 65 to 128, else read from shared memory; the warp body
+    cannot be forced there, and the split layout only up to 16 x rows."""
     geo = admm_kernel.admm_chunk_geometry(nv, m)
-    assert geo == admm_kernel.ChunkGeometry(
-        "block", None, 1, threads, 4 * (d * (d | 1) + 2 * d))
+    assert geo == admm_kernel.ChunkGeometry("block", None, 1, threads,
+                                            4 * lane_floats)
     with pytest.raises(ValueError, match="warp"):
         admm_kernel.admm_chunk_geometry(nv, m, "warp")
     with pytest.raises(ValueError, match="split"):
@@ -228,6 +248,40 @@ def test_chunk_shapes_beyond_the_warp_take_the_block_body(nv, m, threads):
     assert admm_kernel.admm_chunk_geometry(16, 32, "block").body == "block"
     assert admm_kernel.admm_chunk_geometry(
         16, 32, "warp", "shared").smem_bytes == 4 * 4 * (48 + 16 * 52)
+
+
+@pytest.mark.parametrize("nv,m,chunk,lanes", [
+    (40, 32, False, 4),  # the full QP at n = 8, 2048 lanes.
+    (40, 32, True, 5),  # its chunk (route "pallas").
+    (30, 81, False, 2),  # RP and PMRL at n = 8.
+    (30, 81, True, 2),
+])
+def test_block_body_residency(nv, m, chunk, lanes):
+    """The register-row layout keeps ``lanes`` lanes an SM, and its
+    registers are what set that: the launch bound's budget a thread (read
+    from csrc/admm_common.cuh, where the bound takes it: up to d = 80, 168
+    for the whole solve and 136 for the chunk; 255 above), allocated 256
+    registers a warp, fits that many lanes' warps in the SM's 65,536
+    registers and not one more, while their shared memory (with the 1 KB a
+    block the runtime reserves) and threads would fit one more."""
+    budgets = admm_kernel._row_register_budgets()
+    d = nv + m
+    budget = (budgets["RB_LONG_REGS"] if d > budgets["RB_SHORT_D"]
+              else budgets["RB_CHUNK_SHORT_REGS" if chunk
+                           else "RB_SOLVE_SHORT_REGS"])
+    geo = (admm_kernel.admm_chunk_geometry(nv, m) if chunk
+           else admm_kernel.fused_solve_geometry(nv, m))
+    assert geo.threads == _round_up32(d)
+    lane_regs = geo.threads // 32 * -(-32 * budget // 256) * 256
+    assert lanes * lane_regs <= 65536 < (lanes + 1) * lane_regs
+    assert (lanes + 1) * (geo.smem_bytes + BLOCK_RESERVED_BYTES) \
+        <= SM_SMEM_BYTES
+    assert (lanes + 1) * geo.threads <= 2048
+    assert admm_kernel.block_lanes_per_sm(nv, m, chunk) == lanes
+
+
+def _round_up32(k):
+    return -(-k // 32) * 32
 
 
 # (nv, m, n_box, soc_dims) of the solves the port runs: the centralized QPs
@@ -293,3 +347,47 @@ def test_route_resolver_boundary_and_bad_routes():
     for bad in ("interpret", "kernel_interpret", "turbo"):
         with pytest.raises(ValueError, match="socp_fused"):
             socp.runtime_fused_mode(bad, 16, 32, 24, (4, 4))
+
+
+def _parent_fits(nv, m, soc):
+    """The kernels' admission before the register-row layout, written out:
+    at most 16 SOC blocks, d at most 256, and the one-thread-a-row
+    footprint (whole solve: K2 at an odd stride, Minv, P and A at an odd
+    stride, two d-vectors and 66 floats of scratch; chunk: K2 and two
+    d-vectors) within 232,448 B, for the body the shape alone picks."""
+    d = nv + m
+    warp = nv <= 32 and m <= 32
+    if warp:
+        solve = 4 * 4 * ((m + nv) * admm_kernel._ld16(nv)
+                         + nv * admm_kernel._ld16(-(-d // 8) * 8)
+                         + -(-d // 8) * 8 + -(-m // 4) * 4)
+        chunk = 4 * 4 * (-(-d // 8) * 8 + (
+            0 if nv <= 16 else nv * admm_kernel._ld16(-(-d // 8) * 8)))
+    else:
+        solve = 4 * (d * (d | 1) + (2 * nv + m) * (nv | 1) + 2 * d + 66)
+        chunk = 4 * (d * (d | 1) + 2 * d)
+    ok = len(soc) <= 16 and d <= 256
+    return ok and solve <= 232448, ok and chunk <= 232448
+
+
+@pytest.mark.parametrize("shape", list(_SHAPES), ids=list(_SHAPES))
+def test_fits_answers_are_the_parents(shape):
+    """Every shape the port solves gets the whole-solve and chunk kernels'
+    admission it got before the register-row layout: the new footprint
+    lets no kernel take a shape it refused, so no solve changes route."""
+    nv, m, n_box, soc = _SHAPES[shape]
+    assert (admm_kernel.fused_solve_fits(nv, m, n_box, soc),
+            admm_kernel.admm_chunk_fits(nv, m, n_box, soc)) == \
+        _parent_fits(nv, m, soc)
+
+
+def test_fits_answers_are_the_parents_at_every_size():
+    """The same over every (nv, m) whose footprint the register-row layout
+    sets (d from ROW_MIN_D to ROW_MAX_D, and a margin each side) or that
+    lies near the shared-memory cap (d >= 228), four SOC blocks."""
+    sizes = [(nv, m) for nv in range(1, 256) for m in range(1, 257 - nv)
+             if 60 <= nv + m <= 132 or nv + m >= 228]
+    for nv, m in sizes:
+        got = (admm_kernel.fused_solve_fits(nv, m, 0, (4,) * 4),
+               admm_kernel.admm_chunk_fits(nv, m, 0, (4,) * 4))
+        assert got == _parent_fits(nv, m, (4,) * 4), (nv, m)

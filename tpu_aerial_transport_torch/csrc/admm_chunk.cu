@@ -53,9 +53,15 @@
 //   DR = 48 and beats WC_SHARED there (chip_smoke.py phase 9 times both).
 // - otherwise (C-ADMM's full QP at n = 8, d = 72; larger shapes): one block
 //   per lane (admm_chunk_kernel), one thread per row of K2 (d rows, rounded
-//   up to whole warps), K2 staged once into shared memory with an odd row
-//   stride; the iteration body is admm_common.cuh admm_iteration, two block
-//   barriers an iteration.
+//   up to whole warps), in the whole-solve kernel's two layouts
+//   (admm_common.cuh). From d = 65 to 128 the thread holds its K2 row in
+//   registers, staged once by cp.async, and the iteration is rb_iteration:
+//   u as 16-byte broadcasts from one of two buffers, one barrier, SOC norms
+//   by shuffles; a budget of 136 registers keeps 5 lanes an SM up to d =
+//   80. What bounds it on an H100: the chunk reads K2 once and iterates, so
+//   at d = 72 a lane's chain of about 0.63 us an iteration, over the lanes
+//   an SM holds, sets the time, several times the bytes it must read.
+//   Other d keep K2 in shared memory (admm_iteration, two barriers).
 
 #include "warp_common.cuh"
 
@@ -63,8 +69,12 @@
 // The block body: one block per lane.
 // ---------------------------------------------------------------------------
 
+// One lane's shared memory in floats: the shared-row layout's K2 (odd row
+// stride) and two d-vectors; the register-row layout's regions where it
+// takes d (admm_common.cuh rb_smem).
 static __host__ __device__ size_t chunk_smem_floats(int nv, int m) {
   const int d = nv + m;
+  if (rb_takes(d)) return rb_smem(nv, m, false).total;
   return (size_t)d * fs_odd(d) + 2 * (size_t)d;
 }
 
@@ -78,8 +88,9 @@ static __host__ __device__ size_t chunk_smem_floats(int nv, int m) {
       int n_box, int iters, int has_shift, float alpha,                      \
       float one_minus_alpha, SocDims soc, int B
 
-// The block body's grid is one block a lane (B unused).
-__global__ void admm_chunk_kernel(CHUNK_PARAMS) {
+// The block body in the shared-row layout: K2 in shared memory, one thread
+// a row (admm_common.cuh admm_iteration).
+__device__ __forceinline__ void chunk_lane(CHUNK_PARAMS) {
   extern __shared__ float smem[];
   const long long lane = blockIdx.x;
   const int tid = threadIdx.x;
@@ -126,6 +137,79 @@ __global__ void admm_chunk_kernel(CHUNK_PARAMS) {
     yo[lane * m + r] = y;
     zo[lane * m + r] = z;
   }
+}
+
+// The block body in the register-row layout (rb_takes(d)): K2's rows in
+// registers, one thread a row (admm_common.cuh rb_iteration).
+template <int DR>
+__device__ __forceinline__ void rb_chunk_lane(CHUNK_PARAMS) {
+  extern __shared__ float4 rb_smem4[];
+  float* smem = reinterpret_cast<float*>(rb_smem4);
+  const long long lane = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int d = nv + m;
+  const int ldd = rb_ld(d);
+  const int usz = rb_ld16(DR);
+  const RbSmem L = rb_smem(nv, m, false);
+  float* sK2 = smem + L.k2;
+  float* su = smem + L.u;  // two u buffers.
+  float* szs = smem + L.zs;
+
+  // Every entry of both u buffers is zero until written: the entries past
+  // d meet zero K2 entries and must add exactly nothing.
+  for (int e = tid; e < 2 * usz; e += nth) su[e] = 0.f;
+  int ldk;
+  const float* k2 =
+      rb_stage_k2(sK2, ldd, K2g + lane * d * d, d, tid, nth, &ldk);
+  RbRow s;
+  rb_map(s, tid, nv, m, n_box, soc);
+  rb_load_row(s, lane, nv, m, n_box, x0g, y0g, z0g, rhog, lbg, ubg, shiftg,
+              has_shift);
+  if (s.kind != RB_NONE) s.w = w2g[lane * d + s.i];
+  int soc_max;
+  const bool shfl = rb_soc_in_warps(soc, &soc_max);
+  const bool warp_soc = (tid >> 5) * 32 < m - n_box;
+  rb_cp_async_wait();
+  __syncthreads();
+
+  float kr[DR];
+  rb_load_k2(kr, k2, ldk, s, d);
+  rb_put_u(su, s);
+  for (int it = 0; it < iters; ++it) {
+    const int b = it & 1;
+    __syncthreads();
+    rb_iteration(kr, su + b * usz, su + (b ^ 1) * usz, szs, warp_soc, shfl,
+                 soc_max, has_shift, alpha, one_minus_alpha, s);
+  }
+
+  if (s.kind == RB_X) {
+    xo[lane * nv + s.i] = s.x;
+  } else if (s.kind != RB_NONE) {
+    yo[lane * m + s.r] = s.y;
+    zo[lane * m + s.r] = s.z;
+  }
+}
+
+// The block body's grid is one block a lane (B unused); its name is two
+// overloads, one a layout. The shared-row layout has no launch bound: the
+// compiler's own choice (32 registers a thread at d = 48) keeps 21 lanes an
+// SM, where a 256-thread bound took 106 and 8 lanes, and ran slower on an
+// H100.
+__global__ void admm_chunk_kernel(CHUNK_PARAMS) {
+  chunk_lane(K2g, w2g, rhog, lbg, ubg, shiftg, x0g, y0g, z0g, xo, yo, zo, nv,
+             m, n_box, iters, has_shift, alpha, one_minus_alpha, soc, B);
+}
+
+// The register-row layout, DR the longest row of the instantiation, its
+// register budget rb_budget's (admm_common.cuh RB_CHUNK_SHORT_REGS,
+// RB_LONG_REGS).
+template <int DR>
+__global__ void __launch_bounds__(rb_threads(DR), rb_min_blocks(DR, false))
+    admm_chunk_kernel(CHUNK_PARAMS) {
+  rb_chunk_lane<DR>(K2g, w2g, rhog, lbg, ubg, shiftg, x0g, y0g, z0g, xo, yo,
+                    zo, nv, m, n_box, iters, has_shift, alpha,
+                    one_minus_alpha, soc, B);
 }
 
 // ---------------------------------------------------------------------------
@@ -258,10 +342,20 @@ struct WcLaunch {
 
 static WcLaunch wc_launch_of(int body, int xr, int nv, int m) {
   const int d = nv + m;
-  WcLaunch l = {nullptr, 1, ((d + 31) / 32) * 32,
+  WcLaunch l = {nullptr, 1,
+                rb_threads(d),
                 chunk_smem_floats(nv, m) * sizeof(float)};
   if (body == 0) {
-    l.fn = (const void*)admm_chunk_kernel;
+    switch (rb_takes(d) ? rb_bucket(d) : 0) {
+      case 0:  // the shared-row overload: its type names no DR.
+        l.fn = (const void*)static_cast<void (*)(CHUNK_PARAMS)>(
+            admm_chunk_kernel);
+        break;
+      case 72: l.fn = (const void*)admm_chunk_kernel<72>; break;
+      case 80: l.fn = (const void*)admm_chunk_kernel<80>; break;
+      case 112: l.fn = (const void*)admm_chunk_kernel<112>; break;
+      default: l.fn = (const void*)admm_chunk_kernel<RB_MAX_D>; break;
+    }
     return l;
   }
   if (body != 1 || nv > WS_MAX_ROWS || m > WS_MAX_ROWS || xr < WC_SHARED ||

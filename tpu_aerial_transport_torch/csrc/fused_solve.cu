@@ -36,10 +36,10 @@
 // cone, radial shrink otherwise, with the nrm > 0 guard) to each block, all
 // after adding `shift` and before subtracting it again (has_shift = 0 adds
 // nothing). The warp body sums every K2 row in one chain, j = 0..d-1, one
-// FMA a term (d <= 64); the shared-memory body (d > 64 at every shape it
-// takes: 67, 72, 79, 111) sums a row in eight chains added pairwise
-// (admm_common.cuh admm_iteration), which keeps its rounding within the
-// kernel bar of the plain version's.
+// FMA a term (d <= 64); the block body (d > 64 at every shape it takes on a
+// path: 67, 72, 79, 111) sums a row in eight chains added pairwise
+// (admm_common.cuh K2_CHAINS), which keeps its rounding within the kernel
+// bar of the plain version's.
 //
 // What bounds it: at the C-ADMM headline (2048 lanes, nv = 16, m = 32,
 // n_box = 24, d = 48, 20 iterations) one launch must read 14,472 B a lane,
@@ -79,11 +79,25 @@
 //   shared-memory pipe; holding the x rows in registers as well would
 //   need more than the 128 registers that keep 16 lanes an SM.
 // - otherwise (the centralized QPs: d = 67 at the entry, 79 at n = 4, up
-//   to 127; C-ADMM's full QP from n = 8): one block per lane, one thread
-//   per row of K2 (d rows, rounded up to whole warps), every operator
-//   staged once into shared memory with odd row strides; the stop decision
-//   is reduced over the block and read back behind a barrier, so every
-//   thread takes it together.
+//   to 127; C-ADMM's full QP from n = 8, d = 72; RP and PMRL, d = 111):
+//   one block per lane, one thread per row of K2 (d rows, rounded up to
+//   whole warps); the stop decision is reduced over the block and read
+//   back behind a barrier, so every thread takes it together. Two layouts
+//   by d (admm_common.cuh). From d = 65 to 128 each thread holds its K2
+//   row in registers (instantiations by the longest row they take: 72, 80,
+//   112, 128; a row is summed to that length, zero past d, with no test in
+//   the loop), staged once through shared memory by cp.async with Minv, P
+//   and A, which the w2 build and the residuals read there. An iteration
+//   reads u as 16-byte broadcasts from one of two buffers (one barrier),
+//   starts y / rho before the row sum, and gathers each SOC block by warp
+//   shuffles. The register budget (rb_budget) keeps 4 lanes an SM up
+//   to d = 80 and 2 above. What bounds it on an H100: a lane's iteration is
+//   a chain of dependent steps (the row sum, the divisions, the norm's
+//   shuffles and square root) of about 0.63 us, and the batch's time is
+//   the iterations times that chain over the lanes an SM holds, plus the
+//   staging: about 4x the byte bound at d = 72 x 2048, 9x the operation
+//   bound at d = 111 x 256. Other d keep K2 in shared memory
+//   (admm_iteration).
 //
 // The warp body's staging, broadcasts and projection live in
 // warp_common.cuh, shared with the chunk kernel's warp body.
@@ -91,16 +105,21 @@
 #include "warp_common.cuh"
 
 // ---------------------------------------------------------------------------
-// The shared-memory body: one block per lane (every other shape).
+// The block body: one block per lane (every other shape).
 // ---------------------------------------------------------------------------
 
+// One lane's shared memory in floats: the shared-row layout's K2, Minv, P,
+// A (odd row strides), two d-vectors and the reduction scratch; the
+// register-row layout's regions where it takes d (admm_common.cuh rb_smem).
 static __host__ __device__ size_t fs_smem_floats(int nv, int m) {
   const int d = nv + m;
+  if (rb_takes(d)) return rb_smem(nv, m, true).total;
   return (size_t)d * fs_odd(d) + (size_t)(2 * nv + m) * fs_odd(nv)
          + 2 * (size_t)d + FS_RED_FLOATS;
 }
 
-// OP is the operators' storage type (float or __nv_bfloat16).
+// The shared-row layout (d outside rb_takes). OP is the operators'
+// storage type (float or __nv_bfloat16).
 template <bool EARLY, typename OP>
 __device__ __forceinline__ void fused_solve_lane(
     const OP* __restrict__ K2g, const OP* __restrict__ Minvg,
@@ -240,6 +259,140 @@ __device__ __forceinline__ void fused_solve_lane(
   } else if (is_row) {
     yo[lane * m + r] = y;
     zo[lane * m + r] = z;
+  }
+}
+
+// The block body in the register-row layout (rb_takes(d)): fused_solve_lane's
+// arithmetic, with K2's rows in registers, one thread a row.
+template <bool EARLY, typename OP, int DR>
+__device__ __forceinline__ void rb_solve_lane(
+    const OP* __restrict__ K2g, const OP* __restrict__ Minvg,
+    const OP* __restrict__ Ag, const OP* __restrict__ Pg,
+    const float* __restrict__ qg, const float* __restrict__ rhog,
+    const float* __restrict__ lbg, const float* __restrict__ ubg,
+    const float* __restrict__ shiftg, const float* __restrict__ x0g,
+    const float* __restrict__ y0g, const float* __restrict__ z0g,
+    const float* __restrict__ activeg, float* __restrict__ xo,
+    float* __restrict__ yo, float* __restrict__ zo, float* __restrict__ res,
+    int* __restrict__ effo, int nv, int m, int n_box, int iters,
+    int check_every, float tol, int has_shift, float alpha,
+    float one_minus_alpha, const SocDims& soc) {
+  extern __shared__ float4 rb_smem4[];
+  float* smem = reinterpret_cast<float*>(rb_smem4);
+  const long long lane = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int d = nv + m;
+  const int ldd = rb_ld(d), ldv = rb_ld(nv);
+  const int usz = rb_ld16(DR);
+  const RbSmem L = rb_smem(nv, m, true);
+  float* sK2 = smem + L.k2;
+  float* sMinv = smem + L.minv;
+  float* sP = smem + L.p;
+  float* sA = smem + L.a;
+  float* su = smem + L.u;  // two u buffers.
+  float* sv = smem + L.v;  // q, then wq; x and y for the residuals.
+  float* szs = smem + L.zs;
+  float* sred = smem + L.red;
+
+  // A gated-off lane iterates 0 times: it needs neither K2 nor Minv.
+  const bool gate = !EARLY || activeg == nullptr || activeg[lane] > 0.f;
+
+  // Every entry of both u buffers is zero until written: the entries past
+  // d meet zero K2 entries and must add exactly nothing.
+  for (int e = tid; e < 2 * usz; e += nth) su[e] = 0.f;
+  // Two groups of copies: Minv, P and A, which the w2 build reads, then K2,
+  // which lands while the w2 build runs.
+  if (gate) rb_stage(sMinv, ldv, Minvg + lane * nv * nv, nv, nv, tid, nth);
+  rb_stage(sP, ldv, Pg + lane * nv * nv, nv, nv, tid, nth);
+  rb_stage(sA, ldv, Ag + lane * m * nv, m, nv, tid, nth);
+  rb_cp_async_commit();
+  int ldk = ldd;
+  const float* k2 = sK2;
+  if (gate) k2 = rb_stage_k2(sK2, ldd, K2g + lane * d * d, d, tid, nth, &ldk);
+  rb_cp_async_commit();
+
+  RbRow s;
+  rb_map(s, tid, nv, m, n_box, soc);
+  rb_load_row(s, lane, nv, m, n_box, x0g, y0g, z0g, rhog, lbg, ubg, shiftg,
+              has_shift);
+  if (s.kind == RB_X) {
+    s.q = qg[lane * nv + s.i];
+    sv[s.i] = s.q;
+  }
+  int soc_max;
+  const bool shfl = rb_soc_in_warps(soc, &soc_max);
+  const bool warp_soc = (tid >> 5) * 32 < m - n_box;
+  rb_cp_async_wait_but_last();
+  __syncthreads();
+
+  const bool vec = ldv % 4 == 0 && nv % 4 == 0;
+  float kr[DR];
+  int eff = 0;
+  if (gate) {
+    // qp-build tail: w2 = [Minv q; A (Minv q)], each row keeping its own
+    // entry.
+    if (s.kind == RB_X) s.w = rb_dot(sMinv + s.i * ldv, sv, nv, vec);
+    __syncthreads();
+    if (s.kind == RB_X) sv[s.i] = s.w;
+    __syncthreads();
+    if (s.kind == RB_BOX || s.kind == RB_SOC)
+      s.w = rb_dot(sA + s.r * ldv, sv, nv, vec);
+    rb_put_u(su, s);
+  }
+  rb_cp_async_wait();
+  __syncthreads();
+  rb_load_k2(kr, k2, ldk, s, gate ? d : 0);
+  if (gate) {
+    // One loop of iterations. The early-exit form runs it in chunks, the
+    // masked loop of the reference (ops/admm_kernel.py:442-491) for one
+    // lane: a residual test before each of the iters // check_every
+    // chunks (the first before any iteration), the lane stopping at the
+    // first test that finds it at most tol, then one remainder chunk of
+    // iters % check_every if the lane is still above tol.
+    const int n_full = EARLY ? iters / check_every : 0;
+    const int rem = EARLY ? iters % check_every : 0;
+    int left = EARLY ? 0 : iters, chunks = 0, b = 0;
+    bool in_rem = false;
+    while (true) {
+      if (left == 0) {
+        if (!EARLY || in_rem) break;
+        float p, du;
+        rb_residuals_call(sA, sP, ldv, sv, sred, tid, nth, nv, m, s, &p,
+                          &du);
+        if (!(p > tol || du > tol)) break;
+        if (chunks < n_full) {
+          left = check_every;
+          ++chunks;
+        } else if (rem > 0) {
+          left = rem;
+          in_rem = true;
+        } else {
+          break;
+        }
+      }
+      __syncthreads();
+      rb_iteration(kr, su + b * usz, su + (b ^ 1) * usz, szs, warp_soc,
+                   shfl, soc_max, has_shift, alpha, one_minus_alpha, s);
+      b ^= 1;
+      --left;
+    }
+    eff = chunks * check_every + (in_rem ? rem : 0);
+  }
+
+  // Exit residuals: prim over the m rows, dual over the nv columns.
+  float p, du;
+  rb_residuals(sA, sP, ldv, sv, sred, tid, nth, nv, m, s, &p, &du);
+  if (tid == 0) {
+    res[lane * 2] = p;
+    res[lane * 2 + 1] = du;
+    if (EARLY) effo[lane] = eff;
+  }
+  if (s.kind == RB_X) {
+    xo[lane * nv + s.i] = s.x;
+  } else if (s.kind != RB_NONE) {
+    yo[lane * m + s.r] = s.y;
+    zo[lane * m + s.r] = s.z;
   }
 }
 
@@ -475,8 +628,14 @@ __device__ __forceinline__ void warp_solve_lane(
       alpha, one_minus_alpha, soc
 
 // Eight kernels with distinct names (none a substring of another), so a
-// trace tells the bodies, forms and storage types apart. The shared-memory
-// body's grid is one block a lane (B unused).
+// trace tells the bodies, forms and storage types apart; each block-body
+// name is two overloads, one a layout. The block body's grid is one block a
+// lane (B unused).
+//
+// The shared-row layout, with no launch bound: the compiler's own register
+// choice (40 to 64 a thread) keeps 14 to 15 lanes an SM at d = 48 and 51;
+// under a 256-thread bound it took 110 to 127 registers and 8 lanes, and
+// ran slower on an H100.
 __global__ void fused_solve_kernel(FS_PARAMS(float)) {
   fused_solve_lane<false, float>(FS_ARGS);
 }
@@ -491,6 +650,55 @@ __global__ void fused_solve_bf16_kernel(FS_PARAMS(__nv_bfloat16)) {
 
 __global__ void fused_solve_early_bf16_kernel(FS_PARAMS(__nv_bfloat16)) {
   fused_solve_lane<true, __nv_bfloat16>(FS_ARGS);
+}
+
+// The register-row layout, DR the longest row of the instantiation, its
+// register budget rb_budget's (admm_common.cuh RB_SOLVE_SHORT_REGS,
+// RB_LONG_REGS).
+#define FS_ROW_BOUND(DR) \
+  __launch_bounds__(rb_threads(DR), rb_min_blocks(DR, true))
+
+template <int DR>
+__global__ void FS_ROW_BOUND(DR) fused_solve_kernel(FS_PARAMS(float)) {
+  rb_solve_lane<false, float, DR>(FS_ARGS);
+}
+
+template <int DR>
+__global__ void FS_ROW_BOUND(DR) fused_solve_early_kernel(FS_PARAMS(float)) {
+  rb_solve_lane<true, float, DR>(FS_ARGS);
+}
+
+template <int DR>
+__global__ void FS_ROW_BOUND(DR)
+    fused_solve_bf16_kernel(FS_PARAMS(__nv_bfloat16)) {
+  rb_solve_lane<false, __nv_bfloat16, DR>(FS_ARGS);
+}
+
+template <int DR>
+__global__ void FS_ROW_BOUND(DR)
+    fused_solve_early_bf16_kernel(FS_PARAMS(__nv_bfloat16)) {
+  rb_solve_lane<true, __nv_bfloat16, DR>(FS_ARGS);
+}
+
+// The block body's entry point: the shared-row overload for DR = 0 (the
+// one whose type names no template argument), else the register-row one.
+template <int DR>
+static const void* fs_fn(bool early, bool bf16) {
+  using F = void (*)(FS_PARAMS(float));
+  using H = void (*)(FS_PARAMS(__nv_bfloat16));
+  if constexpr (DR == 0)
+    return bf16 ? (early ? (const void*)static_cast<H>(
+                               fused_solve_early_bf16_kernel)
+                         : (const void*)static_cast<H>(
+                               fused_solve_bf16_kernel))
+                : (early ? (const void*)static_cast<F>(
+                               fused_solve_early_kernel)
+                         : (const void*)static_cast<F>(fused_solve_kernel));
+  else
+    return bf16 ? (early ? (const void*)fused_solve_early_bf16_kernel<DR>
+                         : (const void*)fused_solve_bf16_kernel<DR>)
+                : (early ? (const void*)fused_solve_early_kernel<DR>
+                         : (const void*)fused_solve_kernel<DR>);
 }
 
 // The warp body, with K2's rows DR = d rounded up to 8 entries long.
@@ -537,13 +745,17 @@ struct FsLaunch {
 
 static FsLaunch fs_launch_of(int body, int nv, int m, bool early, bool bf16) {
   const int d = nv + m;
-  FsLaunch l = {nullptr, 1, ((d + 31) / 32) * 32,
+  FsLaunch l = {nullptr, 1,
+                rb_threads(d),
                 fs_smem_floats(nv, m) * sizeof(float)};
   if (body == 0) {
-    l.fn = bf16 ? (early ? (const void*)fused_solve_early_bf16_kernel
-                         : (const void*)fused_solve_bf16_kernel)
-                : (early ? (const void*)fused_solve_early_kernel
-                         : (const void*)fused_solve_kernel);
+    switch (rb_takes(d) ? rb_bucket(d) : 0) {
+      case 0: l.fn = fs_fn<0>(early, bf16); break;
+      case 72: l.fn = fs_fn<72>(early, bf16); break;
+      case 80: l.fn = fs_fn<80>(early, bf16); break;
+      case 112: l.fn = fs_fn<112>(early, bf16); break;
+      default: l.fn = fs_fn<RB_MAX_D>(early, bf16); break;
+    }
     return l;
   }
   if (body != 1 || nv > WS_MAX_ROWS || m > WS_MAX_ROWS) return l;

@@ -38,11 +38,14 @@ The whole-solve kernel has two bodies, chosen from the shape ``(nv, m)``
 alone (:func:`fused_solve_geometry`): ``nv`` and ``m`` at most
 ``WARP_MAX_ROWS`` (every agent QP) runs one warp per lane, each thread
 holding one constraint row of K2 in registers (``warp_solve_*kernel``);
-other shapes (the centralized QPs) one block per lane with every operator
-in shared memory (``fused_solve_*kernel``). The chunk kernel has the same
-two bodies (:func:`admm_chunk_geometry`): ``warp_chunk_kernel`` for the
-agent QPs, with K2's x rows in registers where ``nv <= 16`` and in shared
-memory otherwise, and the one-block-a-lane ``admm_chunk_kernel`` beyond.
+other shapes (the centralized, full, RP and PMRL QPs) one block per lane,
+one thread a K2 row (``fused_solve_*kernel``), the row in that thread's
+registers where ``ROW_MIN_D <= d <= ROW_MAX_D`` (:func:`register_rows`),
+read from shared memory otherwise. The chunk kernel has the same two
+bodies (:func:`admm_chunk_geometry`): ``warp_chunk_kernel`` for the agent
+QPs, with K2's x rows in registers where ``nv <= 16`` and in shared memory
+otherwise, and the one-block-a-lane ``admm_chunk_kernel`` beyond, in the
+same two layouts.
 
 :func:`fused_solve_fits` and :func:`admm_chunk_fits` say from the shape
 alone whether a kernel takes a solve; the solver's route resolver
@@ -53,6 +56,9 @@ they reject (:func:`_check_layout`), from the same limits.
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
+import re
 from typing import NamedTuple, Sequence
 
 import torch
@@ -104,6 +110,14 @@ MAX_SMEM_BYTES = 232448
 # rows and constraint rows it takes, and lanes (warps) a block.
 WARP_MAX_ROWS = 32
 WARP_LANES_PER_BLOCK = 4
+# The block bodies' register-row layout (csrc/admm_common.cuh RB_MIN_D,
+# RB_MAX_D): the d it takes; every other d keeps K2 in shared memory.
+ROW_MIN_D, ROW_MAX_D = 65, 128
+# What the occupancy calculator gives a Hopper SM: registers, threads,
+# resident blocks, shared memory, and the shared memory the runtime reserves
+# a block.
+SM_REGISTERS, SM_THREADS, SM_BLOCKS = 65536, 2048, 32
+SM_SMEM_BYTES, BLOCK_RESERVED_SMEM_BYTES = 233472, 1024
 
 
 class _SocDims(ctypes.Structure):
@@ -176,15 +190,6 @@ def fused_solve_flops_per_lane(nv: int, m: int, iters: int,
             + residual_checks * _residual_flops(nv, m))
 
 
-def fused_solve_smem_bytes(nv: int, m: int) -> int:
-    """Dynamic shared memory of one block (one lane) of the shared-memory
-    body: K2, Minv, P, A with row strides padded to odd word counts, two
-    d-vectors and the reduction scratch (csrc/fused_solve.cu
-    fs_smem_floats)."""
-    d = nv + m
-    return 4 * (d * (d | 1) + (2 * nv + m) * (nv | 1) + 2 * d + 66)
-
-
 def _round_up(k: int, w: int) -> int:
     return -(-k // w) * w
 
@@ -194,6 +199,87 @@ def _ld16(k: int) -> int:
     odd number of them (csrc/fused_solve.cu ws_ld)."""
     r = _round_up(k, 4)
     return r if (r // 4) % 2 else r + 4
+
+
+def register_rows(d: int) -> bool:
+    """Whether the block bodies' thread a K2 row holds its row in
+    registers at ``d``; otherwise it reads the row from shared memory
+    (csrc/admm_common.cuh rb_takes)."""
+    return ROW_MIN_D <= d <= ROW_MAX_D
+
+
+def _row_ld(k: int) -> int:
+    """An operator's shared-memory row stride in the register-row layout:
+    whole 16-byte words (an odd number) for rows of a multiple of 4
+    floats, else an odd number of floats (csrc/admm_common.cuh rb_ld)."""
+    return _ld16(k) if k % 4 == 0 else k | 1
+
+
+def _row_bucket(d: int) -> int:
+    """The longest row of the register-row instantiation that takes d
+    (csrc/admm_common.cuh rb_bucket)."""
+    return next(b for b in (72, 80, 112, ROW_MAX_D) if d <= b)
+
+
+def _row_smem_floats(nv: int, m: int, solve: bool) -> int:
+    """One lane's shared memory in the register-row layout, in floats:
+    K2, for the whole solve Minv, P and A, two u buffers of the
+    instantiation's row length, for the whole solve a d-vector, the
+    pre-projection values and, for the whole solve, the reduction scratch;
+    each region whole 16-byte words (csrc/admm_common.cuh rb_smem)."""
+    d = nv + m
+    ops = ([_row_ld(nv) * k for k in (nv, nv, m)] if solve else [])
+    vecs = [d, m, 66] if solve else [m]
+    return (_round_up(d * _row_ld(d), 4) + sum(_round_up(k, 4) for k in ops)
+            + 2 * _ld16(_row_bucket(d)) + sum(_round_up(k, 4) for k in vecs))
+
+
+@functools.lru_cache(maxsize=None)
+def _row_register_budgets() -> dict:
+    """The register-row instantiations' register budget a thread, as
+    their launch bounds take it (csrc/admm_common.cuh RB_SHORT_D,
+    RB_SOLVE_SHORT_REGS, RB_CHUNK_SHORT_REGS, RB_LONG_REGS), read from the
+    header the kernels are built from."""
+    with open(os.path.join(_build.CSRC, "admm_common.cuh")) as fh:
+        text = fh.read()
+    return {name: int(re.search(rf"^#define {name} (\d+)$", text,
+                                re.M).group(1))
+            for name in ("RB_SHORT_D", "RB_SOLVE_SHORT_REGS",
+                         "RB_CHUNK_SHORT_REGS", "RB_LONG_REGS")}
+
+
+def block_lanes_per_sm(nv: int, m: int, chunk: bool = False) -> int:
+    """The lanes an SM keeps resident in the register-row layout at
+    ``(nv, m)`` when a thread takes its whole register budget: the fewest
+    that the SM's registers (allocated 256 a warp), threads, blocks and
+    shared memory allow. The build's own count (``fused_solve_info``,
+    ``admm_chunk_info``: ``lanes_per_sm``) is at least this."""
+    d = nv + m
+    if not register_rows(d):
+        raise ValueError(f"d={d} is outside the register-row layout "
+                         f"({ROW_MIN_D}..{ROW_MAX_D})")
+    b = _row_register_budgets()
+    short = "RB_CHUNK_SHORT_REGS" if chunk else "RB_SOLVE_SHORT_REGS"
+    budget = b["RB_LONG_REGS" if _row_bucket(d) > b["RB_SHORT_D"] else short]
+    geo = (admm_chunk_geometry(nv, m, "block") if chunk
+           else fused_solve_geometry(nv, m, "shared"))
+    warp_regs = _round_up(32 * budget, 256)
+    return min(SM_REGISTERS // (geo.threads // 32 * warp_regs),
+               SM_THREADS // geo.threads, SM_BLOCKS,
+               SM_SMEM_BYTES // (geo.smem_bytes + BLOCK_RESERVED_SMEM_BYTES))
+
+
+def fused_solve_smem_bytes(nv: int, m: int) -> int:
+    """Dynamic shared memory of one block (one lane) of the whole-solve
+    kernel's block body (csrc/fused_solve.cu fs_smem_floats): in the
+    register-row layout K2 (staged once, then held in registers), Minv, P,
+    A, the u buffers and vectors (:func:`_row_smem_floats`); otherwise K2,
+    Minv, P, A with row strides padded to odd word counts, two d-vectors
+    and the reduction scratch."""
+    d = nv + m
+    if register_rows(d):
+        return 4 * _row_smem_floats(nv, m, True)
+    return 4 * (d * (d | 1) + (2 * nv + m) * (nv | 1) + 2 * d + 66)
 
 
 def warp_smem_bytes(nv: int, m: int) -> int:
@@ -233,7 +319,7 @@ def fused_solve_geometry(nv: int, m: int, body: str | None = None
         return Geometry("warp", WARP_LANES_PER_BLOCK,
                         32 * WARP_LANES_PER_BLOCK,
                         WARP_LANES_PER_BLOCK * warp_smem_bytes(nv, m))
-    return Geometry("shared", 1, -(-d // 32) * 32,
+    return Geometry("shared", 1, _round_up(d, 32),
                     fused_solve_smem_bytes(nv, m))
 
 
@@ -277,9 +363,12 @@ def admm_chunk_flops_per_lane(nv: int, m: int, iters: int,
 
 def admm_chunk_smem_bytes(nv: int, m: int) -> int:
     """Dynamic shared memory of one block (one lane) of the chunk kernel's
-    block body: K2 with an odd row stride and two d-vectors
-    (csrc/admm_chunk.cu chunk_smem_floats)."""
+    block body (csrc/admm_chunk.cu chunk_smem_floats): in the register-row
+    layout K2 (staged once), the u buffers and the pre-projection values;
+    otherwise K2 with an odd row stride and two d-vectors."""
     d = nv + m
+    if register_rows(d):
+        return 4 * _row_smem_floats(nv, m, False)
     return 4 * (d * (d | 1) + 2 * d)
 
 
@@ -327,7 +416,7 @@ def admm_chunk_geometry(nv: int, m: int, body: str | None = None,
     if body == "block":
         if x_rows is not None:
             raise ValueError("x_rows= applies to the warp body only")
-        return ChunkGeometry("block", None, 1, -(-d // 32) * 32,
+        return ChunkGeometry("block", None, 1, _round_up(d, 32),
                              admm_chunk_smem_bytes(nv, m))
     if x_rows is None:
         x_rows = "split" if nv <= WARP_SPLIT_MAX_NV else "shared"
